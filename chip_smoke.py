@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
+(never ``jax`` or ``repro``). Phases, in order; any failure is an
+exception and a nonzero exit:
+
+1. Card: ``nvidia-smi --query-gpu=name,power.limit``.
+2. Build: compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` with nvcc.
+3. K1 (V-trace recurrence) against its plain PyTorch version, on the card.
+4. K2 (fused loss + V-trace) against its plain version, forward and the
+   ``autograd.Function``'s d_logits of the assembled IMPALA total.
+5. The main path: ``repro_torch.launch.train`` at its defaults (sync,
+   catch, impala-shallow at full width, 32 envs, unroll 20) for
+   ``MAIN_STEPS`` steps on the card, with K2 launched once per learner
+   step; then ``impala_loss(impl='pallas')`` on the last actor batch puts
+   K1 on the path. Launch counts are zeroed just before and read just
+   after.
+6. Learning bar: the JAX package's bandit bar (tests/test_system.py,
+   mean return over the last 200 episodes > 0.6 after 150 steps), through
+   the same CLI on the card.
+7. Split: where a main-path step's time goes, actor unroll against
+   learner step, each timed on the host clock up to a synchronise; then
+   the card's busy time over a few steps from a ``torch.profiler`` trace,
+   and the device kernels that take most of it.
+8. Times with CUDA events: each kernel and its plain version, beside the
+   least time the card could take (bytes over 3.35 TB/s, operations over
+   67 TFLOP/s fp32; the larger of the two).
+
+TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
+the card computes in full float32 like the reference. It exits nonzero
+and prints no result where ``torch.cuda.is_available()`` is false.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# per element |got - want| <= ATOL, for K1, K2 and K2's d_logits. The
+# kernels are built with -fmad=false and the plain versions sum over the
+# actions in the kernel's order, so the two round alike
+ATOL = 1e-5
+MAIN_STEPS = 200
+BANDIT_STEPS = 150
+BANDIT_BAR = 0.6
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
+         (1.0, 1.0, 0.9)]
+K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 256)]
+K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 256, 18), (16, 8, 130)]
+MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
+BIG_T, BIG_B, BIG_A = 100, 256, 18
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0]
+
+
+def _inputs(t, b, a, seed, device):
+    """Time-major K2 inputs made on the CPU from a seed, moved to the card.
+    The actions are drawn from a behaviour policy near the target one, as
+    an actor a few updates behind draws them in training."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(t, b, a, generator=g) * 2.0
+    b_logp = torch.log_softmax(
+        logits + torch.randn(t, b, a, generator=g) * 0.3, -1)
+    actions = torch.multinomial(b_logp.exp().reshape(-1, a), 1,
+                                generator=g).reshape(t, b)
+    onehot = torch.nn.functional.one_hot(actions, a).to(torch.float32)
+    blp = torch.sum(b_logp * onehot, -1)
+    disc = torch.where(torch.rand(t, b, generator=g) < 0.1, 0.0, 0.97)
+    rew = torch.randn(t, b, generator=g)
+    v = torch.randn(t, b, generator=g)
+    vtp1 = torch.cat([v[1:], torch.randn(1, b, generator=g)], 0)
+    return tuple(x.to(device) for x in
+                 (logits, onehot, blp, disc, rew, v, vtp1))
+
+
+def _log_rhos(inp):
+    """log pi(a|x) - log mu(a|x) of K2's inputs: what K1 is given."""
+    logits, onehot, blp = inp[:3]
+    return torch.sum(torch.log_softmax(logits, -1) * onehot, -1) - blp
+
+
+def _weights(log_rhos, rho_bar, c_bar, lambda_):
+    rhos = torch.exp(log_rhos)
+    rho = rhos if rho_bar is None else torch.clamp(rhos, max=rho_bar)
+    c = lambda_ * (rhos if c_bar is None else torch.clamp(rhos, max=c_bar))
+    return rho, c
+
+
+def _check(name: str, got, want) -> float:
+    """Hold each output element to ATOL; return the max abs error."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        err = float((g - w).abs().max())
+        if not err <= ATOL:
+            raise AssertionError(
+                f"{name}: max abs error {err:.3e} exceeds {ATOL:.0e} "
+                f"(max |want| {float(w.abs().max()):.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def _total(outs, v):
+    """The IMPALA total assembled from K2's outputs (vs/pg_adv targets)."""
+    tlp, ne, vs, pg = outs
+    return (-torch.sum(pg.detach() * tlp)
+            + 0.5 * torch.sum(torch.square(vs.detach() - v))
+            + 0.01 * torch.sum(ne))
+
+
+def phase_k1(vk, dev) -> float:
+    worst = 0.0
+    for t, b in K1_SHAPES:
+        inp = _inputs(t, b, 3, t * 7 + b, dev)
+        for clip in CLIPS:
+            rho, c = _weights(_log_rhos(inp), *clip)
+            args = (rho, c) + inp[3:]
+            err = _check(f"K1 {(t, b)} clip={clip}", vk.vtrace(*args),
+                         vk.vtrace_plain(*args))
+            worst = max(worst, err)
+        print(f"K1 (T,B)={(t, b)}: max abs err over {len(CLIPS)} clip "
+              f"settings {worst:.3e}")
+    return worst
+
+
+def phase_k2(vk, dev) -> float:
+    worst = 0.0
+    for t, b, a in K2_SHAPES:
+        inp = _inputs(t, b, a, t * 131 + b * 7 + a, dev)
+        fwd = grad = 0.0
+        for clip in CLIPS:
+            kw = dict(zip(("rho_bar", "c_bar", "lambda_"), clip))
+            fwd = max(fwd, _check(f"K2 forward {(t, b, a)} clip={clip}",
+                                  vk.loss_vtrace(*inp, **kw),
+                                  vk.loss_vtrace_plain(*inp, **kw)))
+            lg_k = inp[0].clone().requires_grad_()
+            lg_p = inp[0].clone().requires_grad_()
+            g_k, = torch.autograd.grad(
+                _total(vk.fused_loss_vtrace(lg_k, *inp[1:], **kw), inp[5]),
+                lg_k)
+            g_p, = torch.autograd.grad(
+                _total(vk.loss_vtrace_plain(lg_p, *inp[1:], **kw), inp[5]),
+                lg_p)
+            grad = max(grad, _check(f"K2 d_logits {(t, b, a)} clip={clip}",
+                                    [g_k], [g_p]))
+        worst = max(worst, fwd)
+        print(f"K2 (T,B,A)={(t, b, a)}: max abs err over {len(CLIPS)} clip "
+              f"settings, forward {fwd:.3e}, d_logits {grad:.3e}")
+    return worst
+
+
+def phase_main(vk, dev):
+    from repro_torch import params as params_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.losses import impala_loss
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    argv = ["--device", "cuda", "--env", "catch", "--arch", "impala-shallow",
+            "--steps", str(MAIN_STEPS), "--log-every", "25"]
+    vk.reset_launch_counts()
+    run = train_lib.train(argv)
+    k2_train = vk.loss_vtrace.launches
+    if k2_train != MAIN_STEPS or vk.vtrace.launches != 0:
+        raise AssertionError(f"K2 launched {k2_train} times in "
+                             f"{MAIN_STEPS} learner steps (K1: "
+                             f"{vk.vtrace.launches}); expected one K2 "
+                             f"launch per step and no K1")
+    # K1 on the path: the plain V-trace kernel's loss on the last batch
+    batch = run.last_batch
+    with torch.no_grad():
+        logits, values = learner_lib.forward_trajectory(
+            run.params, batch, run.arch, run.env.num_actions)
+    loss_batch = {k: batch[k] for k in ("actions", "rewards", "discounts",
+                                        "behaviour_logprob")}
+    loss_batch["bootstrap_value"] = values[:, -1]
+    lg, vv = logits[:, :-1], values[:, :-1]
+    total_k1, m_k1 = impala_loss(run.icfg, lg, vv, loss_batch, impl="pallas")
+    torch.cuda.synchronize()
+    launches = {"vtrace": vk.vtrace.launches,
+                "loss_vtrace": vk.loss_vtrace.launches}
+    if launches["vtrace"] < 1:
+        raise AssertionError("K1 was not launched on the main path")
+
+    # what came out: finite, of the expected shape, params moved, and the
+    # kernel routes agree with the reverse loop on the last actor batch
+    t, b, a = MAIN_T, MAIN_B, run.env.num_actions
+    if tuple(logits.shape) != (b, t + 1, a) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite "
+                             f"(B,T+1,A)=({b},{t + 1},{a})")
+    loss = float(run.metrics["loss/total"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"final loss {loss} is not finite")
+    specs = bb.backbone_specs(run.arch, run.env.num_actions)
+    init = params_lib.from_jax(common.init_params(specs, 0), dev,
+                               requires_grad=False)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(
+        params_lib.tree_leaves(run.params), params_lib.tree_leaves(init)))
+    if not moved > 0:
+        raise AssertionError("params did not change in training")
+    total_scan, m_scan = impala_loss(run.icfg, lg, vv, loss_batch,
+                                     impl="scan")
+    total_fused, _ = impala_loss(run.icfg, lg, vv, loss_batch, impl="fused")
+    for name, got in (("pallas", total_k1), ("fused", total_fused)):
+        want = float(total_scan)
+        if not abs(float(got) - want) <= 1e-4 + 1e-5 * abs(want):
+            raise AssertionError(f"impala_loss impl={name} {float(got)} vs "
+                                 f"scan {want}")
+    _check("impl=pallas mean vs against scan", [m_k1["vtrace/mean_vs"]],
+           [m_scan["vtrace/mean_vs"]])
+    first, last = run.log[0], run.log[-1]
+    print(f"main path: {MAIN_STEPS} learner steps, K2 launches "
+          f"{k2_train}, final loss {loss:.4f}, params moved (max |dp| "
+          f"{moved:.3e})")
+    print(f"main path: return(100) {first['return100']:.3f} at step "
+          f"{first['step']} -> {last['return100']:.3f} at step "
+          f"{last['step']}; frames/s {run.fps:.0f} (steady window after "
+          f"the first update)")
+    print(f"main path: impala_loss total pallas {float(total_k1):.6f} "
+          f"fused {float(total_fused):.6f} scan {float(total_scan):.6f}")
+    return launches, run
+
+
+def phase_bandit() -> float:
+    """The JAX package's learning bar (tests/test_system.py,
+    test_full_pipeline_learns_bandit), through the CLI on the card."""
+    from repro_torch.launch import train as train_lib
+
+    run = train_lib.train([
+        "--device", "cuda", "--env", "bandit", "--smoke", "--unroll", "16",
+        "--lr", "1e-3", "--entropy-cost", "0.005", "--rmsprop-eps", "0.01",
+        "--policy-lag", "1", "--num-envs", "32",
+        "--steps", str(BANDIT_STEPS), "--log-every", "50"])
+    final = run.tracker.mean_return(200)
+    if not final > BANDIT_BAR:
+        raise AssertionError(f"bandit mean return(200) {final:.3f} after "
+                             f"{BANDIT_STEPS} steps; the bar is "
+                             f"{BANDIT_BAR}")
+    print(f"learning bar: bandit mean return(200) {final:.3f} > "
+          f"{BANDIT_BAR} after {BANDIT_STEPS} steps")
+    return final
+
+
+def _device_busy(events):
+    """(busy us, device events, {name: (us, count)}) of the device-side
+    events of a profiler trace; busy is the union of their intervals."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + end - start, n + 1)
+    busy, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    return busy, len(spans), by_name
+
+
+def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
+    """Host-clock split of a main-path step: one actor unroll, then one
+    learner step, each ended by a synchronise, after one warm-up step.
+    Then ``profiled`` more steps under ``torch.profiler``: the card's busy
+    time per step against the unprofiled step time, and the device kernels
+    that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core import learner as learner_lib
+
+    init_fn, unroll = actor_lib.build_actor(run.env, run.arch, run.icfg,
+                                            MAIN_B, dev)
+    train_step, o = learner_lib.build_train_step(run.arch, run.icfg,
+                                                 run.env.num_actions)
+    params, opt_state, carry = run.params, o.init(run.params), init_fn(1)
+    act = learn = 0.0
+    for step in range(steps + 1):
+        t0 = time.perf_counter()
+        carry, batch = unroll(params, carry)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt_state, _ = train_step(params, opt_state, step, batch)
+        torch.cuda.synchronize()
+        if step:                      # step 0 warms up
+            act += t1 - t0
+            learn += time.perf_counter() - t1
+    act, learn = act / steps * 1e3, learn / steps * 1e3
+    print(f"split: actor unroll {act:.3f} ms, learner step {learn:.3f} ms "
+          f"per step ({100 * act / (act + learn):.1f}% acting; host clock "
+          f"to a synchronise, mean of {steps} steps, {MAIN_B} envs x "
+          f"unroll {MAIN_T})")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for step in range(profiled):
+            carry, batch = unroll(params, carry)
+            params, opt_state, _ = train_step(params, opt_state, step, batch)
+        torch.cuda.synchronize()
+    busy_us, count, by_name = _device_busy(prof.events())
+    if not count:
+        print("device busy share: not measured (the profiler trace holds "
+              "no device events)")
+        return
+    busy_ms = busy_us / profiled / 1e3
+    print(f"device: busy {busy_ms:.3f} ms per step over {profiled} "
+          f"profiled steps, {count / profiled:.0f} device events per step; "
+          f"{100 * busy_ms / (act + learn):.1f}% of the unprofiled "
+          f"{act + learn:.3f} ms step, so the card idles "
+          f"{100 - 100 * busy_ms / (act + learn):.1f}% of it")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        print(f"  device {us / profiled / 1e3:8.3f} ms/step "
+              f"{n / profiled:6.0f} calls/step  {name[:90]}")
+
+
+def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _bound(nbytes: int, ops: int):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _k1_cost(t, b):
+    # 6 inputs read and 2 outputs written once; 13 flops per (s, b)
+    return 8 * t * b * 4, 13 * t * b
+
+
+def _k2_cost(t, b, a):
+    # logits and onehot (T,B,A), 5 (T,B) inputs, 4 (T,B) outputs; per row
+    # 11 ops for each action (max, exp-sum, log-prob, tlp, entropy) and 20
+    # for the weights and the recurrence
+    return (2 * t * b * a + 9 * t * b) * 4, (11 * a + 20) * t * b
+
+
+def phase_times(vk, dev):
+    rows = {}
+    for t, b, a in ((MAIN_T, MAIN_B, MAIN_A), (BIG_T, BIG_B, BIG_A)):
+        inp = _inputs(t, b, a, 5, dev)
+        rho, c = _weights(_log_rhos(inp), 1.0, 1.0, 1.0)
+        k1_args = (rho, c) + inp[3:]
+        for name, kern, plain, args, cost in (
+                ("vtrace", vk.vtrace, vk.vtrace_plain, k1_args,
+                 _k1_cost(t, b)),
+                ("loss_vtrace", vk.loss_vtrace, vk.loss_vtrace_plain, inp,
+                 _k2_cost(t, b, a))):
+            ms = _time_ms(lambda: kern(*args))
+            plain_ms = _time_ms(lambda: plain(*args))
+            bound_ms, bound_by = _bound(*cost)
+            shape = (t, b) if name == "vtrace" else (t, b, a)
+            print(f"time {name} {shape}: kernel {ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, bound {bound_ms:.7f} ms "
+                  f"({bound_by}: {cost[0]} B, {cost[1]} ops), library: "
+                  f"none (no single PyTorch call computes V-trace)")
+            if (t, b) == (MAIN_T, MAIN_B):
+                rows[name] = dict(ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; it needs "
+              "an NVIDIA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import build
+    from repro_torch.kernels import vtrace as vk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = _card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}; TF32 off for cuDNN convs and "
+          f"cuBLAS matmuls in every phase")
+
+    t0 = time.time()
+    path, log = build.build()
+    build.load()
+    print(f"build: {time.time() - t0:.2f} s -> {path.relative_to(ROOT)}")
+    for line in log.splitlines():
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+            print(f"  {line.strip()}")
+
+    err_k1 = phase_k1(vk, dev)
+    err_k2 = phase_k2(vk, dev)
+    launches, run = phase_main(vk, dev)
+    phase_bandit()
+    phase_split(run, dev)
+    rows = phase_times(vk, dev)
+
+    meta = {
+        "vtrace": ("src/repro_torch/csrc/vtrace.cu",
+                   "src/repro/kernels/vtrace.py:74", err_k1),
+        "loss_vtrace": ("src/repro_torch/csrc/vtrace.cu",
+                        "src/repro/kernels/vtrace.py:165", err_k2),
+    }
+    kernels = []
+    for name, (source, replaces, err) in meta.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, **rows[name],
+                        "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,50 @@
+"""Configuration dataclasses (the port's own copy of ``repro.configs.base``).
+
+Both keep only the fields the ported paths read: ``ArchConfig`` those of
+the conv-LSTM agents (the token backbones' fields join with them), and
+``ImpalaConfig`` all but the replay buffer's, which join with the replay
+learner.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    impala_net: str               # 'shallow' | 'deep'
+    image_hw: Tuple[int, int, int] = (72, 96, 3)
+    lstm_width: int = 256
+    # citation for the source model/paper
+    source: str = ""
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImpalaConfig:
+    num_actions: int = 18                # Atari full action set by default
+    unroll_length: int = 100             # n (paper Table D.3)
+    discount: float = 0.99
+    baseline_cost: float = 0.5
+    entropy_cost: float = 0.00025
+    rho_bar: Optional[float] = 1.0       # \bar{rho}; None = no clip
+    c_bar: Optional[float] = 1.0         # \bar{c}; None = no clip
+    lambda_: float = 1.0                 # Remark 2 extension
+    correction: str = "vtrace"           # vtrace | onestep_is | eps | none
+    # Appendix E.3: q_s = r + gamma*v_{s+1} ('vtrace', default/better) vs
+    # q_s = r + gamma*V(x_{s+1}) ('baseline_v', no rollout information)
+    pg_q_estimate: str = "vtrace"
+    eps_correction: float = 1e-6
+    reward_clip: str = "abs_one"         # abs_one | soft_asymmetric | none
+    # simulated policy lag (actor params k updates behind learner)
+    policy_lag: int = 1
+    learning_rate: float = 6e-4
+    lr_anneal_steps: int = 0             # 0 = constant
+    rmsprop_decay: float = 0.99
+    rmsprop_momentum: float = 0.0
+    rmsprop_eps: float = 0.1
+    grad_clip_norm: float = 40.0

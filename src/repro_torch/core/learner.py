@@ -1,0 +1,88 @@
+"""The IMPALA learner: batched V-trace actor-critic updates (paper §3, §4.2),
+``repro.core.learner`` for the f32 conv-LSTM agents.
+
+``build_train_step`` returns ``train_step(params, opt_state, step, batch)``.
+It runs eagerly: PyTorch needs no ``jit``. The parameters are updated in
+place (``optim.apply_updates``); mixed precision is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, ImpalaConfig
+from repro_torch.core import losses as losses_lib
+from repro_torch.models import backbone as bb
+from repro_torch.optim import optimizer as opt_lib
+from repro_torch.params import tree_leaves, tree_unflatten_like
+
+Tree = Any
+
+
+def forward_trajectory(params, batch: Dict, arch_cfg: ArchConfig,
+                       num_actions: int):
+    """Run the backbone over the T+1 trajectory observations.
+
+    Returns (logits (B,T+1,A), values (B,T+1))."""
+    model_batch = {
+        "image": batch["obs_image"],
+        "last_action": batch["last_action"],
+        "last_reward": batch["last_reward"],
+        "done": batch["done_in"],
+        "lstm_state": batch.get("lstm_state"),
+    }
+    out = bb.apply_train(params, model_batch, arch_cfg, num_actions)
+    return out.policy_logits, out.values
+
+
+def build_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                  num_actions: int, vtrace_impl: str = "auto"):
+    def loss_fn(params, batch):
+        logits, values = forward_trajectory(params, batch, arch_cfg,
+                                            num_actions)
+        loss_batch = {
+            "actions": batch["actions"],
+            "rewards": batch["rewards"],
+            "discounts": batch["discounts"],
+            "behaviour_logprob": batch["behaviour_logprob"],
+            "bootstrap_value": values[:, -1],
+        }
+        return losses_lib.impala_loss(cfg, logits[:, :-1], values[:, :-1],
+                                      loss_batch, impl=vtrace_impl)
+
+    return loss_fn
+
+
+def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                     num_actions: int,
+                     optimizer: opt_lib.Optimizer = None,
+                     vtrace_impl: str = "auto",
+                     ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
+                                opt_lib.Optimizer]:
+    """vtrace_impl: 'auto' picks the fused kernel (K2) for CUDA params and
+    the reverse loop for CPU params (``losses.resolve_vtrace_impl``);
+    'fused' / 'pallas' / 'scan' / 'reference' pin an implementation."""
+    if optimizer is None:
+        optimizer = opt_lib.rmsprop(decay=cfg.rmsprop_decay,
+                                    eps=cfg.rmsprop_eps,
+                                    momentum=cfg.rmsprop_momentum)
+    lr_fn = opt_lib.linear_schedule(cfg.learning_rate, 0.0,
+                                    cfg.lr_anneal_steps)
+    loss_fn = build_loss_fn(arch_cfg, cfg, num_actions, vtrace_impl)
+
+    def train_step(params, opt_state, step, batch):
+        loss, metrics = loss_fn(params, batch)
+        grads = tree_unflatten_like(params, torch.autograd.grad(
+            loss, tree_leaves(params)))
+        lr = lr_fn(step)
+        grads, grad_norm = opt_lib.clip_by_global_norm(
+            grads, cfg.grad_clip_norm)
+        updates, opt_state = optimizer.update(grads, opt_state, params, lr)
+        params = opt_lib.apply_updates(params, updates)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["opt/grad_norm"] = grad_norm
+        metrics["opt/lr"] = lr
+        return params, opt_state, metrics
+
+    return train_step, optimizer

@@ -1,0 +1,49 @@
+"""Dispatching wrapper over the V-trace kernel (``repro.kernels.ops``).
+
+``impl='auto'`` picks the hand-written kernel for CUDA tensors and the
+plain oracle for CPU tensors. ``'pallas'`` keeps the reference's name for
+the kernel route: on CUDA it launches K1; on the CPU K1's wrapper runs
+its plain version.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import vtrace as vtrace_k
+
+
+def _resolve(impl: str, device: torch.device) -> str:
+    if impl == "auto":
+        return "pallas" if device.type == "cuda" else "ref"
+    return impl
+
+
+def vtrace(log_rhos, discounts, rewards, values, bootstrap_value,
+           rho_bar: Optional[float] = 1.0, c_bar: Optional[float] = 1.0,
+           lambda_: float = 1.0, impl: str = "auto"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-major (B, T) inputs, like ``repro_torch.core.vtrace``.
+
+    Returns (vs, pg_advantages) each (B, T) f32.
+    """
+    impl_r = _resolve(impl, log_rhos.device)
+    rhos = torch.exp(log_rhos.to(torch.float32))
+    rho = torch.clamp(rhos, max=rho_bar) if rho_bar is not None else rhos
+    c = lambda_ * (torch.clamp(rhos, max=c_bar) if c_bar is not None
+                   else rhos)
+    v = values.to(torch.float32)
+    vtp1 = torch.cat([v[:, 1:], bootstrap_value.to(torch.float32)[:, None]],
+                     dim=1)
+    args = tuple(x.t().contiguous()
+                 for x in (rho, c, discounts.to(torch.float32),
+                           rewards.to(torch.float32), v, vtp1))
+    if impl_r == "ref":
+        vs, pg = ref.vtrace_ref(*args)
+    elif impl_r == "pallas":
+        vs, pg = vtrace_k.vtrace(*args)
+    else:
+        raise ValueError(impl)
+    return vs.t(), pg.t()

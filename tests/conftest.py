@@ -25,6 +25,10 @@ def pytest_configure(config):
         "markers",
         "timeout_s(seconds): per-test wall-clock cap enforced by the "
         "conftest SIGALRM watchdog (default REPRO_TEST_TIMEOUT)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc; skips inside the test when "
+        "torch.cuda.is_available() is false")
     try:
         multiprocessing.set_start_method("spawn")
     except RuntimeError:

@@ -1,0 +1,153 @@
+"""Guard rails of the PyTorch port: it imports neither jax nor any module
+of ``repro``, its entry point asked for ``cuda`` raises where there is no
+card, and on CPU tensors the kernel wrappers take their plain versions
+without counting a launch. On a card, the ``cuda``-marked case holds each
+kernel against its plain version.
+
+This file imports no jax, so it also runs where only the port is
+installed: ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_guard.py`` on the card."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import vtrace as vk
+from repro_torch.launch import train as train_lib
+
+torch.set_num_threads(1)
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+def test_port_imports_no_jax_and_no_repro_module():
+    """Import every module of repro_torch, and chip_smoke.py, in a fresh
+    interpreter; then neither jax nor ``repro``/``repro.*`` may be loaded
+    (``repro_torch`` itself starts with ``repro`` and is allowed)."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
+        "print(len(names))\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT])
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.strip()) >= 20     # every module was walked
+
+
+def test_trainer_asked_for_cuda_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="is_available"):
+        train_lib.train(["--device", "cuda", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--runtime", "async"], "async"),
+    (["--replay-fraction", "0.5"], "replay"),
+    (["--ckpt-dir", "x"], "ckpt"),
+    (["--arch", "gemma-7b"], "token"),
+    (["--env", "rooms"], "catch and bandit"),
+])
+def test_unported_paths_exit_with_the_roadmap_item(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+
+
+def test_wrappers_take_plain_versions_on_cpu_without_counting():
+    rng = np.random.default_rng(0)
+    t, b, a = 5, 3, 4
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    rho, c, disc, rew, v, vtp1 = (f(t, b) for _ in range(6))
+    logits = f(t, b, a)
+    onehot = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, a, (t, b))), a).to(torch.float32)
+    vk.reset_launch_counts()
+    got = vk.vtrace(rho, c, disc, rew, v, vtp1)
+    want = vk.vtrace_plain(rho, c, disc, rew, v, vtp1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    got2 = vk.loss_vtrace(logits, onehot, rew, disc, rew, v, vtp1)
+    want2 = vk.loss_vtrace_plain(logits, onehot, rew, disc, rew, v, vtp1)
+    for g, w in zip(got2, want2):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    vk.fused_loss_vtrace(logits, onehot, rew, disc, rew, v, vtp1)
+    assert vk.vtrace.launches == 0
+    assert vk.loss_vtrace.launches == 0
+
+
+def test_wrappers_refuse_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 3)
+    with pytest.raises(TypeError, match="float32"):
+        vk.vtrace(x.double(), x, x, x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros(3, 4).t()
+        vk.vtrace(y, y, y, y, y, y)
+    with pytest.raises(ValueError, match="shape"):
+        vk.vtrace(x, x, x, x, x, torch.zeros(4, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,a", [(20, 32, 3), (37, 130, 5),
+                                   (100, 256, 18), (16, 8, 130)])
+def test_kernels_match_plain_on_the_card(t, b, a):
+    """Clipped weights (the defaults), so every output is held to 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(t + b + a)
+    logits = torch.randn(t, b, a, generator=g) * 2.0
+    onehot = torch.nn.functional.one_hot(
+        torch.randint(0, a, (t, b), generator=g), a).to(torch.float32)
+    blp = torch.sum(torch.log_softmax(logits, -1) * onehot, -1) - 0.2
+    disc = torch.full((t, b), 0.97)
+    rew, v, vtp1 = (torch.randn(t, b, generator=g) for _ in range(3))
+    inp = tuple(x.to(dev) for x in (logits, onehot, blp, disc, rew, v,
+                                    vtp1))
+    vk.reset_launch_counts()
+    for got, want in zip(vk.loss_vtrace(*inp), vk.loss_vtrace_plain(*inp)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    rho = torch.clamp(torch.exp(inp[2] + 1.0), max=1.0)
+    args = (rho, rho) + inp[3:]
+    for got, want in zip(vk.vtrace(*args), vk.vtrace_plain(*args)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert (vk.vtrace.launches, vk.loss_vtrace.launches) == (1, 1)
+
+
+def test_chip_smoke_device_busy_is_the_union_of_device_spans():
+    """chip_smoke.py's idle share counts overlapping device spans once and
+    ignores host-side events."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    def ev(name, start, end, dev=DeviceType.CUDA):
+        return SimpleNamespace(name=name, device_type=dev,
+                               time_range=SimpleNamespace(start=start,
+                                                          end=end))
+
+    events = [ev("k", 0.0, 4.0), ev("k", 10.0, 12.0), ev("conv", 3.0, 6.0),
+              ev("conv", 11.0, 11.5), ev("host op", 0.0, 100.0,
+                                         DeviceType.CPU)]
+    busy, count, by_name = smoke._device_busy(events)
+    assert busy == 8.0          # [0, 6] and [10, 12]
+    assert count == 4
+    assert by_name == {"k": (6.0, 2), "conv": (3.5, 2)}
