@@ -28,6 +28,27 @@ exception and a nonzero exit:
 8. Times with CUDA events: each kernel and its plain version, beside the
    least time the card could take (bytes over 3.35 TB/s, operations over
    67 TFLOP/s fp32; the larger of the two).
+9. K4 (flash attention) against its plain version on the card, in bf16
+   and f32: the serving path's prefill shape, a ragged T, S != T, non-
+   causal, a sliding window, one and four query heads per kv head.
+10. K5 (decode attention) against its plain version: the serving path's
+    decode shape, S = 32768, a ragged S, and biases with masked prefixes
+    and suffixes built by the decode path's own ``decode_bias``.
+11. The serving path: ``repro_torch.launch.serve`` at its defaults
+    (mistral-nemo-12b at full width and depth, 64 requests, batch 16, ctx
+    128, 32 decode steps) on the card. K4 must launch once a layer at each
+    prefill and K5 once a layer at each decode step; counts are zeroed just
+    before and read just after. Prints actions/s, step latency, prefill and
+    decode-step ms and the card's peak allocated memory.
+12. Served logits against the plain route: the first batch's tokens and
+    sampled actions replayed through ``ops``'s ``impl='ref'`` route on the
+    same params; prefill logits and every decode step's logits compared.
+13. Where a decode step's time goes: a ``torch.profiler`` trace of a few
+    decode steps, the card's busy time against the unprofiled step.
+14. Times with CUDA events: K4 and K5 at the serving path's shapes and at
+    one long shape each, beside the plain version, the bound (bytes over
+    3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
+    ``F.scaled_dot_product_attention``, that the port never calls.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -51,17 +72,61 @@ sys.path.insert(0, str(ROOT / "src"))
 # kernels are built with -fmad=false and the plain versions sum over the
 # actions in the kernel's order, so the two round alike
 ATOL = 1e-5
+# K4/K5 in float32: kernel and plain version both compute in f32 from the
+# same inputs but sum the D-term dot products and the softmax in other
+# orders (and the kernel fuses its multiply-adds), a few f32 ulps of
+# outputs of size ~1: |err| <= ATTN_F32_ATOL + ATTN_F32_RTOL * |want|
+ATTN_F32_ATOL = 1e-5
+ATTN_F32_RTOL = 1e-5
+# K4/K5 in bfloat16: each output is one rounding of an f32 result, and the
+# two f32 results differ as above, so they may round to neighbouring bf16
+# values: one bf16 ulp, at most 2^-7 * |want|, plus the f32 slack near 0
+ATTN_BF16_RTOL = 2.0 ** -7
+ATTN_BF16_ATOL = 1e-5
+# served logits, kernel route against plain route: the same bf16 model on
+# the same params and tokens, differing only where an attention output
+# rounds to the other neighbouring bf16 value (one ulp, 2^-8 relative) in
+# some of the 40 layers; the residual stream, norms and matmuls carry that
+# at roughly sqrt(40) * 2^-8 = 2.5% of the activations' scale, so the
+# logits are held to 5% of their own largest magnitude
+LOGITS_RTOL = 0.05
 MAIN_STEPS = 200
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
          (1.0, 1.0, 0.9)]
 K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 256)]
 K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 256, 18), (16, 8, 130)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
 BIG_T, BIG_B, BIG_A = 100, 256, 18
+# K4 checks: (B, T, S, H, K, D, causal, window)
+K4_CASES = [
+    (16, 128, 128, 32, 8, 128, True, 0),    # the serving path's prefill
+    (2, 100, 100, 32, 8, 128, True, 0),     # ragged T
+    (2, 100, 160, 32, 8, 128, True, 0),     # S > T
+    (2, 160, 100, 32, 8, 128, True, 0),     # S < T
+    (2, 128, 128, 32, 8, 128, False, 0),    # non-causal
+    (1, 512, 512, 32, 8, 128, True, 64),    # window 64 (swa_variant's)
+    (2, 128, 128, 8, 8, 128, True, 0),      # G = 1
+    (2, 96, 96, 16, 4, 64, True, 0),        # G = 4 at D = 64
+    (2, 70, 70, 4, 2, 32, True, 24),        # the smoke config's D = 32
+]
+# K5 checks: (B, H, K, S, D, cache_index, window) with the decode path's
+# bias: decode_bias(cache_index, S, window)
+K5_CASES = [
+    (16, 32, 8, 128, 128, 160, 0),          # the serving path's decode
+    (8, 32, 8, 32768, 128, 40000, 0),       # decode_32k, all valid
+    (4, 32, 8, 1000, 128, 999, 0),          # ragged S
+    (4, 32, 8, 1000, 128, 300, 0),          # masked suffix: cache with room
+    (4, 32, 8, 1024, 128, 2000, 256),       # ring buffer: masked prefix
+    (4, 32, 8, 512, 128, 200, 128),         # ring not yet full: both ends
+    (3, 8, 8, 130, 64, 100, 0),             # G = 1 at D = 64
+]
+SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
+SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
 
 
 def _card_line() -> str:
@@ -338,6 +403,7 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    warmup = min(warmup, iters)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -351,9 +417,9 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(nbytes: int, ops: int):
+def _bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -395,12 +461,281 @@ def phase_times(vk, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the serving path, K4 and K5
+
+
+def _rand(shape, seed: int, dtype, dev):
+    """Standard normals drawn on the CPU from a seed, moved to the card."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(dev, dtype)
+
+
+def _attn_check(name: str, got, want) -> float:
+    """Hold K4/K5 outputs to the tolerance of their dtype (ATTN_*);
+    return the max abs error."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.float32:
+        allow = ATTN_F32_ATOL + ATTN_F32_RTOL * w.abs()
+    else:
+        allow = ATTN_BF16_ATOL + ATTN_BF16_RTOL * w.abs()
+    over = err > allow
+    if bool(over.any()):
+        i = int(torch.argmax((err - allow).flatten()))
+        raise AssertionError(
+            f"{name}: {int(over.sum())} elements over the {want.dtype} "
+            f"tolerance; worst |got - want| {float(err.flatten()[i]):.3e} "
+            f"at |want| {float(w.abs().flatten()[i]):.3e}")
+    return float(err.max())
+
+
+def phase_k4(fk, dev) -> float:
+    worst = 0.0
+    for n, (b, t, s, h, kh, d, causal, window) in enumerate(K4_CASES):
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _rand((b, t, h, d), 3 * n, dtype, dev)
+            k = _rand((b, s, kh, d), 3 * n + 1, dtype, dev)
+            v = _rand((b, s, kh, d), 3 * n + 2, dtype, dev)
+            name = (f"K4 (B,T,S,H,K,D)={(b, t, s, h, kh, d)} causal={causal}"
+                    f" window={window} {dtype}")
+            errs.append(_attn_check(
+                name, fk.flash_attention(q, k, v, causal, window),
+                fk.flash_attention_plain(q, k, v, causal, window)))
+        torch.cuda.synchronize()
+        print(f"K4 (B,T,S,H,K,D)={(b, t, s, h, kh, d)} causal={causal} "
+              f"window={window}: max abs err bf16 {errs[0]:.3e}, f32 "
+              f"{errs[1]:.3e}")
+        worst = max(worst, *errs)
+    return worst
+
+
+def phase_k5(dk, dev) -> float:
+    from repro_torch.models.attention import decode_bias
+
+    worst = 0.0
+    for n, (b, h, kh, s, d, index, window) in enumerate(K5_CASES):
+        bias = decode_bias(index, s, window, b, dev)
+        valid = int((bias[0] == 0).sum())
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _rand((b, h, d), 100 + 3 * n, dtype, dev)
+            k = _rand((b, s, kh, d), 101 + 3 * n, dtype, dev)
+            v = _rand((b, s, kh, d), 102 + 3 * n, dtype, dev)
+            name = (f"K5 (B,H,K,S,D)={(b, h, kh, s, d)} index={index} "
+                    f"window={window} {dtype}")
+            errs.append(_attn_check(name, dk.decode_attention(q, k, v, bias),
+                                    dk.decode_attention_plain(q, k, v,
+                                                              bias)))
+        torch.cuda.synchronize()
+        print(f"K5 (B,H,K,S,D)={(b, h, kh, s, d)} index={index} window="
+              f"{window} ({valid} of {s} slots valid): max abs err bf16 "
+              f"{errs[0]:.3e}, f32 {errs[1]:.3e}")
+        worst = max(worst, *errs)
+    return worst
+
+
+def phase_serve(fk, dk):
+    """The serving path at its defaults, K4/K5 counted over exactly it."""
+    from repro_torch.launch import serve as serve_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    fk.reset_launch_counts()
+    dk.reset_launch_counts()
+    run = serve_lib.serve(SERVE_ARGV)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "decode_attention": dk.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": SERVE_LAYERS * SERVE_BATCHES,
+            "decode_attention": SERVE_LAYERS * SERVE_STEPS * SERVE_BATCHES}
+    if (run.arch.num_layers, run.batches, run.decode_steps) != \
+            (SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS) or launches != want:
+        raise AssertionError(f"serving path: {run.arch.num_layers} layers, "
+                             f"{run.batches} batches, {run.decode_steps} "
+                             f"steps, launches {launches}; expected {want}")
+    fb = run.first_batch
+    for i, lg in enumerate(fb["logits"]):
+        if tuple(lg.shape) != (16, 1, run.num_actions) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"served logits {i}: {tuple(lg.shape)}, "
+                                 f"finite {bool(torch.isfinite(lg).all())}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    print(f"serving: {run.arch.name} {run.param_count:,} params, "
+          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}; "
+          f"launches K4 {launches['flash_attention']} K5 "
+          f"{launches['decode_attention']}")
+    print(f"serving: {run.actions_per_s:.1f} actions/s, p50 step latency "
+          f"{med(run.step_latency_ms):.3f} ms (batch time / decode steps), "
+          f"prefill {med(run.prefill_ms):.3f} ms (median of "
+          f"{len(run.prefill_ms)}), decode step {med(run.decode_ms):.3f} ms "
+          f"(median of {len(run.decode_ms)}), peak allocated "
+          f"{peak / 1e9:.2f} GB")
+    return launches, run
+
+
+def phase_serve_logits(run) -> float:
+    """Replay the first batch through the plain attention route."""
+    from repro_torch.models import backbone as bb
+
+    fb = run.first_batch
+    toks = fb["tokens"]
+    ctx = toks.shape[1]
+    worst = 0.0
+    with torch.no_grad():
+        out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+                               run.num_actions, impl="ref")
+        outs = [out.policy_logits]
+        cache, tok = out.cache, toks[:, -1:]
+        for i, action in enumerate(fb["actions"]):
+            out = bb.apply_decode(run.params, tok, cache, ctx + i, run.arch,
+                                  run.num_actions, impl="ref")
+            cache = out.cache
+            outs.append(out.policy_logits)
+            tok = action % run.arch.vocab_size
+    for i, (got, want) in enumerate(zip(fb["logits"], outs)):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= LOGITS_RTOL * scale:
+            raise AssertionError(f"served logits step {i}: max abs err "
+                                 f"{err:.3e} > {LOGITS_RTOL} x max |logit| "
+                                 f"{scale:.3e}")
+        worst = max(worst, err / scale)
+    print(f"served logits vs the plain route: prefill and {len(outs) - 1} "
+          f"decode steps, worst max abs err {100 * worst:.3f}% of the "
+          f"step's max |logit| (bar {100 * LOGITS_RTOL:.0f}%)")
+    return worst
+
+
+def phase_serve_split(run, profiled: int = 4) -> None:
+    """Device busy time of a few decode steps against the unprofiled
+    decode step, and the device kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import backbone as bb
+
+    fb = run.first_batch
+    toks = fb["tokens"]
+    ctx = toks.shape[1]
+    with torch.no_grad():
+        out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+                               run.num_actions)
+        cache, tok = out.cache, toks[:, -1:]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(profiled):
+                out = bb.apply_decode(run.params, tok, cache, ctx + i,
+                                      run.arch, run.num_actions)
+                cache = out.cache
+                tok = fb["actions"][i] % run.arch.vocab_size
+            torch.cuda.synchronize()
+    step = sorted(run.decode_ms)[len(run.decode_ms) // 2]
+    busy_us, count, by_name = _device_busy(prof.events())
+    if not count:
+        print("serving device busy share: not measured (the profiler trace "
+              "holds no device events)")
+        return
+    busy_ms = busy_us / profiled / 1e3
+    print(f"serving device: busy {busy_ms:.3f} ms per decode step over "
+          f"{profiled} profiled steps, {count / profiled:.0f} device events "
+          f"per step; {100 * busy_ms / step:.1f}% of the unprofiled "
+          f"{step:.3f} ms step, so the card idles "
+          f"{100 - 100 * busy_ms / step:.1f}% of it")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        print(f"  device {us / profiled / 1e3:8.3f} ms/step "
+              f"{n / profiled:6.0f} calls/step  {name[:90]}")
+
+
+def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask leaves: the work these inputs need."""
+    total = 0
+    for qp in range(t):
+        hi = min(s, qp + 1) if causal else s
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def phase_attn_times(fk, dk, dev):
+    """K4 and K5 at the serving path's shapes and one long shape each, in
+    bf16, beside the plain version, the bound and one library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.attention import decode_bias
+
+    rows = {}
+    bf = torch.bfloat16
+    for label, (b, t, h, kh, d), iters in (
+            ("main", (16, 128, 32, 8, 128), 200),
+            ("long", (1, 4096, 32, 8, 128), 10)):
+        q = _rand((b, t, h, d), 7, bf, dev)
+        k = _rand((b, t, kh, d), 8, bf, dev)
+        v = _rand((b, t, kh, d), 9, bf, dev)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = _time_ms(lambda: fk.flash_attention(q, k, v, True, 0), iters)
+        plain_ms = _time_ms(lambda: fk.flash_attention_plain(q, k, v, True,
+                                                             0), iters)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        ops = 4 * b * h * d * _attn_pairs(t, t, True, 0)
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        print(f"time flash_attention {label} (B,T,H,K,D)="
+              f"{(b, t, h, kh, d)} causal bf16: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
+              f" {lib_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
+              f"{nbytes} B, {ops} ops)")
+        if label == "main":
+            rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by,
+                                           library_ms=lib_ms)
+    for label, (b, h, kh, s, d), index, iters in (
+            ("main", (16, 32, 8, 128, 128), 160, 200),
+            ("long", (8, 32, 8, 32768, 128), 40000, 20)):
+        q = _rand((b, h, d), 17, bf, dev)
+        k = _rand((b, s, kh, d), 18, bf, dev)
+        v = _rand((b, s, kh, d), 19, bf, dev)
+        bias = decode_bias(index, s, 0, b, dev)
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = bias.to(bf)[:, None, None, :]
+        ms = _time_ms(lambda: dk.decode_attention(q, k, v, bias), iters)
+        plain_ms = _time_ms(lambda: dk.decode_attention_plain(q, k, v, bias),
+                            iters)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+        valid = int((bias == 0).sum())          # unmasked (row, slot) pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s
+        ops = 4 * h * d * valid
+        bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        nsplit, split_len = dk.plan_splits(b, kh, s, sms)
+        print(f"time decode_attention {label} (B,H,K,S,D)="
+              f"{(b, h, kh, s, d)} bf16: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
+              f" {lib_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
+              f"{nbytes} B, {ops} ops); S in {nsplit} split(s) of "
+              f"{split_len} keys: {b * kh * nsplit} blocks on {sms} SMs"
+              + (", plus the combine pass" if nsplit > 1 else ""))
+        if label == "main":
+            rows["decode_attention"] = dict(ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bound_ms,
+                                            bound_by=bound_by,
+                                            library_ms=lib_ms)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs "
               "an NVIDIA card", file=sys.stderr)
         return 1
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import vtrace as vk
 
     torch.backends.cudnn.allow_tf32 = False
@@ -426,19 +761,41 @@ def main() -> int:
     phase_bandit()
     phase_split(run, dev)
     rows = phase_times(vk, dev)
+    del run
+
+    err_k4 = phase_k4(fk, dev)
+    err_k5 = phase_k5(dk, dev)
+    serve_launches, serve_run = phase_serve(fk, dk)
+    launches.update(serve_launches)
+    phase_serve_logits(serve_run)
+    phase_serve_split(serve_run)
+    del serve_run                     # the 46 GB of weights
+    torch.cuda.empty_cache()
+    rows.update(phase_attn_times(fk, dk, dev))
+    print(f"times above: {card}")
 
     meta = {
         "vtrace": ("src/repro_torch/csrc/vtrace.cu",
                    "src/repro/kernels/vtrace.py:74", err_k1),
         "loss_vtrace": ("src/repro_torch/csrc/vtrace.cu",
                         "src/repro/kernels/vtrace.py:165", err_k2),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:80",
+                            err_k4),
+        "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:55",
+                             err_k5),
     }
     kernels = []
     for name, (source, replaces, err) in meta.items():
+        row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, **rows[name],
-                        "library_ms": None})
+                        "max_abs_err": err, "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
 Both keep only the fields the ported paths read: ``ArchConfig`` those of
-the conv-LSTM agents (the token backbones' fields join with them), and
+the conv-LSTM agents and of the dense token decoders (the MoE, SSM,
+RG-LRU, enc-dec and VLM fields join with those blocks), and
 ``ImpalaConfig`` all but the replay buffer's, which join with the replay
 learner.
 """
@@ -14,11 +15,33 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    impala_net: str               # 'shallow' | 'deep'
+    family: str                   # impala_cnn | dense
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 => d_model // num_heads
+    # activation: 'gelu' | 'silu' | 'relu' | 'tanh' | 'geglu' | 'swiglu'
+    activation: str = "swiglu"
+    norm: str = "rmsnorm"         # 'rmsnorm' | 'layernorm'
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    sliding_window: int = 0       # 0 = full attention
+    # IMPALA conv nets (paper Fig. 3)
+    impala_net: str = ""          # '' | 'shallow' | 'deep'
     image_hw: Tuple[int, int, int] = (72, 96, 3)
     lstm_width: int = 256
+    dtype: str = "bfloat16"       # activations of the token backbones
+    param_dtype: str = "float32"
     # citation for the source model/paper
     source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

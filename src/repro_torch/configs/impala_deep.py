@@ -3,6 +3,13 @@ from repro_torch.configs.base import ArchConfig
 
 CONFIG = ArchConfig(
     name="impala-deep",
+    family="impala_cnn",
+    num_layers=15,
+    d_model=256,
+    num_heads=0,
+    num_kv_heads=0,
+    d_ff=0,
+    vocab_size=0,
     impala_net="deep",
     image_hw=(72, 96, 3),
     lstm_width=256,

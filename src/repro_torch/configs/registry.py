@@ -1,9 +1,9 @@
 """Architecture config registry: ``get_config(name)`` / ``list_configs()``.
 
-Only the paper's two conv-LSTM agents are ported. The token backbones of
-the JAX registry are known by name, so asking for one ends the run with
-a pointer to the roadmap item that ports them instead of a bare
-``KeyError``.
+The paper's two conv-LSTM agents and the dense decoder mistral-nemo-12b
+are ported. The other token backbones of the JAX registry are known by
+name, so asking for one ends the run with a pointer to the roadmap item
+that ports them instead of a bare ``KeyError``.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from typing import List
 
 from repro_torch.configs.base import ArchConfig
 
-_ARCH_MODULES = ["impala_shallow", "impala_deep"]
+_ARCH_MODULES = ["impala_shallow", "impala_deep", "mistral_nemo_12b"]
 
 _ALIASES = {
     "impala-shallow": "impala_shallow",
@@ -23,12 +23,13 @@ _ALIASES = {
 _TOKEN_ARCHS = {
     "recurrentgemma-2b", "granite-moe-1b-a400m", "whisper-small",
     "mamba2-1.3b", "stablelm-1.6b", "gemma-7b", "qwen1.5-4b",
-    "llama-3.2-vision-11b", "mistral-nemo-12b", "olmoe-1b-7b",
+    "llama-3.2-vision-11b", "olmoe-1b-7b",
 }
 _TOKEN_ARCHS |= {n.replace("-", "_").replace(".", "_") for n in _TOKEN_ARCHS}
 
-NOT_PORTED_TOKEN = ("token backbones are not ported yet (ROADMAP.md, "
-                    "Queue 1: token backbones with kernels K3-K5)")
+NOT_PORTED_TOKEN = ("this token backbone is not ported yet (ROADMAP.md, "
+                    "Queue 1 item 14: token backbones other than "
+                    "mistral-nemo-12b)")
 
 
 def _module(name: str):

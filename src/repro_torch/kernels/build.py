@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``repro_torch/csrc`` and load them.
 
-``nvcc`` compiles every ``*.cu`` there for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library is built at first use,
+``nvcc`` compiles every ``*.cu`` there for ``sm_90a``, one process per
+source and all at once, and links the objects into one shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds). The library is built at first use,
 from the checkout's sources only, into ``build/repro_torch_kernels/<key>/``
 at the root of the checkout, where ``<key>`` hashes the sources and the
 flags: an edited source builds anew, an unchanged one loads at once.
@@ -26,9 +27,9 @@ BUILD_ROOT = (Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
 LIB_NAME = "librepro_torch_kernels.so"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-fmad=false", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_vtrace": [_P] * 8 + [_I, _I, _P],
     "repro_loss_vtrace": [_P] * 11 + [_I, _I, _I, _F, _I, _F, _I, _F, _P],
+    # q, k, v, o; B, T, S, H, K, D, causal, window; scale, is_bf16, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, bias, o, part_m, part_l, part_acc; B, S, H, K, D, nsplit,
+    # split_len; scale, is_bf16, stream
+    "repro_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }
 
 
@@ -78,22 +84,46 @@ def build() -> Tuple[Path, str]:
     if lib.exists():
         return lib, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=900)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs, procs = [], []
+        try:
+            for src in sources():
+                obj = os.path.join(tmp, src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                objs.append(obj)
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs = [_finish(cmd, proc) for cmd, proc in procs]
+        finally:
+            for _, proc in procs:       # a failed compile stops the others
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        so = os.path.join(tmp, LIB_NAME)
+        cmd = [nvcc, *GENCODE, "-shared", "-o", so, *objs]
+        logs.append(_finish(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        log = "".join(logs)
         log_path.write_text(log)
-        os.replace(tmp, lib)          # atomic: a reader never sees a part
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(so, lib)           # atomic: a reader never sees a part
     return lib, log
+
+
+def _finish(cmd, proc: subprocess.Popen) -> str:
+    """Wait for one nvcc; raise with its output if it failed."""
+    try:
+        out, _ = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"nvcc timed out: {' '.join(cmd)}") from None
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}")
+    return out
 
 
 @functools.cache
@@ -106,3 +136,29 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+# ---------------------------------------------------------------------------
+# What every kernel wrapper does around a launch
+
+
+def on_cuda(device, what: str) -> bool:
+    """True for a CUDA device (launch the kernel), False for the CPU (take
+    the plain version); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} kernel or plain version for {device}")
+
+
+def stream(device) -> int:
+    """The current stream of ``device``, as the int ctypes passes on."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(code: int, name: str) -> None:
+    """A C entry point returns its launch's ``cudaError_t``; 0 is success."""
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {code}")

@@ -1,9 +1,10 @@
-"""Dispatching wrapper over the V-trace kernel (``repro.kernels.ops``).
+"""Dispatching wrappers over the ported kernels (``repro.kernels.ops``):
+V-trace (K1), flash attention (K4) and decode attention (K5).
 
 ``impl='auto'`` picks the hand-written kernel for CUDA tensors and the
 plain oracle for CPU tensors. ``'pallas'`` keeps the reference's name for
-the kernel route: on CUDA it launches K1; on the CPU K1's wrapper runs
-its plain version.
+the kernel route: on CUDA it launches the kernel; on the CPU the kernel's
+wrapper runs its plain version. ``'ref'`` is the oracle on any device.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import decode_attention as decode_k
+from repro_torch.kernels import flash_attention as flash_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import vtrace as vtrace_k
 
@@ -47,3 +50,24 @@ def vtrace(log_rhos, discounts, rewards, values, bootstrap_value,
     else:
         raise ValueError(impl)
     return vs.t(), pg.t()
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    impl: str = "auto") -> torch.Tensor:
+    """Prefill GQA attention. q (B,T,H,D), k/v (B,S,K,D)."""
+    impl_r = _resolve(impl, q.device)
+    if impl_r == "ref":
+        return ref.flash_attention_ref(q, k, v, causal, window)
+    if impl_r == "pallas":
+        return flash_k.flash_attention(q, k, v, causal, window)
+    raise ValueError(impl)
+
+
+def decode_attention(q, k, v, bias, impl: str = "auto") -> torch.Tensor:
+    """q (B,H,D), k/v (B,S,K,D), bias (B,S) additive. Returns (B,H,D)."""
+    impl_r = _resolve(impl, q.device)
+    if impl_r == "ref":
+        return ref.decode_attention_ref(q, k, v, bias)
+    if impl_r == "pallas":
+        return decode_k.decode_attention(q, k, v, bias)
+    raise ValueError(impl)

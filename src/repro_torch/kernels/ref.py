@@ -1,13 +1,15 @@
-"""Plain-PyTorch oracle for the V-trace kernel (``repro.kernels.ref``).
+"""Plain-PyTorch oracles of the ported kernels (``repro.kernels.ref``):
+V-trace (K1), flash attention (K4) and decode attention (K5).
 
-The oracles of the token kernels (linear scan, flash and decode
-attention) join with those kernels.
+The linear scan's oracle (K3) joins with that kernel.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+NEG_INF = -1e30
 
 
 def vtrace_ref(rho, c, discounts, rewards, values, values_tp1
@@ -30,3 +32,45 @@ def vtrace_ref(rho, c, discounts, rewards, values, values_tp1
         acc = delta + discounts[s] * c[s] * acc
         vs[s] = values[s] + acc
     return torch.stack(vs, dim=0), torch.stack(pg, dim=0)
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Full (masked-dense) GQA attention, softmax in float32.
+
+    q: (B,T,H,D); k/v: (B,S,K,D), H % K == 0, positions 0.. on both
+    sides. Returns (B,T,H,D) in q's dtype."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, t, kh, g, d).to(torch.float32)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          k.to(torch.float32)) * (d ** -0.5)
+    qpos = torch.arange(t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((t, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, bias) -> torch.Tensor:
+    """One query token per sequence against a KV cache, softmax in f32.
+
+    q: (B,H,D); k/v: (B,S,K,D); bias: (B,S) additive (0 or -1e30).
+    Returns (B,H,D) in q's dtype."""
+    b, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, kh, g, d).to(torch.float32)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg,
+                          k.to(torch.float32)) * (d ** -0.5)
+    scores = scores + bias.to(torch.float32)[:, None, None, :]
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
+    return out.reshape(b, h, d).to(q.dtype)

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.ref import vtrace_ref
 
 # K1's plain version is the oracle itself: the same reverse loop
@@ -45,23 +46,6 @@ def _check(name: str, x: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _on_cuda(device: torch.device) -> bool:
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"no V-trace kernel or plain version for {device}")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _raise_on(code: int, name: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {code}")
-
-
 # ---------------------------------------------------------------------------
 # K1: the V-trace recurrence
 
@@ -77,17 +61,16 @@ def vtrace(rho, c, discounts, rewards, values, values_tp1
     for name, x in zip(("rho", "c", "discounts", "rewards", "values",
                         "values_tp1"), args):
         _check(name, x, (t, b), rho.device)
-    if not _on_cuda(rho.device):
+    if not build.on_cuda(rho.device, "V-trace"):
         return vtrace_plain(*args)
-    from repro_torch.kernels import build
     lib = build.load()
     vs = torch.empty_like(rho)
     pg = torch.empty_like(rho)
     with torch.cuda.device(rho.device):
         code = lib.repro_vtrace(*(x.data_ptr() for x in args),
                                 vs.data_ptr(), pg.data_ptr(), t, b,
-                                _stream(rho.device))
-    _raise_on(code, "repro_vtrace")
+                                build.stream(rho.device))
+    build.raise_on(code, "repro_vtrace")
     vtrace.launches += 1
     return vs, pg
 
@@ -145,10 +128,9 @@ def loss_vtrace(logits, onehot, behaviour_logprob, discounts, rewards,
     for name, x in zip(("behaviour_logprob", "discounts", "rewards",
                         "values", "values_tp1"), flat):
         _check(name, x, (t, b), dev)
-    if not _on_cuda(dev):
+    if not build.on_cuda(dev, "V-trace"):
         return loss_vtrace_plain(logits, onehot, *flat, rho_bar=rho_bar,
                                  c_bar=c_bar, lambda_=lambda_)
-    from repro_torch.kernels import build
     lib = build.load()
     outs = tuple(torch.empty((t, b), dtype=torch.float32, device=dev)
                  for _ in range(4))
@@ -159,8 +141,8 @@ def loss_vtrace(logits, onehot, behaviour_logprob, discounts, rewards,
             t, b, a,
             0.0 if rho_bar is None else float(rho_bar), rho_bar is not None,
             0.0 if c_bar is None else float(c_bar), c_bar is not None,
-            float(lambda_), _stream(dev))
-    _raise_on(code, "repro_loss_vtrace")
+            float(lambda_), build.stream(dev))
+    build.raise_on(code, "repro_loss_vtrace")
     loss_vtrace.launches += 1
     return outs
 

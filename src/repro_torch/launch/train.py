@@ -10,7 +10,7 @@ raises and does not fall back.
       --smoke --steps 30 --log-every 10
 
 Flags of the JAX CLI that the sync path does not read, and paths not
-ported yet (async runtime, replay, checkpoints, token backbones, envs
+ported yet (async runtime, replay, checkpoints, token training, envs
 other than catch and bandit), end the run with a ``SystemExit`` that
 names the roadmap item.
 """
@@ -104,6 +104,11 @@ def train(argv: Optional[List[str]] = None) -> SyncRun:
 
     env = make_env(args.env)
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if arch.family != "impala_cnn":
+        raise SystemExit(f"--arch {args.arch}: training a token backbone is "
+                         f"not ported yet (ROADMAP.md, Queue 1 item 14: "
+                         f"token training); it serves through "
+                         f"repro_torch.launch.serve")
     arch = arch.replace(image_hw=env.image_hw)
     icfg = ImpalaConfig(
         num_actions=env.num_actions, unroll_length=args.unroll,

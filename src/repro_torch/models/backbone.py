@@ -1,10 +1,15 @@
-"""The paper's conv(+LSTM) agent: specs, heads and the trajectory apply
-(``repro.models.backbone`` for ``family == 'impala_cnn'``).
+"""Backbone assembly (``repro.models.backbone``): specs, heads, and the
+apply paths of the two ported families.
 
-The conv torso is folded over time (B*T images), the LSTM runs over
-time with the actor-provided initial state, and the heads give
-``AgentOutput(policy_logits, values)``. Token backbones are not ported:
-the registry refuses their names.
+* ``impala_cnn``, the paper's conv(+LSTM) agent: ``apply_train`` folds
+  the conv torso over time (B*T images), runs the LSTM over time with the
+  actor-provided initial state, and the heads give
+  ``AgentOutput(policy_logits, values)``.
+* ``dense`` token decoders (mistral-nemo-12b): embedding -> layer stack
+  -> final norm -> heads, served by ``apply_prefill`` (the whole context,
+  returns the logits at the last step and the KV cache) and
+  ``apply_decode`` (one step against the cache). Token training is not
+  ported yet.
 """
 from __future__ import annotations
 
@@ -15,25 +20,38 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import convnets, lstm as lstm_lib
-from repro_torch.models.common import dense, dense_specs
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import (dense, dense_specs, embed,
+                                       embedding_specs, make_norm,
+                                       torch_dtype)
+from repro_torch.params import tree_map
 
 
 @dataclasses.dataclass
 class AgentOutput:
     policy_logits: torch.Tensor  # (B, T, A) float32
     values: torch.Tensor         # (B, T)   float32
-    cache: Optional[Any] = None  # final LSTM state
+    cache: Optional[Any] = None  # final LSTM state, or the KV caches
 
 
-def head_specs(num_actions: int, d: int = 256) -> Dict:
-    return {
+def head_specs(cfg: ArchConfig, num_actions: int) -> Dict:
+    d = cfg.d_model if cfg.family != "impala_cnn" else 256
+    specs = {
         "policy": dense_specs((d,), (num_actions,), bias=True, scale=0.01),
         "value": dense_specs((d,), (1,), bias=True, scale=0.01),
     }
+    if cfg.family != "impala_cnn":
+        specs["final_norm"] = make_norm(cfg.norm, cfg.d_model)[0]
+    return specs
 
 
 def backbone_specs(cfg: ArchConfig, num_actions: int) -> Dict:
+    if cfg.family != "impala_cnn":
+        return {"embed": embedding_specs(cfg.vocab_size, cfg.d_model),
+                "stack": tfm.group_specs(cfg),
+                **head_specs(cfg, num_actions)}
     torso = (convnets.shallow_specs(cfg.image_hw)
              if cfg.impala_net == "shallow"
              else convnets.deep_specs(cfg.image_hw))
@@ -41,13 +59,18 @@ def backbone_specs(cfg: ArchConfig, num_actions: int) -> Dict:
         "torso": torso,
         "lstm": lstm_lib.lstm_specs(256 + num_actions + 1, cfg.lstm_width),
         "post_lstm": dense_specs((cfg.lstm_width,), (256,), bias=True),
-        **head_specs(num_actions),
+        **head_specs(cfg, num_actions),
     }
 
 
-def apply_heads(params, x):
-    logits = dense(params["policy"], x)
-    values = dense(params["value"], x)[..., 0]
+def _apply_heads(params, x, cfg: ArchConfig):
+    """Final norm (token backbones), then float32 logits and values; a
+    bf16 x meets the float32 head kernels as JAX promotes it, in f32."""
+    if "final_norm" in params:
+        _, norm = make_norm(cfg.norm, cfg.d_model)
+        x = norm(params["final_norm"], x)
+    logits = dense(params["policy"], x).to(torch.float32)
+    values = dense(params["value"], x).to(torch.float32)[..., 0]
     return logits, values
 
 
@@ -73,5 +96,74 @@ def apply_train(params, batch: Dict, cfg: ArchConfig,
     ys, state = lstm_lib.lstm_apply(params["lstm"], core_in, lstm_state,
                                     done=batch.get("done"))
     feats = F.relu(dense(params["post_lstm"], ys))
-    logits, values = apply_heads(params, feats)
+    logits, values = _apply_heads(params, feats, cfg)
     return AgentOutput(logits, values, cache=state)
+
+
+# ---------------------------------------------------------------------------
+# Token backbones: serving paths
+
+
+def apply_prefill(params, batch: Dict, cfg: ArchConfig, num_actions: int,
+                  impl: str = "auto") -> AgentOutput:
+    """batch["tokens"]: (B, T) int. Returns the logits and values at the
+    last step, (B, 1, A) and (B, 1), and the KV caches of every layer.
+    ``impl`` picks the attention route (``ops``)."""
+    del num_actions                     # the heads' shapes carry it
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    x, caches = tfm.apply_stack(params["stack"], x, positions, cfg,
+                                mode="prefill", impl=impl)
+    logits, values = _apply_heads(params, x[:, -1:], cfg)
+    return AgentOutput(logits, values, cache=caches)
+
+
+def apply_decode(params, token: torch.Tensor, cache, cache_index: int,
+                 cfg: ArchConfig, num_actions: int,
+                 impl: str = "auto") -> AgentOutput:
+    """token: (B, 1) int; cache_index: the absolute position (host int).
+    Writes the step's keys and values into ``cache`` in place and returns
+    it as the output's cache."""
+    del num_actions
+    b = token.shape[0]
+    x = embed(params["embed"], token, torch_dtype(cfg.dtype))
+    positions = torch.full((b, 1), int(cache_index), dtype=torch.long,
+                           device=token.device)
+    x, caches = tfm.apply_stack(params["stack"], x, positions, cfg,
+                                mode="decode", caches=cache,
+                                cache_index=int(cache_index), impl=impl)
+    logits, values = _apply_heads(params, x, cfg)
+    return AgentOutput(logits, values, cache=caches)
+
+
+def _block_cache_abstract(kind: str, batch: int, length: int,
+                          cfg: ArchConfig, dtype) -> Dict:
+    if kind not in tfm.KINDS:
+        raise NotImplementedError(f"block kind {kind!r}: {tfm.NOT_PORTED}")
+    if kind == "local":
+        length = min(cfg.sliding_window, length)
+    spec = attn_lib.CacheSpec(length, cfg.num_kv_heads,
+                              cfg.resolved_head_dim)
+    return {"kv": attn_lib.init_cache_arrays(batch, spec, dtype, "meta")}
+
+
+def cache_abstract(batch: int, length: int, cfg: ArchConfig) -> Dict:
+    """The decode cache of the whole stack as ``meta`` tensors (shapes and
+    dtypes, no storage), the counterpart of JAX's ShapeDtypeStructs."""
+    dtype = torch_dtype(cfg.dtype)
+    group, _ = tfm.layer_plan(cfg)
+    n = tfm.num_groups(cfg)
+    one = {f"l{i}": _block_cache_abstract(k, batch, length, cfg, dtype)
+           for i, k in enumerate(group)}
+    return {"scan": tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
+                             one)}
+
+
+def cache_init(batch: int, length: int, cfg: ArchConfig,
+               device="cpu") -> Dict:
+    """A zeroed decode cache with ``length`` slots per layer."""
+    return tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype,
+                                          device=device),
+                    cache_abstract(batch, length, cfg))

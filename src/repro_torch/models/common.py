@@ -1,20 +1,22 @@
-"""Parameter-spec trees and the dense layer (``repro.models.common``).
+"""Parameter-spec trees and common layers (``repro.models.common``).
 
 A spec tree is a nested dict of ``Spec(shape, init, scale)`` leaves in
 the JAX package's layout (conv kernels HWIO), so shapes, fan-ins and
 ``param_count`` are the reference's own. ``init_params`` draws that tree
-from an explicit ``torch.Generator`` on the CPU, so a seed gives the same
-weights on every device; ``repro_torch.params.from_jax`` then moves it
-into the port's layout and onto the device.
+from an explicit ``torch.Generator`` on one device (the CPU unless asked);
+``repro_torch.params.from_jax`` then moves it into the port's layout and
+onto the device. The layers (norms, dense, embedding, RoPE, activations)
+compute what the JAX functions compute, in the same dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.params import tree_leaves, tree_map
 
@@ -24,7 +26,7 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros
+    init: str = "normal"          # normal | zeros | ones | embed
     scale: float = 1.0            # multiplier on the default init scale
 
 
@@ -34,22 +36,31 @@ def _fan_in(shape: Tuple[int, ...]) -> int:
 
 
 def _init_leaf(spec: Spec, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
     if spec.init == "zeros":
-        return torch.zeros(spec.shape)
+        return torch.zeros(spec.shape, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, device=dev)
+    if spec.init == "embed":
+        return torch.randn(spec.shape, generator=gen, device=dev).mul_(
+            spec.scale)
     if spec.init == "normal":
         # std = scale / sqrt(prod(shape[:-1])), as the JAX package draws
         std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        return torch.randn(spec.shape, generator=gen) * std
+        return torch.randn(spec.shape, generator=gen, device=dev).mul_(std)
     raise ValueError(f"unknown init {spec.init}")
 
 
-def init_params(specs: Tree, seed: int) -> Tree:
-    """JAX-layout float32 CPU tensors drawn from ``torch.Generator(seed)``.
+def init_params(specs: Tree, seed: int, device="cpu") -> Tree:
+    """JAX-layout float32 tensors drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``.
 
     The draws are torch's (Philox/MT), not JAX's threefry: the same seed
-    gives other numbers than the JAX package, from the same distributions.
-    """
-    gen = torch.Generator().manual_seed(seed)
+    gives other numbers than the JAX package, from the same distributions,
+    and a CUDA generator gives other numbers than the CPU one. Drawing on
+    the card keeps a 46 GB tree (mistral-nemo-12b in float32) off the
+    host."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     return tree_map(lambda s: _init_leaf(s, gen), specs)
 
 
@@ -66,9 +77,119 @@ def dense_specs(in_shape: Sequence[int], out_shape: Sequence[int],
     return specs
 
 
-def dense(params, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W + b`` with W stored (in, out), as ``repro`` contracts it."""
-    y = torch.matmul(x, params["kernel"])
-    if "bias" in params:
-        y = y + params["bias"]
+def torch_dtype(name: str) -> torch.dtype:
+    """``ArchConfig.dtype`` / ``param_dtype`` names -> torch dtypes."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def dense(params, x: torch.Tensor, contract: int = 1,
+          dtype=None) -> torch.Tensor:
+    """Contract the trailing ``contract`` dims of x with the leading dims
+    of the kernel (stored (in..., out...)), then add the bias.
+
+    With ``dtype`` the kernel and bias are cast to it first. Without, the
+    operands are promoted to a common dtype, as JAX promotes bf16 @ f32
+    to f32 (``torch.matmul`` refuses mixed dtypes)."""
+    k = params["kernel"]
+    b = params.get("bias")
+    if dtype is not None:
+        k = k.to(dtype)
+        b = None if b is None else b.to(dtype)
+    elif x.dtype != k.dtype:
+        common = torch.promote_types(x.dtype, k.dtype)
+        x, k = x.to(common), k.to(common)
+    in_shape, out_shape = k.shape[:contract], k.shape[contract:]
+    k2 = k.reshape(math.prod(in_shape), math.prod(out_shape))
+    x2 = x.reshape(*x.shape[:x.dim() - contract], math.prod(in_shape))
+    y = torch.matmul(x2, k2).reshape(*x2.shape[:-1], *out_shape)
+    if b is not None:
+        y = y + b
     return y
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+
+
+def rmsnorm_specs(d: int) -> Dict[str, Spec]:
+    return {"scale": Spec((d,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """In float32, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_specs(d: int) -> Dict[str, Spec]:
+    return {"scale": Spec((d,), init="ones"),
+            "bias": Spec((d,), init="zeros")}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32 with the population variance, cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(torch.float32) + \
+        params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def make_norm(kind: str, d: int):
+    if kind == "rmsnorm":
+        return rmsnorm_specs(d), rmsnorm
+    if kind == "layernorm":
+        return layernorm_specs(d), layernorm
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+
+
+def embedding_specs(vocab: int, d: int) -> Dict[str, Spec]:
+    return {"table": Spec((vocab, d), init="embed", scale=0.02)}
+
+
+def embed(params, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Rows of the table, cast to ``dtype``. JAX casts the whole table
+    first; gathering first gives the same values without a cast copy of
+    a (vocab, d) table."""
+    return F.embedding(ids.long(), params["table"]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding over the two halves of the head dim.
+    x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half))
+    angles = positions[..., None].to(torch.float32) * freq
+    angles = angles[..., None, :]                 # broadcast over heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+
+
+def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    return {
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "silu": F.silu,
+        "relu": F.relu,
+        "tanh": torch.tanh,
+    }[name]

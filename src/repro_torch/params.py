@@ -4,9 +4,13 @@ The port keeps parameters as the JAX package does: a nested dict whose
 leaves are tensors, with the leaf names of ``backbone_specs``. Two
 layouts differ:
 
-* conv kernels are HWIO in JAX (``lax.conv_general_dilated`` with
-  ``("NHWC", "HWIO", "NHWC")``) and OIHW here (``F.conv2d``);
-* dense kernels are (in, out) in both, applied as ``x @ W + b``.
+* conv kernels (the ``kernel`` leaves of the torso's conv layers, told
+  apart by their path) are HWIO in JAX
+  (``lax.conv_general_dilated`` with ``("NHWC", "HWIO", "NHWC")``) and
+  OIHW here (``F.conv2d``);
+* every other leaf keeps its shape: dense kernels are (in..., out...) in
+  both, applied as ``x @ W + b``, the token backbones' stacked layers
+  (under ``scan``, with a leading layer axis) included.
 
 ``from_jax`` turns a JAX tree (nested dicts of numpy arrays, e.g. from
 ``jax.device_get`` or an npz checkpoint) into the port's tensors and
@@ -15,6 +19,7 @@ keys of the npz+json checkpoint format.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Callable, Dict, List
 
 import numpy as np
@@ -23,8 +28,20 @@ import torch
 Tree = Any
 
 
-def _is_conv_kernel(name: str, leaf) -> bool:
-    return name == "kernel" and len(leaf.shape) == 4
+# the torso's conv layers: conv1/conv2 (shallow), conv and res<b>a/res<b>b
+# in each section (deep)
+_CONV_LAYER = re.compile(r"conv\d*|res\d+[ab]")
+
+
+def _is_conv_kernel(path: str) -> bool:
+    """The path decides, not the rank: the kernel of a torso conv layer is
+    HWIO, whether the tree is the whole agent (``torso/conv1/kernel``) or
+    the torso itself (``conv1/kernel``). The token backbones' stacked dense
+    kernels are 4-D too, e.g. ``stack/scan/l0/attn/q/kernel`` of shape
+    (layers, d, H, Dh), and keep their layout."""
+    parts = path.split("/")
+    return (len(parts) >= 2 and parts[-1] == "kernel"
+            and _CONV_LAYER.fullmatch(parts[-2]) is not None)
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
@@ -63,15 +80,19 @@ def snapshot(tree: Tree) -> Tree:
 
 
 def from_jax(tree: Tree, device="cpu", requires_grad: bool = True) -> Tree:
-    """JAX-layout tree (numpy arrays or tensors) -> the port's tensors.
+    """JAX-layout tree (numpy arrays or tensors) -> the port's float32
+    tensors on ``device``.
 
-    Conv kernels go HWIO -> OIHW; everything else keeps its shape."""
-    def conv(name):
+    Conv kernels go HWIO -> OIHW; everything else keeps its shape. A
+    float32 tensor already on ``device`` that needs no permute is used as
+    it is, not copied."""
+    def conv(path):
         def fn(leaf):
-            t = torch.from_numpy(np.array(leaf, np.float32))
-            if _is_conv_kernel(name, t):
+            t = leaf if isinstance(leaf, torch.Tensor) else \
+                torch.from_numpy(np.array(leaf, np.float32))
+            if _is_conv_kernel(path):
                 t = t.permute(3, 2, 0, 1)
-            t = t.contiguous().to(device)
+            t = t.to(device, torch.float32).contiguous()
             return t.requires_grad_(requires_grad)
         return fn
     return _map_named(tree, conv)
@@ -79,17 +100,18 @@ def from_jax(tree: Tree, device="cpu", requires_grad: bool = True) -> Tree:
 
 def to_jax(tree: Tree) -> Tree:
     """The port's tensors -> JAX-layout numpy tree (conv OIHW -> HWIO)."""
-    def conv(name):
+    def conv(path):
         def fn(leaf):
             t = leaf.detach().to("cpu", torch.float32)
-            if _is_conv_kernel(name, t):
+            if _is_conv_kernel(path):
                 t = t.permute(2, 3, 1, 0)
             return np.ascontiguousarray(t.numpy())
         return fn
     return _map_named(tree, conv)
 
 
-def _map_named(tree: Tree, make_fn, name: str = "") -> Tree:
+def _map_named(tree: Tree, make_fn, path: str = "") -> Tree:
     if isinstance(tree, dict):
-        return {k: _map_named(tree[k], make_fn, k) for k in sorted(tree)}
-    return make_fn(name)(tree)
+        return {k: _map_named(tree[k], make_fn, f"{path}/{k}" if path else k)
+                for k in sorted(tree)}
+    return make_fn(path)(tree)

@@ -1,7 +1,7 @@
 """Guard rails of the PyTorch port: it imports neither jax nor any module
-of ``repro``, its entry point asked for ``cuda`` raises where there is no
+of ``repro``, its entry points asked for ``cuda`` raise where there is no
 card, and on CPU tensors the kernel wrappers take their plain versions
-without counting a launch. On a card, the ``cuda``-marked case holds each
+without counting a launch. On a card, the ``cuda``-marked cases hold each
 kernel against its plain version.
 
 This file imports no jax, so it also runs where only the port is
@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as dk
+from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import vtrace as vk
+from repro_torch.launch import serve as serve_lib
 from repro_torch.launch import train as train_lib
+from repro_torch.models.attention import decode_bias
 
 torch.set_num_threads(1)
 
@@ -53,11 +57,20 @@ def test_trainer_asked_for_cuda_raises_without_a_card(monkeypatch):
         train_lib.train(["--device", "cuda", "--steps", "1"])
 
 
+def test_server_asked_for_cuda_raises_without_a_card(monkeypatch):
+    """The default device is cuda; the server does not carry on on the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="is_available"):
+        serve_lib.serve(["--smoke", "--requests", "1"])
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--runtime", "async"], "async"),
     (["--replay-fraction", "0.5"], "replay"),
     (["--ckpt-dir", "x"], "ckpt"),
     (["--arch", "gemma-7b"], "token"),
+    (["--arch", "mistral-nemo-12b"], "token training"),
     (["--env", "rooms"], "catch and bandit"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
@@ -86,6 +99,68 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     vk.fused_loss_vtrace(logits, onehot, rew, disc, rew, v, vtp1)
     assert vk.vtrace.launches == 0
     assert vk.loss_vtrace.launches == 0
+
+
+def _attn_inputs(b, t, s, h, kh, d, seed, dtype=torch.float32, dev="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, t, h, d, generator=g)
+    k = torch.randn(b, s, kh, d, generator=g)
+    v = torch.randn(b, s, kh, d, generator=g)
+    return tuple(x.to(dev, dtype) for x in (q, k, v))
+
+
+def test_attention_wrappers_take_plain_versions_on_cpu_without_counting():
+    q, k, v = _attn_inputs(2, 9, 9, 4, 2, 16, 0)
+    fk.reset_launch_counts()
+    dk.reset_launch_counts()
+    torch.testing.assert_close(fk.flash_attention(q, k, v, True, 3),
+                               fk.flash_attention_plain(q, k, v, True, 3),
+                               rtol=0, atol=0)
+    bias = decode_bias(5, 9, 0, 2, "cpu")
+    q1 = q[:, 0].contiguous()
+    torch.testing.assert_close(dk.decode_attention(q1, k, v, bias),
+                               dk.decode_attention_plain(q1, k, v, bias),
+                               rtol=0, atol=0)
+    assert fk.flash_attention.launches == 0
+    assert dk.decode_attention.launches == 0
+
+
+def test_attention_wrappers_refuse_what_the_kernel_does_not_take():
+    q, k, v = _attn_inputs(2, 9, 9, 4, 2, 16, 1)
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        fk.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        fk.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="H % K"):
+        fk.flash_attention(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="window"):
+        fk.flash_attention(q, k, v, True, -1)
+    bias = decode_bias(5, 9, 0, 2, "cpu")
+    q1 = q[:, 0].contiguous()
+    with pytest.raises(ValueError, match="bias"):
+        dk.decode_attention(q1, k, v, bias.double())
+    with pytest.raises(ValueError, match="bias"):
+        dk.decode_attention(q1, k, v, bias[:, :4].contiguous())
+    with pytest.raises(ValueError, match="dims"):
+        dk.decode_attention(q, k, v, bias)
+
+
+@pytest.mark.parametrize("b,kh,s,sms,want", [
+    (16, 8, 128, 132, (1, 128)),        # the serving path: one pass
+    (8, 8, 32768, 132, (9, 3648)),      # decode_32k: ~4 blocks an SM
+    (4, 8, 1000, 132, (2, 512)),        # no split shorter than 512 keys
+    (1, 1, 100, 132, (1, 128)),
+    (64, 8, 32768, 132, (2, 16384)),
+])
+def test_decode_attention_splits_s_when_the_blocks_are_few(b, kh, s, sms,
+                                                            want):
+    n, split_len = dk.plan_splits(b, kh, s, sms)
+    assert (n, split_len) == want
+    assert split_len % dk.CHUNK == 0 and (n - 1) * split_len < s <= \
+        n * split_len
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
@@ -124,6 +199,95 @@ def test_kernels_match_plain_on_the_card(t, b, a):
     for got, want in zip(vk.vtrace(*args), vk.vtrace_plain(*args)):
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert (vk.vtrace.launches, vk.loss_vtrace.launches) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,s,h,kh,d,causal,window", [
+    (16, 128, 128, 32, 8, 128, True, 0), (2, 100, 160, 32, 8, 128, True, 0),
+    (2, 160, 100, 8, 8, 64, False, 0), (1, 300, 300, 4, 1, 32, True, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_matches_plain_on_the_card(b, t, s, h, kh, d, causal,
+                                                   window, dtype):
+    """f32: a few ulps of outputs of size ~1 (1e-5); bf16: one rounding of
+    an f32 result each, so one bf16 ulp (2^-7 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(b, t, s, h, kh, d, t + s, dtype, "cuda")
+    fk.reset_launch_counts()
+    got = fk.flash_attention(q, k, v, causal, window)
+    want = fk.flash_attention_plain(q, k, v, causal, window)
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=rtol)
+    assert fk.flash_attention.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,s,d,index,window", [
+    (16, 32, 8, 128, 128, 160, 0), (4, 32, 8, 1000, 128, 300, 0),
+    (4, 32, 8, 1024, 128, 2000, 256), (3, 8, 8, 130, 64, 100, 0)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_matches_plain_on_the_card(b, h, kh, s, d, index,
+                                                    window, dtype):
+    """Tolerances as for flash attention; biases as the decode path
+    builds them (masked suffix, ring buffer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attn_inputs(b, 1, s, h, kh, d, s + index, dtype, "cuda")
+    bias = decode_bias(index, s, window, b, "cuda")
+    dk.reset_launch_counts()
+    q1 = q[:, 0].contiguous()
+    got = dk.decode_attention(q1, k, v, bias)
+    want = dk.decode_attention_plain(q1, k, v, bias)
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                               rtol=rtol)
+    assert dk.decode_attention.launches == 1
+
+
+def _fake_nvcc(tmp_path, fail_on=""):
+    """An ``nvcc`` on PATH that writes its -o target (listing its inputs)
+    and fails on a source whose name contains ``fail_on``."""
+    script = tmp_path / "bin" / "nvcc"
+    script.parent.mkdir()
+    script.write_text(
+        "#!" + sys.executable + "\n"
+        "import sys\n"
+        "a = sys.argv[1:]\n"
+        "ins = [x for x in a if x.endswith(('.cu', '.o'))]\n"
+        f"if any({fail_on!r} and {fail_on!r} in x for x in ins):\n"
+        "    print('error: bad source'); sys.exit(2)\n"
+        "open(a[a.index('-o') + 1], 'w').write(' '.join(ins))\n")
+    script.chmod(0o755)
+    return str(script.parent)
+
+
+def test_build_compiles_each_source_then_links_them(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("PATH", _fake_nvcc(tmp_path) + os.pathsep +
+                       os.environ["PATH"])
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "out")
+    lib, _ = build.build()
+    linked = lib.read_text().split()
+    assert sorted(os.path.basename(x) for x in linked) == sorted(
+        src.stem + ".o" for src in build.sources())
+    assert {"vtrace.o", "flash_attention.o", "decode_attention.o"} <= \
+        {os.path.basename(x) for x in linked}
+    assert build.build()[0] == lib          # built once per key
+
+
+def test_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("PATH", _fake_nvcc(tmp_path, "decode") + os.pathsep +
+                       os.environ["PATH"])
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="bad source"):
+        build.build()
+    assert not list((tmp_path / "out").glob("*/*.so"))
 
 
 def test_chip_smoke_device_busy_is_the_union_of_device_spans():
