@@ -49,6 +49,22 @@ exception and a nonzero exit:
     one long shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
     ``F.scaled_dot_product_attention``, that the port never calls.
+15. K3 (the linear scan) against its plain version on the card, with h0
+    and without: small and ragged shapes, the mamba2 serving path's
+    cross-chunk pass (8, 8388608) and the RG-LRU prefill's (2048, 40960).
+16. The SSM serving path: ``repro_torch.launch.serve --arch mamba2-1.3b
+    --ctx 2048`` (full width and all 48 layers, otherwise the CLI's
+    defaults) on the card. K3 must launch once a layer at each prefill and
+    K4/K5 never; counts are zeroed just before and read just after.
+    Prints actions/s, step latency, prefill and decode-step ms and the
+    card's peak allocated memory.
+17. Its served logits against the plain route (as phase 12).
+18. Where a mamba2 prefill's and decode step's time goes: ``torch.profiler``
+    traces, the card's busy time against the unprofiled times.
+19. Times with CUDA events: K3 at the serving shape and at (2048, 40960),
+    beside the plain version and the bound (bytes over 3.35 TB/s,
+    operations over 67 TFLOP/s fp32); no single PyTorch call computes the
+    recurrence, so there is no library time.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -88,7 +104,11 @@ ATTN_BF16_ATOL = 1e-5
 # rounds to the other neighbouring bf16 value (one ulp, 2^-8 relative) in
 # some of the 40 layers; the residual stream, norms and matmuls carry that
 # at roughly sqrt(40) * 2^-8 = 2.5% of the activations' scale, so the
-# logits are held to 5% of their own largest magnitude
+# logits are held to 5% of their own largest magnitude. The same bar holds
+# mamba2-1.3b: K3 is held to 1e-5 of its f32 states (bit for bit
+# expected), and where a state differs by an ulp the SSD output may round
+# to the other bf16 neighbour at its cast before the gate, in some of the
+# 48 layers: sqrt(48) * 2^-8 = 2.7% at most
 LOGITS_RTOL = 0.05
 MAIN_STEPS = 200
 BANDIT_STEPS = 150
@@ -127,6 +147,14 @@ K5_CASES = [
 ]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
+# K3 checks: (T, N). (8, 8388608) is the mamba2 serving path's cross-chunk
+# pass (8 chunks of 256 at ctx 2048; batch 16 x 64 heads x P 64 x N 128);
+# (2048, 40960) the RG-LRU prefill's at batch 16, width 2560, ctx 2048
+K3_SHAPES = [(1, 1), (33, 7), (257, 129), (512, 1024), (8, 8388608),
+             (2048, 40960)]
+K3_MAIN, K3_LONG = (8, 8388608), (2048, 40960)
+SSM_ARGV = ["--device", "cuda", "--arch", "mamba2-1.3b", "--ctx", "2048"]
+SSM_LAYERS, SSM_PARAMS = 48, 1_343_779_859
 
 
 def _card_line() -> str:
@@ -632,21 +660,27 @@ def phase_serve_split(run, profiled: int = 4) -> None:
                 tok = fb["actions"][i] % run.arch.vocab_size
             torch.cuda.synchronize()
     step = sorted(run.decode_ms)[len(run.decode_ms) // 2]
+    _print_busy(f"{run.arch.name} decode step", prof, profiled, step)
+
+
+def _print_busy(what: str, prof, n: int, unprofiled_ms: float) -> None:
+    """The card's busy time per call over ``n`` profiled calls against the
+    unprofiled time of one, and the device kernels that take most of it."""
     busy_us, count, by_name = _device_busy(prof.events())
     if not count:
-        print("serving device busy share: not measured (the profiler trace "
-              "holds no device events)")
+        print(f"{what} device busy share: not measured (the profiler trace "
+              f"holds no device events)")
         return
-    busy_ms = busy_us / profiled / 1e3
-    print(f"serving device: busy {busy_ms:.3f} ms per decode step over "
-          f"{profiled} profiled steps, {count / profiled:.0f} device events "
-          f"per step; {100 * busy_ms / step:.1f}% of the unprofiled "
-          f"{step:.3f} ms step, so the card idles "
-          f"{100 - 100 * busy_ms / step:.1f}% of it")
+    busy_ms = busy_us / n / 1e3
+    print(f"{what} device: busy {busy_ms:.3f} ms per call over {n} profiled, "
+          f"{count / n:.0f} device events per call; "
+          f"{100 * busy_ms / unprofiled_ms:.1f}% of the unprofiled "
+          f"{unprofiled_ms:.3f} ms, so the card idles "
+          f"{100 - 100 * busy_ms / unprofiled_ms:.1f}% of it")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (us, n) in top:
-        print(f"  device {us / profiled / 1e3:8.3f} ms/step "
-              f"{n / profiled:6.0f} calls/step  {name[:90]}")
+    for name, (us, calls) in top:
+        print(f"  device {us / n / 1e3:8.3f} ms/call {calls / n:6.0f} "
+              f"launches/call  {name[:90]}")
 
 
 def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
@@ -728,6 +762,123 @@ def phase_attn_times(fk, dk, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 3: the SSM serving path, K3
+
+
+def _scan_inputs(t: int, n: int, seed: int, dev):
+    """a uniform in [0, 1] (decays), b and h0 standard normal, drawn on the
+    card from a seed."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((t, n), generator=g, device=dev)
+    b = torch.randn((t, n), generator=g, device=dev)
+    h0 = torch.randn((n,), generator=g, device=dev)
+    return a, b, h0
+
+
+def phase_k3(lk, dev) -> float:
+    worst = 0.0
+    for t, n in K3_SHAPES:
+        a, b, h0 = _scan_inputs(t, n, t + n, dev)
+        errs = [_check(f"K3 (T,N)={(t, n)} h0={init is not None}",
+                       [lk.linear_scan(a, b, init)],
+                       [lk.linear_scan_plain(a, b, init)])
+                for init in (h0, None)]
+        torch.cuda.synchronize()
+        print(f"K3 (T,N)={(t, n)}: max abs err with h0 {errs[0]:.3e}, "
+              f"without {errs[1]:.3e}")
+        worst = max(worst, *errs)
+        del a, b, h0
+    return worst
+
+
+def phase_serve_ssm(lk, fk, dk):
+    """The mamba2 serving path, K3/K4/K5 counted over exactly it."""
+    from repro_torch.launch import serve as serve_lib
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_launch_counts()
+    fk.reset_launch_counts()
+    dk.reset_launch_counts()
+    run = serve_lib.serve(SSM_ARGV)
+    torch.cuda.synchronize()
+    launches = {"linear_scan": lk.linear_scan.launches,
+                "flash_attention": fk.flash_attention.launches,
+                "decode_attention": dk.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"linear_scan": SSM_LAYERS * SERVE_BATCHES,
+            "flash_attention": 0, "decode_attention": 0}
+    got = (run.arch.num_layers, run.param_count, run.batches,
+           run.decode_steps)
+    if got != (SSM_LAYERS, SSM_PARAMS, SERVE_BATCHES, SERVE_STEPS) or \
+            launches != want:
+        raise AssertionError(f"SSM serving path: (layers, params, batches, "
+                             f"steps) {got}, launches {launches}; expected "
+                             f"{(SSM_LAYERS, SSM_PARAMS, SERVE_BATCHES)}, "
+                             f"{SERVE_STEPS} steps, launches {want}")
+    fb = run.first_batch
+    for i, lg in enumerate(fb["logits"]):
+        if tuple(lg.shape) != (16, 1, run.num_actions) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"served logits {i}: {tuple(lg.shape)}, "
+                                 f"finite {bool(torch.isfinite(lg).all())}")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    print(f"serving: {run.arch.name} {run.param_count:,} params, "
+          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}, ctx "
+          f"{fb['tokens'].shape[1]}; launches K3 {launches['linear_scan']} "
+          f"K4 {launches['flash_attention']} K5 "
+          f"{launches['decode_attention']}")
+    print(f"serving: {run.actions_per_s:.1f} actions/s, p50 step latency "
+          f"{med(run.step_latency_ms):.3f} ms (batch time / decode steps), "
+          f"prefill {med(run.prefill_ms):.3f} ms (median of "
+          f"{len(run.prefill_ms)}), decode step {med(run.decode_ms):.3f} ms "
+          f"(median of {len(run.decode_ms)}), peak allocated "
+          f"{peak / 1e9:.2f} GB")
+    return launches, run
+
+
+def phase_prefill_split(run) -> None:
+    """Device busy time of one profiled prefill against the unprofiled
+    median, and the device kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import backbone as bb
+
+    toks = run.first_batch["tokens"]
+    with torch.no_grad():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+                             run.num_actions)
+            torch.cuda.synchronize()
+    _print_busy(f"{run.arch.name} prefill", prof, 1,
+                sorted(run.prefill_ms)[len(run.prefill_ms) // 2])
+
+
+def phase_scan_times(lk, dev):
+    """K3 at the serving path's shape and at the RG-LRU prefill's, without
+    h0 as the prefill calls it, beside the plain version and the bound."""
+    rows = {}
+    for label, (t, n), iters in (("main", K3_MAIN, 100),
+                                 ("long", K3_LONG, 20)):
+        a, b, _ = _scan_inputs(t, n, 3, dev)
+        ms = _time_ms(lambda: lk.linear_scan(a, b), iters)
+        plain_ms = _time_ms(lambda: lk.linear_scan_plain(a, b), iters)
+        # a and b read once, h written once; a multiply and an add each
+        nbytes, ops = 3 * t * n * 4, 2 * t * n
+        bound_ms, bound_by = _bound(nbytes, ops)
+        print(f"time linear_scan {label} (T,N)={(t, n)} f32: kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.7f} ms "
+              f"({bound_by}: {nbytes} B, {ops} ops), library: none (no "
+              f"single PyTorch call computes the recurrence)")
+        if label == "main":
+            rows["linear_scan"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by)
+        del a, b
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; it needs "
@@ -736,6 +887,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import linear_scan as lk
     from repro_torch.kernels import vtrace as vk
 
     torch.backends.cudnn.allow_tf32 = False
@@ -772,6 +924,16 @@ def main() -> int:
     del serve_run                     # the 46 GB of weights
     torch.cuda.empty_cache()
     rows.update(phase_attn_times(fk, dk, dev))
+
+    err_k3 = phase_k3(lk, dev)
+    ssm_launches, ssm_run = phase_serve_ssm(lk, fk, dk)
+    launches["linear_scan"] = ssm_launches["linear_scan"]
+    phase_serve_logits(ssm_run)
+    phase_prefill_split(ssm_run)
+    phase_serve_split(ssm_run)
+    del ssm_run
+    torch.cuda.empty_cache()
+    rows.update(phase_scan_times(lk, dev))
     print(f"times above: {card}")
 
     meta = {
@@ -785,6 +947,8 @@ def main() -> int:
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention.py:55",
                              err_k5),
+        "linear_scan": ("src/repro_torch/csrc/linear_scan.cu",
+                        "src/repro/kernels/linear_scan.py:38", err_k3),
     }
     kernels = []
     for name, (source, replaces, err) in meta.items():

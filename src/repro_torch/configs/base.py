@@ -1,10 +1,10 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
 Both keep only the fields the ported paths read: ``ArchConfig`` those of
-the conv-LSTM agents and of the dense token decoders (the MoE, SSM,
-RG-LRU, enc-dec and VLM fields join with those blocks), and
-``ImpalaConfig`` all but the replay buffer's, which join with the replay
-learner.
+the conv-LSTM agents, of the dense token decoders and of the Mamba-2 SSM
+stack (the MoE, RG-LRU, enc-dec and VLM fields join with those blocks),
+and ``ImpalaConfig`` all but the replay buffer's, which join with the
+replay learner.
 """
 from __future__ import annotations
 
@@ -13,9 +13,20 @@ from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block configuration."""
+    state_dim: int = 128          # N
+    head_dim: int = 64            # P
+    num_heads: int = 0            # derived: d_inner // head_dim if 0
+    expand: int = 2
+    chunk_size: int = 256
+    conv_width: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # impala_cnn | dense
+    family: str                   # impala_cnn | dense | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -30,6 +41,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     use_rope: bool = True
     sliding_window: int = 0       # 0 = full attention
+    ssm: Optional[SSMConfig] = None
     # IMPALA conv nets (paper Fig. 3)
     impala_net: str = ""          # '' | 'shallow' | 'deep'
     image_hw: Tuple[int, int, int] = (72, 96, 3)

@@ -34,6 +34,7 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # argtypes of each C entry point (pointers and the stream as c_void_p, so
 # ctypes does not cut a 64-bit address to an int)
 SIGNATURES = {
@@ -44,6 +45,8 @@ SIGNATURES = {
     # q, k, v, bias, o, part_m, part_l, part_acc; B, S, H, K, D, nsplit,
     # split_len; scale, is_bf16, stream
     "repro_decode_attention": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    # a, b, h0 (None for zeros), h; T, N; stream
+    "repro_linear_scan": [_P] * 4 + [_L, _L, _P],
 }
 
 
@@ -150,6 +153,21 @@ def on_cuda(device, what: str) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no {what} kernel or plain version for {device}")
+
+
+def check_f32(name: str, x, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous float32 tensor of ``shape`` on
+    ``device``: what the float32 kernels take."""
+    import torch
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
 
 
 def stream(device) -> int:

@@ -1,5 +1,6 @@
 """Dispatching wrappers over the ported kernels (``repro.kernels.ops``):
-V-trace (K1), flash attention (K4) and decode attention (K5).
+V-trace (K1), the linear scan (K3), flash attention (K4) and decode
+attention (K5).
 
 ``impl='auto'`` picks the hand-written kernel for CUDA tensors and the
 plain oracle for CPU tensors. ``'pallas'`` keeps the reference's name for
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as decode_k
 from repro_torch.kernels import flash_attention as flash_k
+from repro_torch.kernels import linear_scan as linear_scan_k
 from repro_torch.kernels import ref
 from repro_torch.kernels import vtrace as vtrace_k
 
@@ -50,6 +52,21 @@ def vtrace(log_rhos, discounts, rewards, values, bootstrap_value,
     else:
         raise ValueError(impl)
     return vs.t(), pg.t()
+
+
+def linear_scan(a, b, h0: Optional[torch.Tensor] = None,
+                impl: str = "auto") -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t. a, b: (T, N), cast to f32; h0: (N,) or
+    None (zeros)."""
+    impl_r = _resolve(impl, a.device)
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    h0 = None if h0 is None else h0.to(torch.float32)
+    if impl_r == "ref":
+        return ref.linear_scan_ref(a, b, h0)
+    if impl_r == "pallas":
+        return linear_scan_k.linear_scan(a, b, h0)
+    raise ValueError(impl)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,

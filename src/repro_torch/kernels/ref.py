@@ -1,11 +1,10 @@
 """Plain-PyTorch oracles of the ported kernels (``repro.kernels.ref``):
-V-trace (K1), flash attention (K4) and decode attention (K5).
-
-The linear scan's oracle (K3) joins with that kernel.
+V-trace (K1), the linear scan (K3), flash attention (K4) and decode
+attention (K5).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +31,21 @@ def vtrace_ref(rho, c, discounts, rewards, values, values_tp1
         acc = delta + discounts[s] * c[s] * acc
         vs[s] = values[s] + acc
     return torch.stack(vs, dim=0), torch.stack(pg, dim=0)
+
+
+def linear_scan_ref(a, b, h0: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Diagonal linear recurrence h_t = a_t * h_{t-1} + b_t.
+
+    a, b: (T, N) float32; h0: (N,) or None (zeros). Returns h (T, N). Each
+    step is a multiply and then an add, each rounded (no fused
+    multiply-add), as the kernel rounds them."""
+    h = torch.zeros_like(a[0]) if h0 is None else h0
+    out = torch.empty_like(a)
+    for t in range(a.shape[0]):
+        h = a[t] * h + b[t]
+        out[t] = h
+    return out
 
 
 def flash_attention_ref(q, k, v, causal: bool = True,

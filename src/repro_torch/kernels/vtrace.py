@@ -34,18 +34,6 @@ def reset_launch_counts() -> None:
     loss_vtrace.launches = 0
 
 
-def _check(name: str, x: torch.Tensor, shape, device) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 # ---------------------------------------------------------------------------
 # K1: the V-trace recurrence
 
@@ -60,7 +48,7 @@ def vtrace(rho, c, discounts, rewards, values, values_tp1
     args = (rho, c, discounts, rewards, values, values_tp1)
     for name, x in zip(("rho", "c", "discounts", "rewards", "values",
                         "values_tp1"), args):
-        _check(name, x, (t, b), rho.device)
+        build.check_f32(name, x, (t, b), rho.device)
     if not build.on_cuda(rho.device, "V-trace"):
         return vtrace_plain(*args)
     lib = build.load()
@@ -122,12 +110,12 @@ def loss_vtrace(logits, onehot, behaviour_logprob, discounts, rewards,
     if t < 1 or b < 1 or a < 1:
         raise ValueError(f"loss_vtrace: empty input {tuple(logits.shape)}")
     dev = logits.device
-    _check("logits", logits, (t, b, a), dev)
-    _check("onehot", onehot, (t, b, a), dev)
+    build.check_f32("logits", logits, (t, b, a), dev)
+    build.check_f32("onehot", onehot, (t, b, a), dev)
     flat = (behaviour_logprob, discounts, rewards, values, values_tp1)
     for name, x in zip(("behaviour_logprob", "discounts", "rewards",
                         "values", "values_tp1"), flat):
-        _check(name, x, (t, b), dev)
+        build.check_f32(name, x, (t, b), dev)
     if not build.on_cuda(dev, "V-trace"):
         return loss_vtrace_plain(logits, onehot, *flat, rho_bar=rho_bar,
                                  c_bar=c_bar, lambda_=lambda_)

@@ -6,13 +6,24 @@ Requests (observation streams of ``--ctx`` tokens) wait in a host-side
 queue; the server takes up to ``--batch`` of them, pads a short batch to
 ``--batch`` (shapes stay static), prefills each stream's context once,
 then steps all streams in lockstep through ``--decode-steps`` decode
-steps against the KV cache, one sampled action per stream per step. On
-the card, prefill attention runs kernel K4 once a layer and each decode
-step runs K5 once a layer.
+steps against the decode cache, one sampled action per stream per step.
+The kernels on the card, per family:
+
+* ``dense`` (mistral-nemo-12b, the default ``--arch``): prefill attention
+  runs K4 (flash attention) once a layer and each decode step runs K5
+  (decode attention) once a layer, against the KV cache.
+* ``ssm`` (``--arch mamba2-1.3b``): each prefill runs K3 (the linear
+  scan) once a layer, for the cross-chunk state pass; a decode step
+  updates each layer's SSM and conv states and launches no kernel of the
+  port.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch mamba2-1.3b --ctx 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --requests 4 --batch 2 --ctx 16 --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --arch mamba2-1.3b --requests 4 --batch 2 --ctx 40 --decode-steps 4
 
 ``--device`` defaults to cuda and raises where no card is found; it does
 not fall back to the CPU. ``--smoke`` is off by default, so the default

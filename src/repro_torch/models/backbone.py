@@ -1,15 +1,16 @@
 """Backbone assembly (``repro.models.backbone``): specs, heads, and the
-apply paths of the two ported families.
+apply paths of the ported families.
 
 * ``impala_cnn``, the paper's conv(+LSTM) agent: ``apply_train`` folds
   the conv torso over time (B*T images), runs the LSTM over time with the
   actor-provided initial state, and the heads give
   ``AgentOutput(policy_logits, values)``.
-* ``dense`` token decoders (mistral-nemo-12b): embedding -> layer stack
-  -> final norm -> heads, served by ``apply_prefill`` (the whole context,
-  returns the logits at the last step and the KV cache) and
-  ``apply_decode`` (one step against the cache). Token training is not
-  ported yet.
+* token backbones: ``dense`` decoders (mistral-nemo-12b) and ``ssm``
+  stacks (mamba2-1.3b): embedding -> layer stack -> final norm -> heads,
+  served by ``apply_prefill`` (the whole context, returns the logits at
+  the last step and the decode cache: KV caches, or SSM and conv states)
+  and ``apply_decode`` (one step against the cache). Token training is
+  not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import convnets, lstm as lstm_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense, dense_specs, embed,
                                        embedding_specs, make_norm,
@@ -107,8 +109,8 @@ def apply_train(params, batch: Dict, cfg: ArchConfig,
 def apply_prefill(params, batch: Dict, cfg: ArchConfig, num_actions: int,
                   impl: str = "auto") -> AgentOutput:
     """batch["tokens"]: (B, T) int. Returns the logits and values at the
-    last step, (B, 1, A) and (B, 1), and the KV caches of every layer.
-    ``impl`` picks the attention route (``ops``)."""
+    last step, (B, 1, A) and (B, 1), and the decode caches of every layer.
+    ``impl`` picks the kernels' route (``ops``)."""
     del num_actions                     # the heads' shapes carry it
     tokens = batch["tokens"]
     b, t = tokens.shape
@@ -124,8 +126,8 @@ def apply_decode(params, token: torch.Tensor, cache, cache_index: int,
                  cfg: ArchConfig, num_actions: int,
                  impl: str = "auto") -> AgentOutput:
     """token: (B, 1) int; cache_index: the absolute position (host int).
-    Writes the step's keys and values into ``cache`` in place and returns
-    it as the output's cache."""
+    Writes the step's keys and values (or SSM and conv states) into
+    ``cache`` in place and returns it as the output's cache."""
     del num_actions
     b = token.shape[0]
     x = embed(params["embed"], token, torch_dtype(cfg.dtype))
@@ -142,6 +144,8 @@ def _block_cache_abstract(kind: str, batch: int, length: int,
                           cfg: ArchConfig, dtype) -> Dict:
     if kind not in tfm.KINDS:
         raise NotImplementedError(f"block kind {kind!r}: {tfm.NOT_PORTED}")
+    if kind == "ssm":
+        return {"ssm": ssm_lib.ssm_state_abstract(batch, cfg, dtype)}
     if kind == "local":
         length = min(cfg.sliding_window, length)
     spec = attn_lib.CacheSpec(length, cfg.num_kv_heads,

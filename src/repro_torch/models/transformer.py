@@ -1,13 +1,13 @@
-"""Decoder stacks (``repro.models.transformer``) for the ``attn`` and
-``local`` block kinds: pre-norm self-attention + MLP, full or within a
-sliding window.
+"""Decoder stacks (``repro.models.transformer``) for the ``attn``,
+``local`` and ``ssm`` block kinds: pre-norm self-attention + MLP, full
+or within a sliding window, and the pre-norm Mamba-2 SSD block (no FFN).
 
 Layers are grouped into the minimal repeating pattern, and each leaf of
 the group's params and caches carries a leading group axis, as the JAX
 package stacks them for ``lax.scan``. ``apply_stack`` walks the groups
 in a Python loop, indexing each group's params and caches (views, no
-copies). The other block kinds (recurrent, ssm, moe, cross, enc_dec) raise
-and name the roadmap item that ports them.
+copies). The other block kinds (recurrent, moe, cross, enc_dec) raise and
+name the roadmap item that ports them.
 """
 from __future__ import annotations
 
@@ -18,20 +18,23 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import Spec, make_norm
 from repro_torch.params import tree_map
 
 Tree = Any
 
-NOT_PORTED = ("not ported yet (ROADMAP.md, Queue 1 item 14: MoE, SSM, "
+NOT_PORTED = ("not ported yet (ROADMAP.md, Queue 1 item 14: MoE, "
               "RG-LRU, cross-attention and enc-dec blocks)")
-KINDS = ("attn", "local")
+KINDS = ("attn", "local", "ssm")
 
 
 def layer_plan(cfg: ArchConfig) -> Tuple[List[str], List[str]]:
     """(scanned group kinds, unrolled leftover kinds)."""
     if cfg.family == "dense":
         return ["local" if cfg.sliding_window else "attn"], []
+    if cfg.family == "ssm":
+        return ["ssm"], []
     raise NotImplementedError(f"family {cfg.family!r}: {NOT_PORTED}")
 
 
@@ -44,6 +47,8 @@ def block_specs(cfg: ArchConfig, kind: str) -> Dict:
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED}")
     norm_specs, _ = make_norm(cfg.norm, cfg.d_model)
+    if kind == "ssm":
+        return {"norm1": norm_specs, "ssm": ssm_lib.ssm_specs(cfg)}
     return {"norm1": norm_specs, "attn": attn_lib.attention_specs(cfg),
             "norm2": norm_specs, "ffn": mlp_lib.mlp_specs(cfg)}
 
@@ -52,12 +57,18 @@ def apply_block(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, kind: str, *, mode: str,
                 cache: Optional[Tree], impl: str = "auto"):
     """Returns (x, new_cache). ``cache`` is ``{"kv": {...}, "index": i}``
-    in decode and None in prefill. (The JAX function also returns an aux
-    loss, always 0 for these kinds.)"""
+    (attention) or ``{"ssm": {...}, "index": i}`` in decode and None in
+    prefill. (The JAX function also returns an aux loss, always 0 for
+    these kinds.)"""
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r}: {NOT_PORTED}")
     _, norm = make_norm(cfg.norm, cfg.d_model)
     h = norm(params["norm1"], x)
+    if kind == "ssm":
+        y, st = ssm_lib.apply_ssm(
+            params["ssm"], h, cfg, mode=mode,
+            state=None if cache is None else cache.get("ssm"), impl=impl)
+        return x + y, {"ssm": st}
     window = cfg.sliding_window if kind == "local" else 0
     y, kv = attn_lib.apply_attention(
         params["attn"], h, positions, cfg, causal=True, window=window,
@@ -89,7 +100,8 @@ def apply_stack(params, x: torch.Tensor, positions: torch.Tensor,
 
     caches: ``{'scan': per-group caches stacked on a leading group axis}``.
     Prefill builds them (stacking each group's); decode writes each layer's
-    new key and value into ``caches`` in place and returns it."""
+    new key and value, or its new SSM and conv states, into ``caches`` in
+    place and returns it."""
     group, _ = layer_plan(cfg)
     per_group = []
     for gi in range(num_groups(cfg)):

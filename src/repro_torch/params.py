@@ -5,7 +5,7 @@ leaves are tensors, with the leaf names of ``backbone_specs``. Two
 layouts differ:
 
 * conv kernels (the ``kernel`` leaves of the torso's conv layers, told
-  apart by their path) are HWIO in JAX
+  apart by their full path) are HWIO in JAX
   (``lax.conv_general_dilated`` with ``("NHWC", "HWIO", "NHWC")``) and
   OIHW here (``F.conv2d``);
 * every other leaf keeps its shape: dense kernels are (in..., out...) in
@@ -28,20 +28,22 @@ import torch
 Tree = Any
 
 
-# the torso's conv layers: conv1/conv2 (shallow), conv and res<b>a/res<b>b
-# in each section (deep)
-_CONV_LAYER = re.compile(r"conv\d*|res\d+[ab]")
+# the kernel of a torso conv layer: conv1/conv2 (shallow), conv and
+# res<b>a/res<b>b in each section (deep), in the whole agent's tree
+# (under ``torso/``) or in a torso tree passed alone
+_TORSO_CONV_KERNEL = re.compile(
+    r"(torso/)?(section\d+/)?(conv\d*|res\d+[ab])/kernel")
 
 
 def _is_conv_kernel(path: str) -> bool:
-    """The path decides, not the rank: the kernel of a torso conv layer is
-    HWIO, whether the tree is the whole agent (``torso/conv1/kernel``) or
-    the torso itself (``conv1/kernel``). The token backbones' stacked dense
+    """The path decides, not the rank or the layer's name alone: the
+    kernel of a torso conv layer is HWIO, whether the tree is the whole
+    agent (``torso/conv1/kernel``) or the torso itself (``conv1/kernel``).
+    The token backbones' leaves keep their layout: the stacked dense
     kernels are 4-D too, e.g. ``stack/scan/l0/attn/q/kernel`` of shape
-    (layers, d, H, Dh), and keep their layout."""
-    parts = path.split("/")
-    return (len(parts) >= 2 and parts[-1] == "kernel"
-            and _CONV_LAYER.fullmatch(parts[-2]) is not None)
+    (layers, d, H, Dh), and the SSM and RG-LRU blocks' depthwise
+    ``stack/scan/l0/ssm/conv/kernel`` is (layers, W, C)."""
+    return _TORSO_CONV_KERNEL.fullmatch(path) is not None
 
 
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:

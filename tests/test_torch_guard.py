@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as dk
 from repro_torch.kernels import flash_attention as fk
+from repro_torch.kernels import linear_scan as lk
 from repro_torch.kernels import vtrace as vk
 from repro_torch.launch import serve as serve_lib
 from repro_torch.launch import train as train_lib
@@ -71,6 +72,7 @@ def test_server_asked_for_cuda_raises_without_a_card(monkeypatch):
     (["--ckpt-dir", "x"], "ckpt"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
+    (["--arch", "mamba2-1.3b"], "token training"),
     (["--env", "rooms"], "catch and bandit"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
@@ -99,6 +101,40 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     vk.fused_loss_vtrace(logits, onehot, rew, disc, rew, v, vtp1)
     assert vk.vtrace.launches == 0
     assert vk.loss_vtrace.launches == 0
+
+
+def _scan_inputs(t, n, seed, dev="cpu"):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(t, n, generator=g)
+    b = torch.randn(t, n, generator=g)
+    h0 = torch.randn(n, generator=g)
+    return tuple(x.to(dev) for x in (a, b, h0))
+
+
+def test_linear_scan_wrapper_takes_the_plain_version_on_cpu_uncounted():
+    a, b, h0 = _scan_inputs(7, 5, 0)
+    lk.reset_launch_counts()
+    for init in (h0, None):
+        torch.testing.assert_close(lk.linear_scan(a, b, init),
+                                   lk.linear_scan_plain(a, b, init),
+                                   rtol=0, atol=0)
+    assert lk.linear_scan.launches == 0
+
+
+def test_linear_scan_wrapper_refuses_what_the_kernel_does_not_take():
+    a, b, h0 = _scan_inputs(7, 5, 1)
+    with pytest.raises(TypeError, match="float32"):
+        lk.linear_scan(a.double(), b, h0)
+    with pytest.raises(TypeError, match="float32"):
+        lk.linear_scan(a, b, h0.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        lk.linear_scan(a.t().contiguous().t(), b, h0)
+    with pytest.raises(ValueError, match="shape"):
+        lk.linear_scan(a, b[:, :4], h0)
+    with pytest.raises(ValueError, match="shape"):
+        lk.linear_scan(a, b, h0[:4])
+    with pytest.raises(ValueError, match="non-empty"):
+        lk.linear_scan(a[0], b[0], h0)
 
 
 def _attn_inputs(b, t, s, h, kh, d, seed, dtype=torch.float32, dev="cpu"):
@@ -247,6 +283,25 @@ def test_decode_attention_matches_plain_on_the_card(b, h, kh, s, d, index,
     assert dk.decode_attention.launches == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(1, 1), (33, 7), (257, 129), (512, 1024),
+                                 (8, 16 * 64 * 64 * 128)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_linear_scan_matches_plain_on_the_card(t, n, with_h0):
+    """Built with -fmad=false, the kernel rounds as the plain loop does:
+    held to 1e-5 absolute, bit for bit expected. (8, 8388608) is the
+    mamba2-1.3b serving path's cross-chunk pass at batch 16, ctx 2048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    a, b, h0 = _scan_inputs(t, n, t + n, "cuda")
+    h0 = h0 if with_h0 else None
+    lk.reset_launch_counts()
+    got = lk.linear_scan(a, b, h0)
+    want = lk.linear_scan_plain(a, b, h0)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert lk.linear_scan.launches == 1
+
+
 def _fake_nvcc(tmp_path, fail_on=""):
     """An ``nvcc`` on PATH that writes its -o target (listing its inputs)
     and fails on a source whose name contains ``fail_on``."""
@@ -274,7 +329,8 @@ def test_build_compiles_each_source_then_links_them(tmp_path, monkeypatch):
     linked = lib.read_text().split()
     assert sorted(os.path.basename(x) for x in linked) == sorted(
         src.stem + ".o" for src in build.sources())
-    assert {"vtrace.o", "flash_attention.o", "decode_attention.o"} <= \
+    assert {"vtrace.o", "flash_attention.o", "decode_attention.o",
+            "linear_scan.o"} <= \
         {os.path.basename(x) for x in linked}
     assert build.build()[0] == lib          # built once per key
 
