@@ -29,11 +29,15 @@ exception and a nonzero exit:
    least time the card could take (bytes over 3.35 TB/s, operations over
    67 TFLOP/s fp32; the larger of the two).
 9. K4 (flash attention) against its plain version on the card, in bf16
-   and f32: the serving path's prefill shape, a ragged T, S != T, non-
-   causal, a sliding window, one and four query heads per kv head.
+   (the tensor-core kernel) and f32 (the SIMT kernel): the serving path's
+   prefill shape, a ragged T, S != T (T = 200 against S = 330 across the
+   128-row tiles), non-causal (S = 1 too), sliding windows of 64 at T =
+   512 and 2048, T = S = 2048, one and four query heads per kv head, D =
+   32, 64, 128 and 256.
 10. K5 (decode attention) against its plain version: the serving path's
-    decode shape, S = 32768, a ragged S, and biases with masked prefixes
-    and suffixes built by the decode path's own ``decode_bias``.
+    decode shape, S = 32768, S = 1, 17, 64, 65, 1000 and 4097, G = 1, 4
+    and 16, and biases with masked prefixes and suffixes built by the
+    decode path's own ``decode_bias``.
 11. The serving path: ``repro_torch.launch.serve`` at its defaults
     (mistral-nemo-12b at full width and depth, 64 requests, batch 16, ctx
     128, 32 decode steps) on the card. K4 must launch once a layer at each
@@ -48,7 +52,8 @@ exception and a nonzero exit:
 14. Times with CUDA events: K4 and K5 at the serving path's shapes and at
     one long shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
-    ``F.scaled_dot_product_attention``, that the port never calls.
+    ``F.scaled_dot_product_attention``, that the port never calls; with
+    the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound.
 15. K3 (the linear scan) against its plain version on the card, with h0
     and without: small and ragged shapes, the mamba2 serving path's
     cross-chunk pass (8, 8388608) and the RG-LRU prefill's (2048, 40960).
@@ -133,6 +138,11 @@ K4_CASES = [
     (2, 128, 128, 8, 8, 128, True, 0),      # G = 1
     (2, 96, 96, 16, 4, 64, True, 0),        # G = 4 at D = 64
     (2, 70, 70, 4, 2, 32, True, 24),        # the smoke config's D = 32
+    (2, 256, 256, 16, 4, 256, True, 0),     # D = 256: 64-key tiles, G = 4
+    (1, 2048, 2048, 32, 8, 128, True, 0),   # 16 query tiles, 1-16 kv tiles
+    (1, 2048, 2048, 32, 8, 128, True, 64),  # window 64 at T = S = 2048
+    (2, 200, 330, 32, 8, 128, True, 0),     # ragged across 128-row tiles
+    (2, 1, 1, 32, 8, 128, False, 0),        # non-causal, S = 1
 ]
 # K5 checks: (B, H, K, S, D, cache_index, window) with the decode path's
 # bias: decode_bias(cache_index, S, window)
@@ -144,6 +154,12 @@ K5_CASES = [
     (4, 32, 8, 1024, 128, 2000, 256),       # ring buffer: masked prefix
     (4, 32, 8, 512, 128, 200, 128),         # ring not yet full: both ends
     (3, 8, 8, 130, 64, 100, 0),             # G = 1 at D = 64
+    (4, 32, 8, 1, 128, 0, 0),               # S = 1: one warp, one key
+    (4, 32, 8, 17, 128, 16, 0),             # S = 17: two ragged tiles
+    (4, 32, 8, 64, 128, 40, 0),             # S = 64, a masked suffix
+    (4, 32, 8, 65, 128, 64, 0),             # S = 65: one key past 64
+    (4, 32, 8, 4097, 128, 4096, 0),         # S = 4097: splits, ragged
+    (4, 32, 2, 1000, 128, 999, 0),          # G = 16 at D = 128
 ]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
@@ -683,6 +699,22 @@ def _print_busy(what: str, prof, n: int, unprofiled_ms: float) -> None:
               f"launches/call  {name[:90]}")
 
 
+def _device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn``: the busy time of its device events
+    in a ``torch.profiler`` trace of ``n`` calls, over ``n`` (no host
+    time; NaN where the trace holds no device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy_us, count, _ = _device_busy(prof.events())
+    return busy_us / n / 1e3 if count else math.nan
+
+
 def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask leaves: the work these inputs need."""
     total = 0
@@ -717,11 +749,19 @@ def phase_attn_times(fk, dk, dev):
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         ops = 4 * b * h * d * _attn_pairs(t, t, True, 0)
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        dev_ms = _device_ms(lambda: fk.flash_attention(q, k, v, True, 0))
+        lib_dev_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
         print(f"time flash_attention {label} (B,T,H,K,D)="
-              f"{(b, t, h, kh, d)} causal bf16: kernel {ms:.5f} ms, plain "
+              f"{(b, t, h, kh, d)} causal bf16: kernel {ms:.5f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s,"
+              f" {100 * bound_ms / ms:.1f}% of the bound), plain "
               f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
-              f" {lib_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
-              f"{nbytes} B, {ops} ops)")
+              f" {lib_ms:.5f} ms ({ops / lib_ms / 1e9:.1f} TFLOP/s), bound "
+              f"{bound_ms:.7f} ms ({bound_by}: {nbytes} B, {ops} ops); "
+              f"device time a call (profiler): kernel {dev_ms:.5f} ms "
+              f"({100 * bound_ms / dev_ms:.1f}% of the bound), library "
+              f"{lib_dev_ms:.5f} ms")
         if label == "main":
             rows["flash_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                            bound_ms=bound_ms,
@@ -745,15 +785,25 @@ def phase_attn_times(fk, dk, dev):
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s
         ops = 4 * h * d * valid
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
+        dev_ms = _device_ms(lambda: dk.decode_attention(q, k, v, bias))
+        lib_dev_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True))
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         nsplit, split_len = dk.plan_splits(b, kh, s, sms)
         print(f"time decode_attention {label} (B,H,K,S,D)="
-              f"{(b, h, kh, s, d)} bf16: kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
-              f" {lib_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
-              f"{nbytes} B, {ops} ops); S in {nsplit} split(s) of "
-              f"{split_len} keys: {b * kh * nsplit} blocks on {sms} SMs"
-              + (", plus the combine pass" if nsplit > 1 else ""))
+              f"{(b, h, kh, s, d)} bf16: kernel {ms:.5f} ms "
+              f"({nbytes / ms / 1e9:.3f} TB/s, {100 * bound_ms / ms:.1f}% of "
+              f"the bound), plain {plain_ms:.5f} ms, library "
+              f"(F.scaled_dot_product_attention) {lib_ms:.5f} ms "
+              f"({nbytes / lib_ms / 1e9:.3f} TB/s), bound {bound_ms:.7f} ms "
+              f"({bound_by}: {nbytes} B, {ops} ops); S in {nsplit} "
+              f"split(s) of {split_len} keys: {b * kh * nsplit} blocks on "
+              f"{sms} SMs"
+              + (", plus the combine pass" if nsplit > 1 else "")
+              + f"; device time a call (profiler): kernel {dev_ms:.5f} ms "
+              f"({nbytes / dev_ms / 1e9:.3f} TB/s, "
+              f"{100 * bound_ms / dev_ms:.1f}% of the bound), library "
+              f"{lib_dev_ms:.5f} ms")
         if label == "main":
             rows["decode_attention"] = dict(ms=ms, plain_ms=plain_ms,
                                             bound_ms=bound_ms,
@@ -904,7 +954,10 @@ def main() -> int:
     build.load()
     print(f"build: {time.time() - t0:.2f} s -> {path.relative_to(ROOT)}")
     for line in log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        # the registers of every kernel, and any wgmma that ptxas
+        # had to serialise (its C75xx "Performance Loss" notes)
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line
+                                     or "Performance Loss" in line):
             print(f"  {line.strip()}")
 
     err_k1 = phase_k1(vk, dev)

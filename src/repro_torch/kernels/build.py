@@ -171,9 +171,14 @@ def check_f32(name: str, x, shape, device) -> None:
 
 
 def stream(device) -> int:
-    """The current stream of ``device``, as the int ctypes passes on."""
+    """The current stream of ``device``, as the int ctypes passes on (the
+    raw handle, without building a ``torch.cuda.Stream``: a launch's host
+    time matters on the serving path)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(code: int, name: str) -> None:

@@ -28,17 +28,25 @@ from repro_torch.kernels.ref import decode_attention_ref
 decode_attention_plain = decode_attention_ref
 
 MAX_GROUP = 16      # query heads per kv head the kernel serves
-CHUNK = 64          # keys per step of the kernel's loop
+CHUNK = 64          # a split's keys are a multiple of this (of any tile)
 MIN_SPLIT = 512     # the fewest keys worth a block of their own
+WARPS = 8           # warps a block; warp w owns tiles w, w + 8, ... of S
+
+
+def tile_keys(d: int, itemsize: int) -> int:
+    """Keys in one warp's tile: 2 KB of K (and of V) rows of ``d``
+    elements of ``itemsize`` bytes, 4 to 32 keys; always divides CHUNK."""
+    return max(4, min(32, 2048 // (d * itemsize)))
 
 
 def plan_splits(b: int, kh: int, s: int, sms: int) -> Tuple[int, int]:
     """(splits, keys per split) of S for ``b * kh`` (batch, kv head)
-    blocks on ``sms`` SMs: enough splits for about four blocks an SM, none
-    shorter than MIN_SPLIT keys unless S is, each a multiple of CHUNK
-    keys (the last may be short). One split when ``b * kh`` already fills
-    the card."""
-    n = max(1, min(-(-4 * sms // (b * kh)), -(-s // MIN_SPLIT)))
+    blocks on ``sms`` SMs: enough splits for about eight blocks an SM (four
+    waves of the two blocks that fit an SM at D = 128 in bf16, so the last
+    wave's idle SMs cost little), none shorter than MIN_SPLIT keys unless
+    S is, each a multiple of CHUNK keys (the last may be short). One split
+    when ``b * kh`` already fills the card."""
+    n = max(1, min(-(-8 * sms // (b * kh)), -(-s // MIN_SPLIT)))
     split_len = -(-s // (n * CHUNK)) * CHUNK
     return -(-s // split_len), split_len
 
@@ -68,18 +76,21 @@ def decode_attention(q, k, v, bias) -> torch.Tensor:
     out = torch.empty_like(q)
     check_kernel_layout("decode_attention", (q, k, v, out), d)
     nsplit, split_len = plan_splits(b, kh, s, _sm_count(q.device.index))
-    # scratch of the splits' (m, l, acc), read by the combine pass
+    # scratch of the splits' (m, l, acc), read by the combine pass: one
+    # allocation, and none with one split (every launch of the serving path)
     parts = b * kh * nsplit * (h // kh) if nsplit > 1 else 0
-    part_m, part_l, part_acc = (
-        torch.empty(n, dtype=torch.float32, device=q.device)
-        for n in (parts, parts, parts * d))
+    part_m = part_l = part_acc = None
+    if parts:
+        scratch = torch.empty(parts * (2 + d), dtype=torch.float32,
+                              device=q.device)
+        part_m = scratch.data_ptr()
+        part_l, part_acc = part_m + 4 * parts, part_m + 8 * parts
     lib = build.load()
     with torch.cuda.device(q.device):
         code = lib.repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_acc.data_ptr(), b, s, h, kh, d, nsplit, split_len,
-            d ** -0.5, int(q.dtype == torch.bfloat16),
+            out.data_ptr(), part_m, part_l, part_acc, b, s, h, kh, d, nsplit,
+            split_len, d ** -0.5, int(q.dtype == torch.bfloat16),
             build.stream(q.device))
     build.raise_on(code, "repro_decode_attention")
     decode_attention.launches += 1

@@ -186,10 +186,10 @@ def test_attention_wrappers_refuse_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("b,kh,s,sms,want", [
     (16, 8, 128, 132, (1, 128)),        # the serving path: one pass
-    (8, 8, 32768, 132, (9, 3648)),      # decode_32k: ~4 blocks an SM
+    (8, 8, 32768, 132, (17, 1984)),     # decode_32k: ~8 blocks an SM
     (4, 8, 1000, 132, (2, 512)),        # no split shorter than 512 keys
     (1, 1, 100, 132, (1, 128)),
-    (64, 8, 32768, 132, (2, 16384)),
+    (64, 8, 32768, 132, (3, 10944)),
 ])
 def test_decode_attention_splits_s_when_the_blocks_are_few(b, kh, s, sms,
                                                             want):
