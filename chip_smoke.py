@@ -25,9 +25,12 @@ exception and a nonzero exit:
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
    and the device kernels that take most of it.
-8. Times with CUDA events: each kernel and its plain version, beside the
-   least time the card could take (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s fp32; the larger of the two).
+8. Times: K1 and K2 at the main path's shape, the paper's DMLab learner
+   shape (100, 32, 9) and (100, 256, 18); each call timed with CUDA
+   events and each kernel's device time from a ``torch.profiler`` trace,
+   beside the plain version and the least time the card could take
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32; the larger of
+   the two).
 9. K4 (flash attention) against its plain version on the card, in bf16
    (the tensor-core kernel) and f32 (the SIMT kernel): the serving path's
    prefill shape, a ragged T, S != T (T = 200 against S = 330 across the
@@ -74,6 +77,11 @@ exception and a nonzero exit:
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
 and prints no result where ``torch.cuda.is_available()`` is false.
+
+    python3 chip_smoke.py --only-vtrace
+
+runs phases 1-4 and 8 alone (the V-trace kernels' checks and times) and
+prints no result line.
 """
 from __future__ import annotations
 
@@ -123,10 +131,13 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
          (1.0, 1.0, 0.9)]
-K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 256)]
-K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 256, 18), (16, 8, 130)]
+K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256)]
+K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 32, 9), (100, 256, 18),
+             (16, 8, 130)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
-BIG_T, BIG_B, BIG_A = 100, 256, 18
+# K1/K2 timed at the main path's shape, the paper's DMLab learner shape
+# (unroll 100, batch 32, 9 actions) and a large one
+VTRACE_TIMED = [(MAIN_T, MAIN_B, MAIN_A), (100, 32, 9), (100, 256, 18)]
 # K4 checks: (B, T, S, H, K, D, causal, window)
 K4_CASES = [
     (16, 128, 128, 32, 8, 128, True, 0),    # the serving path's prefill
@@ -481,8 +492,11 @@ def _k2_cost(t, b, a):
 
 
 def phase_times(vk, dev):
+    """K1 and K2 at VTRACE_TIMED: the call timed with CUDA events and the
+    kernel's device time from a profiler trace, beside the plain version
+    and the bound."""
     rows = {}
-    for t, b, a in ((MAIN_T, MAIN_B, MAIN_A), (BIG_T, BIG_B, BIG_A)):
+    for t, b, a in VTRACE_TIMED:
         inp = _inputs(t, b, a, 5, dev)
         rho, c = _weights(_log_rhos(inp), 1.0, 1.0, 1.0)
         k1_args = (rho, c) + inp[3:]
@@ -492,13 +506,16 @@ def phase_times(vk, dev):
                 ("loss_vtrace", vk.loss_vtrace, vk.loss_vtrace_plain, inp,
                  _k2_cost(t, b, a))):
             ms = _time_ms(lambda: kern(*args))
-            plain_ms = _time_ms(lambda: plain(*args))
+            plain_ms = _time_ms(lambda: plain(*args), 50)
+            dev_ms = _device_ms(lambda: kern(*args), 50)
             bound_ms, bound_by = _bound(*cost)
             shape = (t, b) if name == "vtrace" else (t, b, a)
-            print(f"time {name} {shape}: kernel {ms:.5f} ms, plain "
-                  f"{plain_ms:.5f} ms, bound {bound_ms:.7f} ms "
-                  f"({bound_by}: {cost[0]} B, {cost[1]} ops), library: "
-                  f"none (no single PyTorch call computes V-trace)")
+            print(f"time {name} {shape}: call {ms:.5f} ms "
+                  f"({100 * bound_ms / ms:.3f}% of the bound), device "
+                  f"{dev_ms:.5f} ms ({100 * bound_ms / dev_ms:.3f}%), plain "
+                  f"{plain_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
+                  f"{cost[0]} B, {cost[1]} ops), library: none (no single "
+                  f"PyTorch call computes V-trace)")
             if (t, b) == (MAIN_T, MAIN_B):
                 rows[name] = dict(ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
@@ -962,6 +979,11 @@ def main() -> int:
 
     err_k1 = phase_k1(vk, dev)
     err_k2 = phase_k2(vk, dev)
+    if "--only-vtrace" in sys.argv[1:]:
+        phase_times(vk, dev)
+        print(f"times above: {card}; --only-vtrace ran phases 1-4 and 8 "
+              f"and prints no result")
+        return 0
     launches, run = phase_main(vk, dev)
     phase_bandit()
     phase_split(run, dev)

@@ -2,7 +2,8 @@
 // decode_attention.cu, K5): the store of a float32 result in the
 // output's dtype, the widening of 16 bytes of bf16 or f32 to
 // float32 registers, cp.async copies from device to shared memory, and the
-// launch's shared-memory limit.
+// launch's shared-memory limit. The V-trace kernels (vtrace.cu) use the
+// last two.
 #pragma once
 
 #include <cuda_bf16.h>

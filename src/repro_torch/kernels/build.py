@@ -38,8 +38,13 @@ _L = ctypes.c_int64
 # argtypes of each C entry point (pointers and the stream as c_void_p, so
 # ctypes does not cut a 64-bit address to an int)
 SIGNATURES = {
-    "repro_vtrace": [_P] * 8 + [_I, _I, _P],
-    "repro_loss_vtrace": [_P] * 11 + [_I, _I, _I, _F, _I, _F, _I, _F, _P],
+    # rho, c, disc, rew, v, vtp1, out; T, B, cluster, seg, chunk,
+    # threads, smem; stream
+    "repro_vtrace": [_P] * 7 + [_I] * 7 + [_P],
+    # logits, onehot, blp, disc, rew, v, vtp1, out; T, B, A, cluster, seg,
+    # chunk, threads, stage_logits, smem; rho_bar, clip_rho, c_bar, clip_c,
+    # lambda; stream
+    "repro_loss_vtrace": [_P] * 8 + [_I] * 9 + [_F, _I, _F, _I, _F, _P],
     # q, k, v, o; B, T, S, H, K, D, causal, window; scale, is_bf16, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     # q, k, v, bias, o, part_m, part_l, part_acc; B, S, H, K, D, nsplit,
@@ -168,6 +173,31 @@ def check_f32(name: str, x, shape, device) -> None:
         raise ValueError(f"{name}: on {x.device}, expected {device}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_f32s(names, xs, shape, device) -> None:
+    """``check_f32`` over several tensors in one pass of plain attribute
+    tests; where one fails, ``check_f32`` goes over them again to raise
+    with the name and the reason."""
+    import torch
+    for x in xs:
+        if x.dtype != torch.float32 or x.shape != shape or \
+                x.device != device or not x.is_contiguous():
+            break
+    else:
+        return
+    for name, x in zip(names, xs):
+        check_f32(name, x, shape, device)
+
+
+def call_on(device, fn, *args):
+    """``fn(*args)`` with ``device`` current: no context switch (a few
+    microseconds of host time) where it already is."""
+    import torch
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def stream(device) -> int:

@@ -212,7 +212,9 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,b,a", [(20, 32, 3), (37, 130, 5),
-                                   (100, 256, 18), (16, 8, 130)])
+                                   (100, 256, 18), (16, 8, 130),
+                                   (100, 32, 9), (33, 45, 4), (1000, 1, 3),
+                                   (1000, 256, 18), (4, 64, 1000)])
 def test_kernels_match_plain_on_the_card(t, b, a):
     """Clipped weights (the defaults), so every output is held to 1e-5."""
     if not torch.cuda.is_available():
