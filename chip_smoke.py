@@ -77,11 +77,6 @@ exception and a nonzero exit:
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
 and prints no result where ``torch.cuda.is_available()`` is false.
-
-    python3 chip_smoke.py --only-vtrace
-
-runs phases 1-4 and 8 alone (the V-trace kernels' checks and times) and
-prints no result line.
 """
 from __future__ import annotations
 
@@ -979,11 +974,6 @@ def main() -> int:
 
     err_k1 = phase_k1(vk, dev)
     err_k2 = phase_k2(vk, dev)
-    if "--only-vtrace" in sys.argv[1:]:
-        phase_times(vk, dev)
-        print(f"times above: {card}; --only-vtrace ran phases 1-4 and 8 "
-              f"and prints no result")
-        return 0
     launches, run = phase_main(vk, dev)
     phase_bandit()
     phase_split(run, dev)

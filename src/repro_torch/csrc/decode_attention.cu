@@ -51,10 +51,12 @@
 // Build: see repro_torch/kernels/build.py. The dot products use explicit
 // fmaf, so they are fused whatever -fmad says.
 
+#include "async_copy.cuh"
 #include "attention_common.cuh"
 
 namespace {
 
+using namespace repro_async;
 using namespace repro_attn;
 
 constexpr int kMaxG = 16;

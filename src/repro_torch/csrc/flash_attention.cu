@@ -68,10 +68,12 @@
 #include <cuda.h>
 #include <dlfcn.h>
 
+#include "async_copy.cuh"
 #include "attention_common.cuh"
 
 namespace {
 
+using namespace repro_async;
 using namespace repro_attn;
 
 // ---------------------------------------------------------------------------

@@ -58,14 +58,11 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "attention_common.cuh"  // cp.async, the shared-memory limit
+#include "async_copy.cuh"
 
 namespace {
 
-using repro_attn::cp_async16;
-using repro_attn::cp_async4;
-using repro_attn::cp_async_commit;
-using repro_attn::smem_addr;
+using namespace repro_async;
 
 constexpr int kWidth = 32;      // batch columns a tile: a lane each in (b)
 constexpr int kMaxThreads = 512;
@@ -379,9 +376,9 @@ vtrace_tile_kernel(const Args p) {
     const float* st_v = st_rew + l.rows4;
     const float* st_vtp1 = st_v + l.rows4;
     if (it + 1 < nchunks)
-      repro_attn::cp_async_wait<1>();
+      cp_async_wait<1>();
     else
-      repro_attn::cp_async_wait<0>();
+      cp_async_wait<0>();
     __syncthreads();
 
     // (a) every row of the chunk at once
@@ -473,7 +470,7 @@ template <bool LOSS>
 int launch_kernel(const Args& p, int threads, size_t smem,
                   cudaStream_t stream) {
   cudaError_t err =
-      repro_attn::raise_smem_limit<vtrace_tile_kernel<LOSS>>(smem);
+      raise_smem_limit<vtrace_tile_kernel<LOSS>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.B + p.width - 1) / p.width;
   if (p.cluster == 1) {

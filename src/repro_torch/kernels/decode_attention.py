@@ -85,13 +85,12 @@ def decode_attention(q, k, v, bias) -> torch.Tensor:
                               device=q.device)
         part_m = scratch.data_ptr()
         part_l, part_acc = part_m + 4 * parts, part_m + 8 * parts
-    lib = build.load()
-    with torch.cuda.device(q.device):
-        code = lib.repro_decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), part_m, part_l, part_acc, b, s, h, kh, d, nsplit,
-            split_len, d ** -0.5, int(q.dtype == torch.bfloat16),
-            build.stream(q.device))
+    code = build.call_on(
+        q.device, build.load().repro_decode_attention,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), part_m, part_l, part_acc, b, s, h, kh, d, nsplit,
+        split_len, d ** -0.5, int(q.dtype == torch.bfloat16),
+        build.stream(q.device))
     build.raise_on(code, "repro_decode_attention")
     decode_attention.launches += 1
     return out

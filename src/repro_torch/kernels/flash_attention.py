@@ -74,12 +74,11 @@ def flash_attention(q, k, v, causal: bool = True,
     s, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     check_kernel_layout("flash_attention", (q, k, v, out), d)
-    lib = build.load()
-    with torch.cuda.device(q.device):
-        code = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, kh, d, int(bool(causal)), int(window), d ** -0.5,
-            int(q.dtype == torch.bfloat16), build.stream(q.device))
+    code = build.call_on(
+        q.device, build.load().repro_flash_attention,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, t, s, h, kh, d, int(bool(causal)), int(window), d ** -0.5,
+        int(q.dtype == torch.bfloat16), build.stream(q.device))
     build.raise_on(code, "repro_flash_attention")
     flash_attention.launches += 1
     return out

@@ -40,12 +40,11 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
         build.check_f32("h0", h0, (n,), a.device)
     if not build.on_cuda(a.device, "linear scan"):
         return linear_scan_plain(a, b, h0)
-    lib = build.load()
     h = torch.empty_like(a)
-    with torch.cuda.device(a.device):
-        code = lib.repro_linear_scan(
-            a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
-            h.data_ptr(), t, n, build.stream(a.device))
+    code = build.call_on(
+        a.device, build.load().repro_linear_scan,
+        a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
+        h.data_ptr(), t, n, build.stream(a.device))
     build.raise_on(code, "repro_linear_scan")
     linear_scan.launches += 1
     return h

@@ -4,7 +4,8 @@ K1 and K2 (csrc/vtrace.cu) compute every row's terms at once (phase a),
 walk the recurrence acc = delta + coef * acc over each tile's chunks in
 the order ``plan_vtrace`` gives (segments last to first, each handing its
 carry to the one before), then compute vs and pg at once (phase c). The
-emulation below does the same in PyTorch, driven by the same plan, and
+emulation below does the same in PyTorch, chunk by chunk as the same
+plan cuts the work, with each chunk's carry handed on explicitly, and
 must equal the plain versions bit for bit: the kernels reorder no
 rounding, so any difference here is a fault of the order. Inputs are made
 with numpy from a seed; the plan's invariants are checked on their own.
@@ -40,19 +41,28 @@ def _inputs(t, b, a, seed):
 
 
 def emulate(plan, rho, c, disc, rew, v, vtp1):
-    """(vs, pg) in the kernels' order of work under ``plan``."""
-    delta = rho * (rew + disc * vtp1 - v)           # (a), every row
-    coef = disc * c
-    acc = torch.empty_like(rho)
-    for b0, b1 in plan.columns():                   # (b), a tile's chain
-        carry = torch.zeros(b1 - b0)
+    """(vs, pg) in the kernels' order of work under ``plan``: each tile
+    takes its chunks in ``chain_order``; a chunk's rows get (a) delta and
+    coef, (b) the walk from the carry handed on by the chunk after it (the
+    next block's final acc at a segment's edge), (c) vs and pg, its last
+    row's pg reading that carry. Rows no chunk covers stay NaN."""
+    vs = torch.full_like(rho, float("nan"))
+    pg = torch.full_like(rho, float("nan"))
+    for b0, b1 in plan.columns():
+        carry = torch.zeros(b1 - b0)                # acc past the last step
         for s0, s1 in plan.chain_order():
-            for s in reversed(range(s0, s1)):
-                carry = delta[s, b0:b1] + coef[s, b0:b1] * carry
-                acc[s, b0:b1] = carry
-    nxt = torch.cat([acc[1:], torch.zeros_like(acc[:1])])
-    pg = rho * (rew + disc * (vtp1 + nxt) - v)      # (c), every row
-    return v + acc, pg
+            at = (slice(s0, s1), slice(b0, b1))
+            delta = rho[at] * (rew[at] + disc[at] * vtp1[at] - v[at])  # (a)
+            coef = disc[at] * c[at]
+            acc = torch.empty(s1 - s0 + 1, b1 - b0)
+            acc[-1] = carry
+            for i in reversed(range(s1 - s0)):      # (b), the chain
+                acc[i] = delta[i] + coef[i] * acc[i + 1]
+            vs[at] = v[at] + acc[:-1]               # (c)
+            pg[at] = rho[at] * (rew[at] + disc[at] * (vtp1[at] + acc[1:])
+                                - v[at])
+            carry = acc[0]
+    return vs, pg
 
 
 @pytest.mark.parametrize("clip", CLIPS)
