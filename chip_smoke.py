@@ -11,7 +11,8 @@ exception and a nonzero exit:
 2. Build: compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` with nvcc.
 3. K1 (V-trace recurrence) against its plain PyTorch version, on the card.
 4. K2 (fused loss + V-trace) against its plain version, forward and the
-   ``autograd.Function``'s d_logits of the assembled IMPALA total.
+   ``autograd.Function``'s d_logits of the assembled IMPALA total, at
+   every batch bucket of the async learner too.
 5. The main path: ``repro_torch.launch.train`` at its defaults (sync,
    catch, impala-shallow at full width, 32 envs, unroll 20) for
    ``MAIN_STEPS`` steps on the card, with K2 launched once per learner
@@ -21,6 +22,23 @@ exception and a nonzero exit:
 6. Learning bar: the JAX package's bandit bar (tests/test_system.py,
    mean return over the last 200 episodes > 0.6 after 150 steps), through
    the same CLI on the card.
+6a. The async path: ``repro_torch.launch.train --runtime async`` (catch,
+   impala-shallow at full width, 32 envs, unroll 20, 2 actor threads,
+   queue 8/block, batches of up to 4 trajectories) for ``ASYNC_STEPS``
+   learner updates, K2 launched once an update at (20, 32k, 3) and K1
+   never; counts zeroed just before and read just after. Prints learner
+   and actor frames/s, the batch-size histogram, the measured lag and
+   the queue's occupancy, stalls and drops.
+6b. Where an async update's time goes: the same configuration through
+   ``run_async_training``, 20 steady updates timed unprofiled and the
+   next 20 under ``torch.profiler``: the card's busy time per update
+   against the unprofiled update, and the device kernels that take most
+   of it.
+6c. Async learning bar: the JAX package's acceptance configuration for
+   thread actors (tests/test_process_actors.py: smoke impala-shallow, 32
+   envs, unroll 20, 400 updates, 2 actor threads, queue 8/block, batches
+   of up to 4); the last 100 returns above the first 500 by more than
+   0.15, and above -0.3.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
@@ -121,14 +139,25 @@ LOGITS_RTOL = 0.05
 MAIN_STEPS = 200
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
+ASYNC_STEPS = 400
+ASYNC_ARGV = ["--device", "cuda", "--runtime", "async", "--env", "catch",
+              "--arch", "impala-shallow", "--actor-threads", "2",
+              "--max-batch-trajs", "4", "--steps", str(ASYNC_STEPS),
+              "--log-every", "100"]
+# the steady updates timed, then profiled, in phase 6b
+ASYNC_WINDOW = 20
+# tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
+CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
          (1.0, 1.0, 0.9)]
 K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256)]
+# (20, 64, 3) and (20, 128, 3): the async learner's batches of 2 and 4
+# trajectories of 32 envs
 K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 32, 9), (100, 256, 18),
-             (16, 8, 130)]
+             (16, 8, 130), (20, 64, 3), (20, 128, 3)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
 # K1/K2 timed at the main path's shape, the paper's DMLab learner shape
 # (unroll 100, batch 32, 9 actions) and a large one
@@ -283,12 +312,9 @@ def phase_k2(vk, dev) -> float:
 
 
 def phase_main(vk, dev):
-    from repro_torch import params as params_lib
     from repro_torch.core import learner as learner_lib
     from repro_torch.core.losses import impala_loss
     from repro_torch.launch import train as train_lib
-    from repro_torch.models import backbone as bb
-    from repro_torch.models import common
 
     argv = ["--device", "cuda", "--env", "catch", "--arch", "impala-shallow",
             "--steps", str(MAIN_STEPS), "--log-every", "25"]
@@ -326,13 +352,7 @@ def phase_main(vk, dev):
     loss = float(run.metrics["loss/total"])
     if not math.isfinite(loss):
         raise AssertionError(f"final loss {loss} is not finite")
-    specs = bb.backbone_specs(run.arch, run.env.num_actions)
-    init = params_lib.from_jax(common.init_params(specs, 0), dev,
-                               requires_grad=False)
-    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(
-        params_lib.tree_leaves(run.params), params_lib.tree_leaves(init)))
-    if not moved > 0:
-        raise AssertionError("params did not change in training")
+    moved = _params_moved(run, dev)
     total_scan, m_scan = impala_loss(run.icfg, lg, vv, loss_batch,
                                      impl="scan")
     total_fused, _ = impala_loss(run.icfg, lg, vv, loss_batch, impl="fused")
@@ -356,6 +376,23 @@ def phase_main(vk, dev):
     return launches, run
 
 
+def _params_moved(run, dev) -> float:
+    """Max |trained - initial| over the params of a run seeded 0; raises
+    where training left them as they were."""
+    from repro_torch import params as params_lib
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    specs = bb.backbone_specs(run.arch, run.env.num_actions)
+    init = params_lib.from_jax(common.init_params(specs, 0), dev,
+                               requires_grad=False)
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(
+        params_lib.tree_leaves(run.params), params_lib.tree_leaves(init)))
+    if not moved > 0:
+        raise AssertionError("params did not change in training")
+    return moved
+
+
 def phase_bandit() -> float:
     """The JAX package's learning bar (tests/test_system.py,
     test_full_pipeline_learns_bandit), through the CLI on the card."""
@@ -374,6 +411,126 @@ def phase_bandit() -> float:
     print(f"learning bar: bandit mean return(200) {final:.3f} > "
           f"{BANDIT_BAR} after {BANDIT_STEPS} steps")
     return final
+
+
+def phase_async(vk, dev):
+    """The async path at full width, K1/K2 counted over exactly it."""
+    from repro_torch.launch import train as train_lib
+
+    vk.reset_launch_counts()
+    run = train_lib.train(ASYNC_ARGV)
+    torch.cuda.synchronize()
+    launches = {"vtrace": vk.vtrace.launches,
+                "loss_vtrace": vk.loss_vtrace.launches}
+    tel = run.telemetry
+    frames_per_traj = MAIN_B * MAIN_T
+    got = (tel["learner_updates"], tel["param_version"],
+           launches["loss_vtrace"], launches["vtrace"])
+    if got != (ASYNC_STEPS, ASYNC_STEPS, ASYNC_STEPS, 0):
+        raise AssertionError(f"async path: (updates, version, K2 launches, "
+                             f"K1 launches) {got}; expected "
+                             f"{(ASYNC_STEPS,) * 3 + (0,)}")
+    loss = float(run.metrics["loss/total"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"async final loss {loss} is not finite")
+    moved = _params_moved(run, dev)
+    lag, q, actors = tel["lag"], tel["queue"], tel["actors"]
+    if not lag["max"] > 0 or \
+            lag["measured"] * frames_per_traj != tel["frames_consumed"]:
+        raise AssertionError(f"async lag {lag} against frames_consumed "
+                             f"{tel['frames_consumed']} / {frames_per_traj}")
+    returns = run.tracker.completed
+    print(f"async path: {ASYNC_STEPS} updates, K2 launches "
+          f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
+          f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
+    print(f"async path: learner frames/s {tel['frames_per_sec']:.0f}, "
+          f"actor frames/s {actors['actor_fps']:.0f}, updates/s "
+          f"{tel['updates_per_sec']:.2f} (steady window); batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}; lag mean "
+          f"{lag['mean']:.3f} max {lag['max']} over {lag['measured']} "
+          f"trajectories; queue occupancy {q['mean_occupancy']:.3f} of "
+          f"{q['capacity']}, put stalls {q['put_stalls']}, get stalls "
+          f"{q['get_stalls']}, drops {q['dropped']}")
+    early = float(sum(returns[:500])) / max(1, len(returns[:500]))
+    late = run.tracker.mean_return(100)
+    cleared = late > early + CATCH_CLIMB and late > CATCH_LATE
+    print(f"async path: {len(returns)} episodes, first 500 mean "
+          f"{early:.3f}, last 100 mean {late:.3f}: "
+          + ("clears" if cleared else "misses")
+          + " phase 6c's bar (this full-width run is not held to it)")
+    return launches, run
+
+
+def phase_async_split(run, dev) -> None:
+    """``ASYNC_WINDOW`` steady updates of the async path timed on the host
+    clock between two synchronises, then as many under ``torch.profiler``:
+    the card's busy time per update against the unprofiled update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import run_async_training
+
+    w = ASYNC_WINDOW
+    marks = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_update(step, params, metrics, snapshot_fn):
+        if step in (w, 2 * w, 3 * w):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == 2 * w:
+            prof.start()
+        elif step == 3 * w:
+            prof.stop()
+
+    _, _, tel = run_async_training(
+        run.env, run.icfg, MAIN_B, 3 * w, num_actors=2, max_batch_trajs=4,
+        arch=run.arch, on_update=on_update, device=dev)
+    update_ms = (marks[2 * w] - marks[w]) / w * 1e3
+    profiled_ms = (marks[3 * w] - marks[2 * w]) / w * 1e3
+    print(f"async split: {update_ms:.3f} ms an update unprofiled, "
+          f"{profiled_ms:.3f} ms profiled (updates {w}-{2 * w} and "
+          f"{2 * w}-{3 * w}); batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}, queue occupancy "
+          f"{tel['queue']['mean_occupancy']:.3f}")
+    _print_busy("async update", prof, w, update_ms)
+
+
+def phase_async_bar(dev) -> float:
+    """tests/test_process_actors.py's acceptance run (thread backend), on
+    the card, held to that test's bar."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.envs import make_catch
+    from repro_torch.distributed import run_async_training
+
+    env = make_catch()
+    arch = get_smoke_config("impala-shallow").replace(image_hw=env.image_hw)
+    cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
+                       learning_rate=6e-4, entropy_cost=0.003,
+                       rmsprop_eps=0.01)
+    tracker, metrics, tel = run_async_training(
+        "catch", cfg, num_envs=32, steps=ASYNC_STEPS, num_actors=2,
+        queue_capacity=8, queue_policy="block", max_batch_trajs=4, seed=0,
+        arch=arch, device=dev)
+    returns = tracker.completed
+    early = float(sum(returns[:500])) / len(returns[:500])
+    late = tracker.mean_return(100)
+    if not (tel["learner_updates"] == tel["param_version"] == ASYNC_STEPS
+            and math.isfinite(float(metrics["loss/total"]))
+            and tel["lag"]["max"] > 0):
+        raise AssertionError(f"async learning run: {tel['learner_updates']} "
+                             f"updates, version {tel['param_version']}, "
+                             f"lag {tel['lag']}")
+    if not (late > early + CATCH_CLIMB and late > CATCH_LATE):
+        raise AssertionError(f"async catch: last 100 mean {late:.3f}, first "
+                             f"500 mean {early:.3f}; the bar is a climb of "
+                             f"more than {CATCH_CLIMB} to above {CATCH_LATE}")
+    print(f"async learning bar: catch (smoke impala-shallow) last 100 mean "
+          f"{late:.3f} > first 500 mean {early:.3f} + {CATCH_CLIMB}, and > "
+          f"{CATCH_LATE}; {len(returns)} episodes, batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}, learner "
+          f"frames/s {tel['frames_per_sec']:.0f}")
+    return late
 
 
 def _device_busy(events):
@@ -976,6 +1133,12 @@ def main() -> int:
     err_k2 = phase_k2(vk, dev)
     launches, run = phase_main(vk, dev)
     phase_bandit()
+    async_launches, async_run = phase_async(vk, dev)
+    # loss_vtrace's launches over every path that runs it
+    launches["loss_vtrace"] += async_launches["loss_vtrace"]
+    phase_async_split(async_run, dev)
+    phase_async_bar(dev)
+    del async_run
     phase_split(run, dev)
     rows = phase_times(vk, dev)
     del run

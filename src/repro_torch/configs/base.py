@@ -75,6 +75,8 @@ class ImpalaConfig:
     pg_q_estimate: str = "vtrace"
     eps_correction: float = 1e-6
     reward_clip: str = "abs_one"         # abs_one | soft_asymmetric | none
+    # replay (paper 5.2.2): only 0 is ported (ROADMAP.md, Queue 1 item 11)
+    replay_fraction: float = 0.0
     # simulated policy lag (actor params k updates behind learner)
     policy_lag: int = 1
     learning_rate: float = 6e-4

@@ -77,8 +77,8 @@ class ServeRun:
     decode_steps: int            # per batch
     actions_per_s: float         # over the whole queue's wall clock
     step_latency_ms: List[float]  # per batch: its time / decode steps
-    prefill_ms: List[float]      # per batch, to a synchronise
-    decode_ms: List[float]       # per decode step, to a synchronise
+    prefill_ms: List[float]      # per batch, between CUDA events
+    decode_ms: List[float]       # per decode step, between CUDA events
     # the first batch: its tokens (B, ctx), the sampled actions of each
     # step (B, 1), the logits of prefill and of each step (B, 1, A)
     first_batch: Dict[str, object]
@@ -137,27 +137,31 @@ def serve(argv: Optional[List[str]] = None) -> ServeRun:
             n = len(batch)
             batch += [batch[-1]] * (args.batch - n)
             toks = torch.from_numpy(np.stack(batch)).to(device)
-            _sync(device)
             t1 = time.perf_counter()
+            marks = [_mark(device)]
             out = bb.apply_prefill(params, {"tokens": toks}, arch, a)
-            _sync(device)
-            prefill_ms.append((time.perf_counter() - t1) * 1e3)
+            marks.append(_mark(device))
             logits, actions = [out.policy_logits], []
             cache = out.cache
             tok = toks[:, -1:]
             for i in range(args.decode_steps):
-                t2 = time.perf_counter()
                 out = bb.apply_decode(params, tok, cache, args.ctx + i, arch,
                                       a)
                 cache = out.cache
                 probs = torch.softmax(out.policy_logits[:, 0], dim=-1)
                 action = torch.multinomial(probs, 1, generator=gen)
                 tok = action % arch.vocab_size
-                _sync(device)
-                decode_ms.append((time.perf_counter() - t2) * 1e3)
+                marks.append(_mark(device))
                 logits.append(out.policy_logits)
                 actions.append(action)
+            # the batch's one synchronise, where the reference blocks on
+            # its last token: the host queues each step while the card
+            # runs the one before
+            _sync(device)
             lat.append((time.perf_counter() - t1) / args.decode_steps * 1e3)
+            prefill_ms.append(_elapsed_ms(marks[0], marks[1]))
+            decode_ms += [_elapsed_ms(m0, m1)
+                          for m0, m1 in zip(marks[1:], marks[2:])]
             if not first:
                 first = {"tokens": toks, "actions": actions,
                          "logits": logits}
@@ -176,6 +180,23 @@ def serve(argv: Optional[List[str]] = None) -> ServeRun:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _mark(device: torch.device):
+    """A point in the served loop: a CUDA event recorded on the current
+    stream (read only after the batch's synchronise), or the host clock
+    on the CPU, where every op has finished when it returns."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def _elapsed_ms(start, end) -> float:
+    if isinstance(start, float):
+        return (end - start) * 1e3
+    return start.elapsed_time(end)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,25 +1,40 @@
-"""The training loop, sync runtime (``repro.launch.train`` ``--runtime sync``).
+"""The training driver (``repro.launch.train``): the IMPALA loop (actors
+-> queue -> V-trace learner), two runtimes:
 
-One loop, acting and learning interleaved, with the policy lag simulated
-deterministically (``LagController``). It runs on the card unless the
-caller asks for the CPU; asked for ``cuda`` where no card is found, it
-raises and does not fall back.
+  --runtime sync    one loop, acting and learning interleaved; policy lag
+                    is *simulated* deterministically (LagController).
+  --runtime async   real concurrency (``repro_torch.distributed``): actor
+                    threads, each on its own CUDA stream, feed a
+                    backpressured in-process queue; the learner drains it
+                    with dynamic batching, and per-trajectory policy lag
+                    is *measured* from parameter-store versions.
+
+It runs on the card unless the caller asks for the CPU; asked for
+``cuda`` where no card is found, it raises and does not fall back. On the
+card TF32 is off for cuDNN and cuBLAS, so the convolutions and matmuls
+compute in full float32, as every check of the port does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
+      --runtime async
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --smoke --steps 30 --log-every 10
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --smoke --env catch --steps 30
 
-Flags of the JAX CLI that the sync path does not read, and paths not
-ported yet (async runtime, replay, checkpoints, token training, envs
-other than catch and bandit), end the run with a ``SystemExit`` that
-names the roadmap item.
+Values of the JAX CLI's flags whose paths are not ported yet (process
+and remote actors, the shm and socket transports, inference-mode actors,
+learner groups and SPMD, replay, checkpoints, token training, envs other
+than catch and bandit) end the run with a ``SystemExit`` that names the
+ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
@@ -50,8 +65,43 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--reward-clip", default="abs_one")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke config of --arch")
-    p.add_argument("--runtime", default="sync", choices=["sync", "async"],
-                   help="only sync is ported")
+    p.add_argument("--runtime", default="sync", choices=["sync", "async"])
+    p.add_argument("--actor-threads", type=int, default=2,
+                   help="actor worker count (async runtime)")
+    p.add_argument("--learners", type=int, default=1,
+                   help="learner worker count (async runtime); only 1 is "
+                        "ported")
+    p.add_argument("--learner-mode", default="process",
+                   choices=["process", "spmd"],
+                   help="only process (with --learners 1) is ported")
+    p.add_argument("--actor-backend", default="thread",
+                   choices=["thread", "process", "remote"],
+                   help="where actors live; only thread is ported")
+    p.add_argument("--actor-mode", default="unroll",
+                   choices=["unroll", "inference"],
+                   help="unroll: every actor runs its own n-step unroll "
+                        "with the published params; only unroll is "
+                        "ported")
+    p.add_argument("--no-donate", action="store_true",
+                   help="async learner: update the params out of place and "
+                        "publish the working tree, instead of updating in "
+                        "place and publishing a copy")
+    p.add_argument("--transport", default="",
+                   choices=["", "inproc", "shm", "socket"],
+                   help="trajectory transport; default inproc for thread "
+                        "actors; only inproc is ported")
+    p.add_argument("--vtrace-impl", default="auto",
+                   choices=["auto", "fused", "pallas", "scan", "reference"],
+                   help="V-trace implementation for the async learner's "
+                        "loss: auto = the fused kernel (K2) on the card, "
+                        "the reverse loop on the CPU")
+    p.add_argument("--queue-capacity", type=int, default=8)
+    p.add_argument("--queue-policy", default="block",
+                   choices=["block", "drop_oldest", "drop_newest"])
+    p.add_argument("--max-batch-trajs", type=int, default=4,
+                   help="learner dynamic batching: max trajectories "
+                        "stacked per update, rounded down to a power of "
+                        "two (async runtime)")
     p.add_argument("--ckpt-dir", default="",
                    help="not ported yet: must stay empty")
     p.add_argument("--log-every", type=int, default=25)
@@ -60,23 +110,48 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def resolve_device(name: str) -> torch.device:
+    """The torch device for ``--device``. A CUDA device turns TF32 off for
+    cuDNN and cuBLAS: the card then computes the convolutions and matmuls
+    in full float32, which is what the parity tests and ``chip_smoke.py``
+    verified."""
     device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {name}: torch.cuda.is_available() is "
-                         f"False. Pass --device cpu to run on the CPU.")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"--device {name}: torch.cuda.is_available() "
+                             f"is False. Pass --device cpu to run on the "
+                             f"CPU.")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     return device
 
 
+def _unported(flag: str, item: int, name: str) -> SystemExit:
+    return SystemExit(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
+                      f"{item}: {name})")
+
+
 def _refuse_unported(args) -> None:
-    if args.runtime == "async":
-        raise SystemExit("--runtime async is not ported yet (ROADMAP.md, "
-                         "Queue 1: async single-learner runtime)")
+    if args.learner_mode == "spmd" and args.runtime != "async":
+        raise SystemExit("--learner-mode spmd requires --runtime async")
     if args.replay_fraction > 0:
-        raise SystemExit("--replay-fraction > 0 is not ported yet "
-                         "(ROADMAP.md, Queue 1: replay learner path)")
+        raise _unported("--replay-fraction > 0", 11, "replay learner path")
     if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir is not ported yet (ROADMAP.md, "
-                         "Queue 1: checkpoint save/resume)")
+        raise _unported("--ckpt-dir", 7, "checkpoint save/resume")
+    if args.runtime != "async":
+        return
+    if args.actor_backend != "thread":
+        raise _unported(f"--actor-backend {args.actor_backend}", 10,
+                        "process and socket actor pools")
+    if args.transport not in ("", "inproc"):
+        raise _unported(f"--transport {args.transport}", 10,
+                        "process and socket actor pools")
+    if args.actor_mode != "unroll":
+        raise _unported(f"--actor-mode {args.actor_mode}", 9,
+                        "inference service")
+    if args.learners > 1:
+        raise _unported("--learners > 1", 12, "learner groups")
+    if args.learner_mode == "spmd":
+        raise _unported("--learner-mode spmd", 12, "learner groups")
 
 
 @dataclasses.dataclass
@@ -93,8 +168,20 @@ class SyncRun:
     tracker: EpisodeTracker
 
 
-def train(argv: Optional[List[str]] = None) -> SyncRun:
-    """Parse the CLI flags and run the sync trainer."""
+@dataclasses.dataclass
+class AsyncRun:
+    """What an async run leaves behind for its caller."""
+    params: Dict                 # the last published params
+    metrics: Dict[str, Any]
+    telemetry: Dict[str, Any]
+    arch: ArchConfig
+    icfg: ImpalaConfig
+    env: Env
+    tracker: Any                 # distributed.MultiTracker
+
+
+def train(argv: Optional[List[str]] = None) -> Union[SyncRun, AsyncRun]:
+    """Parse the CLI flags and run the trainer."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
@@ -115,6 +202,8 @@ def train(argv: Optional[List[str]] = None) -> SyncRun:
         learning_rate=args.lr, entropy_cost=args.entropy_cost,
         rmsprop_eps=args.rmsprop_eps, policy_lag=args.policy_lag,
         correction=args.correction, reward_clip=args.reward_clip)
+    if args.runtime == "async":
+        return _run_async(args, env, arch, icfg, device)
     return _run_sync(args, env, arch, icfg, device)
 
 
@@ -178,6 +267,57 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
     print(f"final return(100) = {tracker.mean_return():.3f}")
     return SyncRun(params, metrics, batch, arch, icfg, env, fps, log,
                    tracker)
+
+
+# the keys of the final ``telemetry:`` line, the JAX CLI's
+TELEMETRY_KEYS = ("learner_updates", "frames_consumed", "updates_per_sec",
+                  "frames_per_sec", "batch_size_hist", "lag", "queue",
+                  "actors", "param_version")
+
+
+def _run_async(args, env, arch, icfg, device) -> AsyncRun:
+    from repro_torch.distributed import run_async_training
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    transport = args.transport or "inproc"
+    specs = bb.backbone_specs(arch, env.num_actions)
+    print(f"arch={arch.name} params={common.param_count(specs):,} "
+          f"env={env.name} actions={env.num_actions} runtime=async "
+          f"actors={args.actor_threads}({args.actor_backend}/"
+          f"{args.actor_mode}) transport={transport} "
+          f"queue={args.queue_capacity}/{args.queue_policy} "
+          f"max_batch_trajs={args.max_batch_trajs} "
+          f"donate={not args.no_donate}")
+    print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                if device.type == "cuda" else ""))
+    last_params: List[Dict] = [{}]
+
+    def on_update(step, params, metrics, snapshot_fn):
+        last_params[0] = params
+        if step % args.log_every == 0:
+            tel = snapshot_fn()
+            lag, q = tel["lag"], tel["queue"]
+            print(f"update {step:6d} "
+                  f"loss={float(metrics['loss/total']):10.2f} "
+                  f"lag(mean/max)={lag['mean']:.2f}/{lag['max']} "
+                  f"queue(occ/drop/stall)={q['mean_occupancy']:.1f}/"
+                  f"{q['dropped']}/{q['put_stalls']} "
+                  f"learner_fps={tel['frames_per_sec']:7.0f} "
+                  f"actor_fps={tel['actors']['actor_fps']:7.0f}")
+
+    tracker, metrics, tel = run_async_training(
+        env, icfg, args.num_envs, args.steps,
+        num_actors=args.actor_threads, actor_backend=args.actor_backend,
+        actor_mode=args.actor_mode, transport=transport,
+        queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
+        max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
+        vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
+        on_update=on_update, device=device)
+    print(f"final return(100) = {tracker.mean_return():.3f}")
+    print("telemetry:", json.dumps({k: tel[k] for k in TELEMETRY_KEYS},
+                                   default=float))
+    return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)
 
 
 def _sync(device: torch.device) -> None:

@@ -66,18 +66,77 @@ def test_server_asked_for_cuda_raises_without_a_card(monkeypatch):
         serve_lib.serve(["--smoke", "--requests", "1"])
 
 
+_ASYNC = ["--runtime", "async"]
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--runtime", "async"], "async"),
+    (_ASYNC + ["--actor-backend", "process"], "item 10"),
     (["--replay-fraction", "0.5"], "replay"),
     (["--ckpt-dir", "x"], "ckpt"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
     (["--env", "rooms"], "catch and bandit"),
+    (_ASYNC + ["--actor-backend", "remote"], "item 10"),
+    (_ASYNC + ["--transport", "shm"], "item 10"),
+    (_ASYNC + ["--transport", "socket"], "item 10"),
+    (_ASYNC + ["--actor-mode", "inference"], "item 9"),
+    (_ASYNC + ["--learners", "2"], "item 12"),
+    (_ASYNC + ["--learner-mode", "spmd"], "item 12"),
+    (_ASYNC + ["--ckpt-dir", "x"], "item 7"),
+    (_ASYNC + ["--replay-fraction", "0.5"], "item 11"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
         train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+
+
+def test_a_cuda_device_turns_tf32_off(monkeypatch):
+    """Both CLIs resolve --device through ``resolve_device``; on a card it
+    turns TF32 off, so the convolutions and matmuls compute in the full
+    float32 that every check verified."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        assert train_lib.resolve_device("cuda").type == "cuda"
+        assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul.allow_tf32 is False
+        assert serve_lib.resolve_device is train_lib.resolve_device
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def test_the_served_loop_synchronises_once_a_batch(monkeypatch):
+    """The reference blocks once a batch, after its decode loop; so does
+    the port: no synchronise between a batch's prefill and its last
+    decode step."""
+    from repro_torch.models import backbone as bb
+
+    events = []
+
+    def recorder(name, fn):
+        def wrapped(*args, **kw):
+            events.append(name)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(serve_lib, "_sync", recorder("sync",
+                                                     serve_lib._sync))
+    monkeypatch.setattr(bb, "apply_prefill", recorder("prefill",
+                                                      bb.apply_prefill))
+    monkeypatch.setattr(bb, "apply_decode", recorder("decode",
+                                                     bb.apply_decode))
+    run = serve_lib.serve(["--device", "cpu", "--smoke", "--requests", "2",
+                           "--batch", "1", "--ctx", "8",
+                           "--decode-steps", "3"])
+    assert run.batches == 2
+    served = events[events.index("prefill"):]
+    assert served == ["prefill", "decode", "decode", "decode", "sync"] * 2
+    assert len(run.prefill_ms) == 2 and len(run.decode_ms) == 6
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_counting():
@@ -214,7 +273,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("t,b,a", [(20, 32, 3), (37, 130, 5),
                                    (100, 256, 18), (16, 8, 130),
                                    (100, 32, 9), (33, 45, 4), (1000, 1, 3),
-                                   (1000, 256, 18), (4, 64, 1000)])
+                                   (1000, 256, 18), (4, 64, 1000),
+                                   (20, 64, 3), (20, 128, 3)])
 def test_kernels_match_plain_on_the_card(t, b, a):
     """Clipped weights (the defaults), so every output is held to 1e-5."""
     if not torch.cuda.is_available():
@@ -302,6 +362,39 @@ def test_linear_scan_matches_plain_on_the_card(t, n, with_h0):
     want = lk.linear_scan_plain(a, b, h0)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert lk.linear_scan.launches == 1
+
+
+@pytest.mark.cuda
+def test_host_stager_on_the_card_ping_pongs_pinned_buffers():
+    """Numpy items staged for the card: every batch equals ``torch.cat``
+    of the items, a third stack of one bucket reuses the first buffer set
+    (after its copies' event) and the first batch keeps its values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: pinned staging has no CPU mode")
+    from repro_torch.distributed.learner import _HostStager, _flatten, _stack
+    from repro_torch.distributed.serde import TrajectoryItem
+
+    def items(seed):
+        rng = np.random.default_rng(seed)
+        return [TrajectoryItem({
+            "obs": rng.integers(0, 255, (32, 21, 10, 5, 3)).astype(np.uint8),
+            "r": rng.standard_normal((32, 20)).astype(np.float32),
+            "state": (rng.standard_normal((32, 256)).astype(np.float32),)},
+            i, 0, 0.0) for i in range(4)]
+
+    def want(its):
+        flat = [_flatten(it.data)[0] for it in its]
+        return [torch.cat([torch.from_numpy(x) for x in xs])
+                for xs in zip(*flat)]
+
+    stager = _HostStager("cuda")
+    batches = [items(s) for s in range(3)]
+    outs = [_stack(its, stager) for its in batches]
+    torch.cuda.synchronize()
+    assert len(stager._slots) == 1
+    for out, its in zip(outs, batches):
+        for got, w in zip(_flatten(out)[0], want(its)):
+            assert got.is_cuda and torch.equal(got.cpu(), w)
 
 
 def _fake_nvcc(tmp_path, fail_on=""):
