@@ -27,14 +27,14 @@ exception and a nonzero exit:
    queue 8/block, batches of up to 4 trajectories) for ``ASYNC_STEPS``
    learner updates, K2 launched once an update at (20, 32k, 3) and K1
    never; counts zeroed just before and read just after. Prints learner
-   and actor frames/s, the batch-size histogram, the measured lag and
-   the queue's occupancy, stalls and drops.
-6b. Where an async update's time goes: the same configuration through
-   ``run_async_training``, 20 steady updates timed unprofiled and the
-   next 20 under ``torch.profiler``: the card's busy time per update
-   against the unprofiled update, and the device kernels that take most
-   of it.
-6c. Async learning bar: the JAX package's acceptance configuration for
+   and actor frames/s (read before the window below), the batch-size
+   histogram, the measured lag and the queue's occupancy, stalls and
+   drops. In the same run, where an async update's time goes:
+   ``ASYNC_WINDOW`` steady updates timed unprofiled, then as many under
+   ``torch.profiler``: the card's busy time per update against the
+   unprofiled update, and the device kernels that take most of it. No
+   actor thread may outlive the run.
+6b. Async learning bar: the JAX package's acceptance configuration for
    thread actors (tests/test_process_actors.py: smoke impala-shallow, 32
    envs, unroll 20, 400 updates, 2 actor threads, queue 8/block, batches
    of up to 4); the last 100 returns above the first 500 by more than
@@ -102,6 +102,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -144,7 +145,7 @@ ASYNC_ARGV = ["--device", "cuda", "--runtime", "async", "--env", "catch",
               "--arch", "impala-shallow", "--actor-threads", "2",
               "--max-batch-trajs", "4", "--steps", str(ASYNC_STEPS),
               "--log-every", "100"]
-# the steady updates timed, then profiled, in phase 6b
+# the steady updates timed, then profiled, near the end of phase 6a's run
 ASYNC_WINDOW = 20
 # tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
@@ -413,15 +414,48 @@ def phase_bandit() -> float:
     return final
 
 
+def _no_actor_threads(what: str) -> None:
+    """An actor thread still alive after its run returned would go on
+    issuing work on the card, into later phases and the interpreter's
+    exit."""
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("actor-")]
+    if alive:
+        raise AssertionError(f"{what}: actor threads {alive} outlive the run")
+
+
 def phase_async(vk, dev):
-    """The async path at full width, K1/K2 counted over exactly it."""
+    """The async path at full width, K1/K2 counted over exactly it; near
+    its end ``ASYNC_WINDOW`` updates timed on the host clock between two
+    synchronises, then as many under ``torch.profiler``: the card's busy
+    time per update against the unprofiled update."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.launch import train as train_lib
 
+    w = ASYNC_WINDOW
+    first = ASYNC_STEPS - 3 * w
+    marks, before = {}, {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def window(step, params, metrics, snapshot_fn):
+        if step == first:
+            # the rates before the window's synchronises and profiling
+            before.update(snapshot_fn())
+        if step in (first, first + w, first + 2 * w):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == first + w:
+            prof.start()
+        elif step == first + 2 * w:
+            prof.stop()
+
     vk.reset_launch_counts()
-    run = train_lib.train(ASYNC_ARGV)
+    run = train_lib.train(ASYNC_ARGV, on_update=window)
     torch.cuda.synchronize()
     launches = {"vtrace": vk.vtrace.launches,
                 "loss_vtrace": vk.loss_vtrace.launches}
+    _no_actor_threads("async path")
     tel = run.telemetry
     frames_per_traj = MAIN_B * MAIN_T
     got = (tel["learner_updates"], tel["param_version"],
@@ -434,7 +468,7 @@ def phase_async(vk, dev):
     if not math.isfinite(loss):
         raise AssertionError(f"async final loss {loss} is not finite")
     moved = _params_moved(run, dev)
-    lag, q, actors = tel["lag"], tel["queue"], tel["actors"]
+    lag, q = tel["lag"], tel["queue"]
     if not lag["max"] > 0 or \
             lag["measured"] * frames_per_traj != tel["frames_consumed"]:
         raise AssertionError(f"async lag {lag} against frames_consumed "
@@ -443,9 +477,10 @@ def phase_async(vk, dev):
     print(f"async path: {ASYNC_STEPS} updates, K2 launches "
           f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
           f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
-    print(f"async path: learner frames/s {tel['frames_per_sec']:.0f}, "
-          f"actor frames/s {actors['actor_fps']:.0f}, updates/s "
-          f"{tel['updates_per_sec']:.2f} (steady window); batch sizes "
+    print(f"async path: learner frames/s {before['frames_per_sec']:.0f}, "
+          f"actor frames/s {before['actors']['actor_fps']:.0f}, updates/s "
+          f"{before['updates_per_sec']:.2f} (steady window up to update "
+          f"{first}); batch sizes "
           f"{dict(sorted(tel['batch_size_hist'].items()))}; lag mean "
           f"{lag['mean']:.3f} max {lag['max']} over {lag['measured']} "
           f"trajectories; queue occupancy {q['mean_occupancy']:.3f} of "
@@ -457,42 +492,14 @@ def phase_async(vk, dev):
     print(f"async path: {len(returns)} episodes, first 500 mean "
           f"{early:.3f}, last 100 mean {late:.3f}: "
           + ("clears" if cleared else "misses")
-          + " phase 6c's bar (this full-width run is not held to it)")
-    return launches, run
-
-
-def phase_async_split(run, dev) -> None:
-    """``ASYNC_WINDOW`` steady updates of the async path timed on the host
-    clock between two synchronises, then as many under ``torch.profiler``:
-    the card's busy time per update against the unprofiled update."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.distributed import run_async_training
-
-    w = ASYNC_WINDOW
-    marks = {}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-    def on_update(step, params, metrics, snapshot_fn):
-        if step in (w, 2 * w, 3 * w):
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-        if step == 2 * w:
-            prof.start()
-        elif step == 3 * w:
-            prof.stop()
-
-    _, _, tel = run_async_training(
-        run.env, run.icfg, MAIN_B, 3 * w, num_actors=2, max_batch_trajs=4,
-        arch=run.arch, on_update=on_update, device=dev)
-    update_ms = (marks[2 * w] - marks[w]) / w * 1e3
-    profiled_ms = (marks[3 * w] - marks[2 * w]) / w * 1e3
+          + " phase 6b's bar (this full-width run is not held to it)")
+    update_ms = (marks[first + w] - marks[first]) / w * 1e3
+    profiled_ms = (marks[first + 2 * w] - marks[first + w]) / w * 1e3
     print(f"async split: {update_ms:.3f} ms an update unprofiled, "
-          f"{profiled_ms:.3f} ms profiled (updates {w}-{2 * w} and "
-          f"{2 * w}-{3 * w}); batch sizes "
-          f"{dict(sorted(tel['batch_size_hist'].items()))}, queue occupancy "
-          f"{tel['queue']['mean_occupancy']:.3f}")
+          f"{profiled_ms:.3f} ms profiled (updates {first}-{first + w} and "
+          f"{first + w}-{first + 2 * w})")
     _print_busy("async update", prof, w, update_ms)
+    return launches
 
 
 def phase_async_bar(dev) -> float:
@@ -512,6 +519,7 @@ def phase_async_bar(dev) -> float:
         "catch", cfg, num_envs=32, steps=ASYNC_STEPS, num_actors=2,
         queue_capacity=8, queue_policy="block", max_batch_trajs=4, seed=0,
         arch=arch, device=dev)
+    _no_actor_threads("async learning run")
     returns = tracker.completed
     early = float(sum(returns[:500])) / len(returns[:500])
     late = tracker.mean_return(100)
@@ -1133,12 +1141,10 @@ def main() -> int:
     err_k2 = phase_k2(vk, dev)
     launches, run = phase_main(vk, dev)
     phase_bandit()
-    async_launches, async_run = phase_async(vk, dev)
+    async_launches = phase_async(vk, dev)
     # loss_vtrace's launches over every path that runs it
     launches["loss_vtrace"] += async_launches["loss_vtrace"]
-    phase_async_split(async_run, dev)
     phase_async_bar(dev)
-    del async_run
     phase_split(run, dev)
     rows = phase_times(vk, dev)
     del run

@@ -3,8 +3,7 @@
 
 ``build_train_step`` returns ``train_step(params, opt_state, step, batch)``.
 It runs eagerly: PyTorch needs no ``jit``. The parameters are updated in
-place (``optim.apply_updates``) unless the caller asks for new tensors;
-mixed precision is not ported yet.
+place (``optim.apply_updates``); mixed precision is not ported yet.
 """
 from __future__ import annotations
 
@@ -58,15 +57,12 @@ def build_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
 def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
                      num_actions: int,
                      optimizer: opt_lib.Optimizer = None,
-                     vtrace_impl: str = "auto", inplace: bool = True,
+                     vtrace_impl: str = "auto",
                      ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
                                 opt_lib.Optimizer]:
     """vtrace_impl: 'auto' picks the fused kernel (K2) for CUDA params and
     the reverse loop for CPU params (``losses.resolve_vtrace_impl``);
-    'fused' / 'pallas' / 'scan' / 'reference' pin an implementation.
-    ``inplace``: the update writes the parameters in place
-    (``optim.apply_updates``); False returns new parameter tensors and
-    leaves the old ones as they were (``optim.add_updates``)."""
+    'fused' / 'pallas' / 'scan' / 'reference' pin an implementation."""
     if optimizer is None:
         optimizer = opt_lib.rmsprop(decay=cfg.rmsprop_decay,
                                     eps=cfg.rmsprop_eps,
@@ -74,7 +70,6 @@ def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     lr_fn = opt_lib.linear_schedule(cfg.learning_rate, 0.0,
                                     cfg.lr_anneal_steps)
     loss_fn = build_loss_fn(arch_cfg, cfg, num_actions, vtrace_impl)
-    apply = opt_lib.apply_updates if inplace else opt_lib.add_updates
 
     def train_step(params, opt_state, step, batch):
         loss, metrics = loss_fn(params, batch)
@@ -84,7 +79,7 @@ def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
         grads, grad_norm = opt_lib.clip_by_global_norm(
             grads, cfg.grad_clip_norm)
         updates, opt_state = optimizer.update(grads, opt_state, params, lr)
-        params = apply(params, updates)
+        params = opt_lib.apply_updates(params, updates)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["opt/grad_norm"] = grad_norm
         metrics["opt/lr"] = lr

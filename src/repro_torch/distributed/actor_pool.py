@@ -169,9 +169,16 @@ class ActorPool(PoolAccounting):
         self._stop.set()
 
     def join(self, timeout: float = 30.0) -> None:
+        """Wait for every worker after ``stop``. One still running after
+        ``timeout`` is an error, not something to leave behind: it would
+        go on issuing work on the card after the run returned."""
         deadline = time.monotonic() + timeout
         for t in self._threads:
             t.join(max(0.0, deadline - time.monotonic()))
+        alive = [t.name for t in self._threads if t.is_alive()]
+        if alive:
+            raise RuntimeError(f"actor threads {alive} still running "
+                               f"{timeout} s after stop")
 
     def raise_errors(self) -> None:
         if self.errors:

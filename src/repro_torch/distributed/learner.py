@@ -15,14 +15,14 @@ batching, trains, publishes versioned params and reports telemetry.
   telemetry          the JAX package's snapshot keys (updates, fps,
                      batch/lag histograms, queue, actors).
 
-``donate`` keeps the reference's meaning: the working parameters are
-updated in place and the store gets a copy of them each update (the JAX
-learner donates its buffers and publishes a jitted copy). With
-``donate=False`` the update is out of place: each update makes new
-parameter tensors, and the store gets the working tree itself, which no
-later update writes (the JAX learner publishes its immutable working
-tree). Either way no actor ever reads a tensor that the optimizer later
-writes.
+The optimizer updates the working parameters in place, so every update
+publishes a copy of them (``params.snapshot``): no actor ever reads a
+tensor that a later update writes. ``donate`` is reported in the
+telemetry and changes nothing else: in JAX it decides whether the
+learner's buffers are donated to the update and a jitted copy is
+published, or the immutable working tree is; PyTorch has no buffer
+donation, and publishing the working tensors would let an actor read a
+half-updated policy.
 
 On the card the learner issues its work on a CUDA stream of its own, so
 its kernels and the actors' (each on their own stream) overlap. It marks
@@ -56,16 +56,13 @@ class MultiTracker:
     """Episode-return accounting across actor-local env batches.
 
     ``slot_base`` maps *global* actor slot ids onto this learner's local
-    tracker list. Completion times are recorded (CLOCK_MONOTONIC) so a
-    group can merge per-learner streams into one chronological
-    history."""
+    tracker list."""
 
     def __init__(self, num_actors: int, num_envs: int,
                  slot_base: int = 0):
         self.trackers = [EpisodeTracker(num_envs) for _ in range(num_actors)]
         self.slot_base = slot_base
         self._merged: List[float] = []
-        self._merged_at: List[float] = []
 
     def update(self, actor_id: int, rewards, dones) -> None:
         t = self.trackers[actor_id - self.slot_base]
@@ -73,21 +70,11 @@ class MultiTracker:
         t.update(np.asarray(rewards), np.asarray(dones))
         # merge in consumption order so mean_return's last-n window is
         # chronological, not actor-grouped
-        fresh = t.completed[before:]
-        if fresh:
-            now = time.monotonic()
-            self._merged.extend(fresh)
-            self._merged_at.extend([now] * len(fresh))
+        self._merged.extend(t.completed[before:])
 
     @property
     def completed(self) -> List[float]:
         return list(self._merged)
-
-    @property
-    def completed_timed(self) -> List[Tuple[float, float]]:
-        """(monotonic completion time, return) pairs, consumption
-        order."""
-        return list(zip(self._merged_at, self._merged))
 
     def mean_return(self, last_n: int = 100) -> float:
         if not self._merged:
@@ -105,8 +92,7 @@ def _buckets(max_batch_trajs: int) -> List[int]:
 
 
 def _collect_batch(queue, buckets: List[int], first: TrajectoryItem,
-                   linger_s: float = 0.0,
-                   max_items: Optional[int] = None) -> List[TrajectoryItem]:
+                   linger_s: float = 0.0) -> List[TrajectoryItem]:
     """Starting from ``first`` (already popped), drain the queue up to
     the largest bucket, then trim to the largest power of two that
     fits, requeueing the overflow *at the front, newest first*, so the
@@ -115,10 +101,9 @@ def _collect_batch(queue, buckets: List[int], first: TrajectoryItem,
 
     ``linger_s`` is the learner-side flush deadline: wait up to this
     long for the bucket to fill rather than train on whatever is queued;
-    a full bucket never waits. ``max_items`` caps fresh collection below
-    the top bucket (the replay path)."""
+    a full bucket never waits."""
     items = [first]
-    cap = buckets[0] if max_items is None else min(max_items, buckets[0])
+    cap = buckets[0]
     deadline = (time.monotonic() + linger_s) if linger_s > 0 else None
     while len(items) < cap:
         nxt = queue.get_nowait()
@@ -208,7 +193,6 @@ class _HostStager:
         self.device = torch.device(device)
         self._slots: Dict[Any, list] = {}
         self._reuse = self.device.type == "cuda"
-        self.last_device_put_s = 0.0    # phase-timing probe, per stack
 
     def stack(self, items: List[TrajectoryItem]) -> Optional[PyTree]:
         """Staged stack of same-shaped numpy trajectories; None if the
@@ -253,7 +237,6 @@ class _HostStager:
             for buf, leaf in zip(bufs, ls):
                 b = leaf.shape[0]
                 np.copyto(buf.numpy()[i * b:(i + 1) * b], leaf)
-        t0 = time.monotonic()
         if self._reuse:
             out = [buf.to(self.device, non_blocking=True) for buf in bufs]
             copied = torch.cuda.Event()
@@ -261,7 +244,6 @@ class _HostStager:
             slot[2][idx] = copied
         else:
             out = bufs
-        self.last_device_put_s = time.monotonic() - t0
         return _unflatten(structure, out)
 
 
@@ -313,7 +295,7 @@ class Learner:
     pool); ``attach`` binds the pool once it exists; ``run`` executes the
     training loop end to end, owning the start/stop/join/close lifecycle.
     ``initial_params`` (the port's tensors on ``device``) are the working
-    parameters: with ``donate`` they are updated in place."""
+    parameters, updated in place."""
 
     def __init__(self, *, arch, icfg, num_actions: int, num_envs: int,
                  num_actors: int, transport, seed: int = 0,
@@ -368,14 +350,13 @@ class Learner:
             params = params_lib.from_jax(common.init_params(specs, seed),
                                          self.device)
         self._train_step, opt = learner_lib.build_train_step(
-            arch, icfg, num_actions, vtrace_impl=vtrace_impl,
-            inplace=donate)
+            arch, icfg, num_actions, vtrace_impl=vtrace_impl)
         self._params = params
         self._opt_state = (initial_opt_state if initial_opt_state is not None
                            else opt.init(params))
         self.store = ParameterStore(
-            params_lib.snapshot(params) if donate else params,
-            version=start_step, wire_codec=wire_codec, ready=self._mark())
+            params_lib.snapshot(params), version=start_step,
+            wire_codec=wire_codec, ready=self._mark())
         self.start_step = start_step
         self.tracker = MultiTracker(num_actors, num_envs,
                                     slot_base=slot_base)
@@ -511,8 +492,7 @@ class Learner:
         metrics)."""
         self._params, self._opt_state, metrics = self._train_step(
             self._params, self._opt_state, self.updates, batch)
-        published = (params_lib.snapshot(self._params) if self.donate
-                     else self._params)
+        published = params_lib.snapshot(self._params)
         self.store.publish(published, self._mark())
         return published, metrics
 

@@ -9,11 +9,11 @@ trajectory.param_version`` when it consumes it (paper §4.2).
 Thread-safety: one mutex guards the (params, version, ready) triple, so a
 pull never observes a torn publish. The port's optimizer updates its
 working parameters in place, so what is published must be a tree that no
-later update writes: the learner publishes a copy (``donate``) or a tree
-its out-of-place update has retired (``Learner``). ``ready`` is the CUDA
-event recorded on the learner's stream after that tree was written; an
-actor on another stream waits for it before it reads the tree. It is
-None on the CPU, where every op has finished when it returns.
+later update writes: the learner publishes a copy (``Learner``).
+``ready`` is the CUDA event recorded on the learner's stream after that
+tree was written; an actor on another stream waits for it before it
+reads the tree. It is None on the CPU, where every op has finished when
+it returns.
 
 Serialized pulls for actor processes (``pull_serialized``) come with the
 process pools (ROADMAP.md, Queue 1 item 10): ``serialized_wire_bytes``

@@ -186,10 +186,10 @@ def run_async_training(
     and no wire uses it, as on the JAX in-process path. ``obs``,
     ``supervise`` and ``ckpt_dir`` raise, naming their ROADMAP.md item.
 
-    ``donate=True`` (default) updates the learner's parameters in place
-    and publishes a copy each update; ``donate=False`` updates out of
-    place and publishes the working tree (see ``Learner``). Either way
-    ``initial_params`` become the learner's working parameters.
+    The learner updates its parameters in place and publishes a copy
+    each update, whatever ``donate`` says; ``donate`` is only reported in
+    the telemetry (see ``Learner``). ``initial_params`` become the
+    learner's working parameters.
 
     ``warm_buckets=True`` runs one throwaway update per batch bucket
     before the timed region. ``batch_linger_s`` is the learner's flush

@@ -34,7 +34,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -83,9 +83,10 @@ def _parser() -> argparse.ArgumentParser:
                         "with the published params; only unroll is "
                         "ported")
     p.add_argument("--no-donate", action="store_true",
-                   help="async learner: update the params out of place and "
-                        "publish the working tree, instead of updating in "
-                        "place and publishing a copy")
+                   help="reported as donate=False in the async "
+                        "telemetry; the port's learner always updates in "
+                        "place and publishes a copy (PyTorch donates no "
+                        "buffers)")
     p.add_argument("--transport", default="",
                    choices=["", "inproc", "shm", "socket"],
                    help="trajectory transport; default inproc for thread "
@@ -180,10 +181,15 @@ class AsyncRun:
     tracker: Any                 # distributed.MultiTracker
 
 
-def train(argv: Optional[List[str]] = None) -> Union[SyncRun, AsyncRun]:
-    """Parse the CLI flags and run the trainer."""
+def train(argv: Optional[List[str]] = None,
+          on_update: Optional[Callable] = None) -> Union[SyncRun, AsyncRun]:
+    """Parse the CLI flags and run the trainer. ``on_update(update_index,
+    published params, metrics, snapshot_fn)``, for ``--runtime async``
+    only, runs after each update's log line, on the learner's thread."""
     args = _parser().parse_args(argv)
     _refuse_unported(args)
+    if on_update is not None and args.runtime != "async":
+        raise ValueError("on_update is a hook of --runtime async")
     device = resolve_device(args.device)
 
     from repro_torch.configs.registry import get_config, get_smoke_config
@@ -203,33 +209,21 @@ def train(argv: Optional[List[str]] = None) -> Union[SyncRun, AsyncRun]:
         rmsprop_eps=args.rmsprop_eps, policy_lag=args.policy_lag,
         correction=args.correction, reward_clip=args.reward_clip)
     if args.runtime == "async":
-        return _run_async(args, env, arch, icfg, device)
+        return _run_async(args, env, arch, icfg, device, on_update)
     return _run_sync(args, env, arch, icfg, device)
 
 
 def _run_sync(args, env, arch, icfg, device) -> SyncRun:
-    from repro_torch import params as params_lib
-    from repro_torch.core import actor as actor_lib
-    from repro_torch.core import learner as learner_lib
-    from repro_torch.core.queue import LagController
+    from repro_torch.core.driver import sync_loop
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
 
     specs = bb.backbone_specs(arch, env.num_actions)
-    params = params_lib.from_jax(common.init_params(specs, args.seed), device)
     print(f"arch={arch.name} params={common.param_count(specs):,} "
           f"env={env.name} actions={env.num_actions} runtime=sync")
     print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
                                 if device.type == "cuda" else ""))
 
-    init_fn, unroll = actor_lib.build_actor(env, arch, icfg, args.num_envs,
-                                            device)
-    train_step, opt = learner_lib.build_train_step(arch, icfg,
-                                                   env.num_actions)
-    opt_state = opt.init(params)
-
-    carry = init_fn(args.seed + 1)
-    lag = LagController(icfg.policy_lag, params)
     tracker = EpisodeTracker(args.num_envs)
     frames = 0
     # the steady-state fps window opens after the first update lands, so
@@ -237,16 +231,13 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
     t0 = None
     frames0 = 0
     fps = 0.0
+    params: Dict = {}
     metrics: Dict[str, Any] = {}
     batch: Dict = {}
     log: List[Dict[str, float]] = []
-    for step in range(args.steps):
-        carry, batch = unroll(lag.actor_params(), carry)
-        tracker.update(batch["rewards"].cpu().numpy(),
-                       batch["done"].cpu().numpy())
-        params, opt_state, metrics = train_step(params, opt_state, step,
-                                                batch)
-        lag.on_update(params)
+    for step, params, metrics, batch in sync_loop(
+            env, arch, icfg, args.num_envs, args.steps, tracker, args.seed,
+            device):
         frames += args.num_envs * args.unroll
         if t0 is None:
             _sync(device)
@@ -275,7 +266,7 @@ TELEMETRY_KEYS = ("learner_updates", "frames_consumed", "updates_per_sec",
                   "actors", "param_version")
 
 
-def _run_async(args, env, arch, icfg, device) -> AsyncRun:
+def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     from repro_torch.distributed import run_async_training
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
@@ -305,6 +296,8 @@ def _run_async(args, env, arch, icfg, device) -> AsyncRun:
                   f"{q['dropped']}/{q['put_stalls']} "
                   f"learner_fps={tel['frames_per_sec']:7.0f} "
                   f"actor_fps={tel['actors']['actor_fps']:7.0f}")
+        if hook is not None:
+            hook(step, params, metrics, snapshot_fn)
 
     tracker, metrics, tel = run_async_training(
         env, icfg, args.num_envs, args.steps,

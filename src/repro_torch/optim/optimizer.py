@@ -10,7 +10,7 @@ Transforms take and return trees (nested dicts of tensors, see
 ``repro_torch.params``): ``update`` builds new state trees, and
 ``apply_updates`` adds the updates to the parameters in place, so a
 holder of the old parameters must keep a snapshot (``LagController``
-does); ``add_updates`` returns new parameter tensors instead.
+does).
 """
 from __future__ import annotations
 
@@ -98,14 +98,6 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
     for p, u in zip(tree_leaves(params), tree_leaves(updates)):
         p.add_(u.to(p.dtype))
     return params
-
-
-@torch.no_grad()
-def add_updates(params: Tree, updates: Tree) -> Tree:
-    """``params + updates`` as new leaf tensors (each keeps its
-    ``requires_grad``); ``params`` are left as they were."""
-    return tree_map(lambda p, u: (p + u.to(p.dtype)).requires_grad_(
-        p.requires_grad), params, updates)
 
 
 def linear_schedule(init_value: float, end_value: float,

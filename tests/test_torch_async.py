@@ -8,6 +8,7 @@ log and telemetry lines.
 RNG streams differ across the packages (threefry, Philox), so whole runs
 are compared by their structure and counts, not their values."""
 import json
+import threading
 import time
 
 import numpy as np
@@ -72,6 +73,8 @@ def test_async_one_actor_matches_sync_driver_step_count():
     assert np.isfinite(float(metrics_s["loss/total"]))
     assert tel["batch_size_hist"] == {1: steps}
     assert tel["queue"]["dropped"] == 0
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("actor-")]
 
 
 @pytest.mark.parametrize("policy", ["block", "drop_oldest", "drop_newest"])
@@ -137,10 +140,13 @@ def test_bandit_learns_to_the_jax_bar_with_two_actor_threads():
 
 
 def test_cli_runs_the_async_path_on_cpu(capsys):
+    seen = []
     run = train_lib.train(["--device", "cpu", "--runtime", "async",
                            "--smoke", "--env", "catch", "--steps", "6",
                            "--num-envs", "4", "--unroll", "5",
-                           "--log-every", "3", "--no-donate"])
+                           "--log-every", "3", "--no-donate"],
+                          on_update=lambda step, *_: seen.append(step))
+    assert seen == [1, 2, 3, 4, 5, 6]
     out = capsys.readouterr().out
     assert "runtime=async actors=2(thread/unroll) transport=inproc " \
            "queue=8/block max_batch_trajs=4 donate=False" in out

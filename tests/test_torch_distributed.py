@@ -281,9 +281,9 @@ def test_stack_and_one_update_match_jax(k):
 
 @pytest.mark.parametrize("donate", [True, False])
 def test_published_snapshot_survives_the_next_in_place_update(donate):
-    """The published tree is never written by a later update: with
-    donate the learner updates in place and publishes a copy, without it
-    it updates out of place. Both give the same params."""
+    """The published tree is never written by a later update: the
+    learner updates in place and publishes a copy. ``donate`` is only
+    reported: both values give the same params, bit for bit."""
     t_arch = get_smoke_config("impala-shallow").replace(image_hw=_HW)
     tree = P.to_jax(P.from_jax(_init_params(t_arch)))   # numpy leaves
     learners = [t_learner.Learner(
@@ -311,6 +311,8 @@ def test_published_snapshot_survives_the_next_in_place_update(donate):
     other_pub, _ = other._update_once(batch)
     for a, b in zip(P.tree_leaves(pub2), P.tree_leaves(other_pub)):
         assert torch.equal(a.detach(), b.detach())
+    assert learner.telemetry_snapshot()["donate"] is donate
+    assert other.telemetry_snapshot()["donate"] is not donate
 
 
 def _init_params(arch):
@@ -503,4 +505,31 @@ def test_warm_buckets_leave_params_opt_state_and_queue_as_they_were():
         assert learner.store.version == 0 and learner.updates == 0
         assert len(learner.queue) == 1 and learner.queue.get_nowait() is item
     finally:
+        learner.queue.close()
+
+
+def test_pool_join_raises_on_a_worker_that_outlives_it():
+    """A worker still running after ``join``'s timeout is an error: left
+    behind, it would go on issuing work after the run returned. Workers
+    that stop are joined without one."""
+    icfg = ImpalaConfig(num_actions=3, unroll_length=4, learning_rate=1e-3,
+                        rmsprop_eps=0.01)
+    learner = t_runtime._setup("bandit", icfg, 2, num_actors=1,
+                               device="cpu")
+    pool = learner.pool
+    release = threading.Event()
+    stuck = threading.Thread(target=release.wait, name="actor-stuck",
+                             daemon=True)
+    try:
+        pool.start()
+        pool.stop()
+        pool.join()
+        assert not any(t.is_alive() for t in pool._threads)
+        pool._threads.append(stuck)
+        stuck.start()
+        with pytest.raises(RuntimeError, match="actor-stuck"):
+            pool.join(timeout=0.2)
+    finally:
+        release.set()
+        stuck.join(timeout=30)
         learner.queue.close()
