@@ -9,7 +9,8 @@ exception and a nonzero exit:
 
 1. Card: ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` with nvcc.
-3. K1 (V-trace recurrence) against its plain PyTorch version, on the card.
+3. K1 (V-trace recurrence) against its plain PyTorch version, on the card,
+   at the replay learner's batches of 2 and 4 trajectories too.
 4. K2 (fused loss + V-trace) against its plain version, forward and the
    ``autograd.Function``'s d_logits of the assembled IMPALA total, at
    every batch bucket of the async learner too.
@@ -39,12 +40,32 @@ exception and a nonzero exit:
    envs, unroll 20, 400 updates, 2 actor threads, queue 8/block, batches
    of up to 4); the last 100 returns above the first 500 by more than
    0.15, and above -0.3.
+6c. The async path with replay: ``repro_torch.launch.train --runtime async
+   --replay-fraction 0.5 --replay-reuse 2``, else as 6a, for
+   ``ASYNC_STEPS`` updates. Every update trains on the replay loss, so K1
+   launches exactly once an update, at (20, 32k), and K2 never; counts
+   zeroed just before and read just after. Prints the replay telemetry
+   (sampled, reuse ratio, target syncs, fresh cap), the batch sizes,
+   learner, trained and actor frames/s, and, as 6a, the card's busy share
+   of a window of updates. No actor thread may outlive the run.
+6d. Replay learning bar: the JAX package's replay acceptance
+   configuration (tests/test_replay.py: catch, smoke impala-shallow, 16
+   envs, unroll 8, 240 updates, lr 1e-3, fraction 0.5, reuse 2, capacity
+   512, 2 actor threads, queue 8/block, batches of up to 4): the last 20
+   returns above the first 20 by more than 0.15, reuse ratio above 1.5.
+6e. The sync CLI with ``--replay-fraction 0.5``: K2 launches once a step.
+6f. Checkpoints at full width: a sync CLI run with ``--ckpt-dir`` resumed
+   by a second run; an async runtime run writing fleet-v1 checkpoints
+   (params, optimizer state, version), resumed with its versions
+   continuing. Restored trees equal the saved ones bit for bit, on the
+   card and loaded on the CPU.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
    and the device kernels that take most of it.
 8. Times: K1 and K2 at the main path's shape, the paper's DMLab learner
-   shape (100, 32, 9) and (100, 256, 18); each call timed with CUDA
+   shape (100, 32, 9), (100, 256, 18) and the batches of 2 and 4
+   trajectories, (20, 64, 3) and (20, 128, 3); each call timed with CUDA
    events and each kernel's device time from a ``torch.profiler`` trace,
    beside the plain version and the least time the card could take
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32; the larger of
@@ -147,6 +168,13 @@ ASYNC_ARGV = ["--device", "cuda", "--runtime", "async", "--env", "catch",
               "--log-every", "100"]
 # the steady updates timed, then profiled, near the end of phase 6a's run
 ASYNC_WINDOW = 20
+# the async path with replay at the paper's half (phase 6c)
+REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
+                            "2"]
+# tests/test_replay.py's bar: 240 updates, last 20 > first 20 + 0.15
+REPLAY_BAR_STEPS, REPLAY_CLIMB = 240, 0.15
+SYNC_REPLAY_STEPS = 50
+CKPT_EVERY = 10
 # tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -154,15 +182,20 @@ FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
          (1.0, 1.0, 0.9)]
-K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256)]
+# (20, 64) and (20, 128): the replay learner's batches of 2 and 4
+# trajectories of 32 envs
+K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256), (20, 64),
+             (20, 128)]
 # (20, 64, 3) and (20, 128, 3): the async learner's batches of 2 and 4
 # trajectories of 32 envs
 K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 32, 9), (100, 256, 18),
              (16, 8, 130), (20, 64, 3), (20, 128, 3)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
 # K1/K2 timed at the main path's shape, the paper's DMLab learner shape
-# (unroll 100, batch 32, 9 actions) and a large one
-VTRACE_TIMED = [(MAIN_T, MAIN_B, MAIN_A), (100, 32, 9), (100, 256, 18)]
+# (unroll 100, batch 32, 9 actions), a large one and the batches of 2 and 4
+# trajectories that the replay (K1) and async (K2) learners train on
+VTRACE_TIMED = [(MAIN_T, MAIN_B, MAIN_A), (100, 32, 9), (100, 256, 18),
+                (MAIN_T, 2 * MAIN_B, MAIN_A), (MAIN_T, 4 * MAIN_B, MAIN_A)]
 # K4 checks: (B, T, S, H, K, D, causal, window)
 K4_CASES = [
     (16, 128, 128, 32, 8, 128, True, 0),    # the serving path's prefill
@@ -424,11 +457,13 @@ def _no_actor_threads(what: str) -> None:
         raise AssertionError(f"{what}: actor threads {alive} outlive the run")
 
 
-def phase_async(vk, dev):
-    """The async path at full width, K1/K2 counted over exactly it; near
-    its end ``ASYNC_WINDOW`` updates timed on the host clock between two
-    synchronises, then as many under ``torch.profiler``: the card's busy
-    time per update against the unprofiled update."""
+def _async_run(vk, argv):
+    """``repro_torch.launch.train`` with ``argv`` for ``ASYNC_STEPS``
+    updates, the launch counts zeroed just before and read just after.
+    Near its end ``ASYNC_WINDOW`` updates are timed on the host clock
+    between two synchronises, then as many run under ``torch.profiler``.
+    Returns (run, launches, telemetry read before the window, unprofiled
+    and profiled ms an update, the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as train_lib
@@ -451,11 +486,24 @@ def phase_async(vk, dev):
             prof.stop()
 
     vk.reset_launch_counts()
-    run = train_lib.train(ASYNC_ARGV, on_update=window)
+    run = train_lib.train(argv, on_update=window)
     torch.cuda.synchronize()
     launches = {"vtrace": vk.vtrace.launches,
                 "loss_vtrace": vk.loss_vtrace.launches}
-    _no_actor_threads("async path")
+    _no_actor_threads(" ".join(argv))
+    update_ms = (marks[first + w] - marks[first]) / w * 1e3
+    profiled_ms = (marks[first + 2 * w] - marks[first + w]) / w * 1e3
+    print(f"async split: {update_ms:.3f} ms an update unprofiled, "
+          f"{profiled_ms:.3f} ms profiled (updates {first}-{first + w} and "
+          f"{first + w}-{first + 2 * w})")
+    return run, launches, before, update_ms, prof
+
+
+def phase_async(vk, dev):
+    """The async path at full width, K1/K2 counted over exactly it; near
+    its end the card's busy time per update against the unprofiled
+    update (``_async_run``)."""
+    run, launches, before, update_ms, prof = _async_run(vk, ASYNC_ARGV)
     tel = run.telemetry
     frames_per_traj = MAIN_B * MAIN_T
     got = (tel["learner_updates"], tel["param_version"],
@@ -479,8 +527,8 @@ def phase_async(vk, dev):
           f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
     print(f"async path: learner frames/s {before['frames_per_sec']:.0f}, "
           f"actor frames/s {before['actors']['actor_fps']:.0f}, updates/s "
-          f"{before['updates_per_sec']:.2f} (steady window up to update "
-          f"{first}); batch sizes "
+          f"{before['updates_per_sec']:.2f} (steady window before the "
+          f"timed updates); batch sizes "
           f"{dict(sorted(tel['batch_size_hist'].items()))}; lag mean "
           f"{lag['mean']:.3f} max {lag['max']} over {lag['measured']} "
           f"trajectories; queue occupancy {q['mean_occupancy']:.3f} of "
@@ -493,13 +541,214 @@ def phase_async(vk, dev):
           f"{early:.3f}, last 100 mean {late:.3f}: "
           + ("clears" if cleared else "misses")
           + " phase 6b's bar (this full-width run is not held to it)")
-    update_ms = (marks[first + w] - marks[first]) / w * 1e3
-    profiled_ms = (marks[first + 2 * w] - marks[first + w]) / w * 1e3
-    print(f"async split: {update_ms:.3f} ms an update unprofiled, "
-          f"{profiled_ms:.3f} ms profiled (updates {first}-{first + w} and "
-          f"{first + w}-{first + 2 * w})")
-    _print_busy("async update", prof, w, update_ms)
+    _print_busy("async update", prof, ASYNC_WINDOW, update_ms)
     return launches
+
+
+def phase_async_replay(vk, dev):
+    """The async path with replay at full width (fraction 0.5, reuse 2):
+    every update trains on the replay loss, so K1 launches exactly once an
+    update and K2 never."""
+    run, launches, before, update_ms, prof = _async_run(vk, REPLAY_ARGV)
+    tel = run.telemetry
+    rp = tel["replay"]
+    got = (tel["learner_updates"], tel["param_version"],
+           launches["vtrace"], launches["loss_vtrace"])
+    if got != (ASYNC_STEPS, ASYNC_STEPS, ASYNC_STEPS, 0):
+        raise AssertionError(f"async replay: (updates, version, K1 "
+                             f"launches, K2 launches) {got}; expected "
+                             f"{(ASYNC_STEPS,) * 3 + (0,)}")
+    loss = float(run.metrics["loss/total"])
+    if not math.isfinite(loss) or "vtrace/traj_adv_mag" in run.metrics:
+        raise AssertionError(f"async replay final metrics {run.metrics}")
+    moved = _params_moved(run, dev)
+    frames_per_traj = MAIN_B * MAIN_T
+    trained = sum(int(k) * n for k, n in tel["batch_size_hist"].items())
+    if not (rp["sampled"] > 0 and rp["fresh_max"] == 2
+            and rp["frames_trained"] == trained * frames_per_traj
+            and rp["staleness"]["measured"] == rp["sampled"]
+            and rp["target_syncs"] == ASYNC_STEPS // 16):
+        raise AssertionError(f"async replay telemetry {rp}")
+    print(f"async replay: {ASYNC_STEPS} updates, K1 launches "
+          f"{launches['vtrace']} K2 {launches['loss_vtrace']}, final loss "
+          f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
+    print(f"async replay: sampled {rp['sampled']}, reuse_ratio "
+          f"{rp['reuse_ratio']:.4f}, target_syncs {rp['target_syncs']} "
+          f"(period {rp['target_period']}), fresh_max {rp['fresh_max']}, "
+          f"occupancy {rp['occupancy']}, evicted exhausted "
+          f"{rp['evicted_exhausted']}, staleness mean "
+          f"{rp['staleness']['mean']:.3f} max {rp['staleness']['max']}; "
+          f"batch sizes {dict(sorted(tel['batch_size_hist'].items()))}")
+    print(f"async replay: learner frames/s {before['frames_per_sec']:.0f} "
+          f"(env frames consumed), trained frames/s "
+          f"{before['replay']['trained_frames_per_sec']:.0f}, actor "
+          f"frames/s {before['actors']['actor_fps']:.0f}, updates/s "
+          f"{before['updates_per_sec']:.2f}; lag mean "
+          f"{tel['lag']['mean']:.3f}; "
+          f"{len(run.tracker.completed)} episodes, last 100 mean "
+          f"{run.tracker.mean_return(100):.3f}")
+    _print_busy("async replay update", prof, ASYNC_WINDOW, update_ms)
+    return launches
+
+
+def phase_replay_bar(dev) -> float:
+    """tests/test_replay.py's acceptance run (catch with replay at half
+    the env frames), on the card, held to that test's bar."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.distributed import run_async_training
+
+    cfg = ImpalaConfig(num_actions=3, unroll_length=8, learning_rate=1e-3,
+                       entropy_cost=0.003, rmsprop_eps=0.01,
+                       replay_fraction=0.5, replay_reuse=2,
+                       replay_capacity=512)
+    tracker, metrics, tel = run_async_training(
+        "catch", cfg, 16, REPLAY_BAR_STEPS, num_actors=2,
+        actor_backend="thread", queue_capacity=8, queue_policy="block",
+        max_batch_trajs=4, seed=0, device=dev)
+    _no_actor_threads("replay learning run")
+    returns = tracker.completed
+    early = float(sum(returns[:20])) / max(1, len(returns[:20]))
+    late = float(sum(returns[-20:])) / max(1, len(returns[-20:]))
+    rp = tel["replay"]
+    if not (len(returns) > 40 and late > early + REPLAY_CLIMB
+            and rp["reuse_ratio"] > 1.5 and rp["sampled"] > 0
+            and math.isfinite(float(metrics["loss/total"]))):
+        raise AssertionError(f"replay catch: {len(returns)} episodes, last "
+                             f"20 mean {late:.3f}, first 20 mean "
+                             f"{early:.3f}, reuse_ratio "
+                             f"{rp['reuse_ratio']:.3f}; the bar is a climb "
+                             f"of more than {REPLAY_CLIMB} and a reuse "
+                             f"ratio above 1.5")
+    print(f"replay learning bar: catch (smoke impala-shallow, 16 envs, "
+          f"unroll 8) last 20 mean {late:.3f} > first 20 mean {early:.3f} "
+          f"+ {REPLAY_CLIMB}; reuse_ratio {rp['reuse_ratio']:.4f} > 1.5; "
+          f"{len(returns)} episodes, sampled {rp['sampled']}, batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}")
+    return late
+
+
+def phase_sync_replay(vk):
+    """The sync CLI with replay: the batch is half replayed rows and the
+    standard loss, so K2 launches once a step and K1 never."""
+    from repro_torch.launch import train as train_lib
+
+    vk.reset_launch_counts()
+    run = train_lib.train(["--device", "cuda", "--replay-fraction", "0.5",
+                           "--steps", str(SYNC_REPLAY_STEPS),
+                           "--log-every", str(SYNC_REPLAY_STEPS // 2)])
+    torch.cuda.synchronize()
+    got = (vk.loss_vtrace.launches, vk.vtrace.launches)
+    if got != (SYNC_REPLAY_STEPS, 0) or \
+            not math.isfinite(float(run.metrics["loss/total"])):
+        raise AssertionError(f"sync replay: (K2, K1) launches {got} in "
+                             f"{SYNC_REPLAY_STEPS} steps, final loss "
+                             f"{float(run.metrics['loss/total'])}")
+    print(f"sync replay: {SYNC_REPLAY_STEPS} steps, K2 launches {got[0]} "
+          f"K1 {got[1]}, frames/s {run.fps:.0f}, final loss "
+          f"{float(run.metrics['loss/total']):.4f}")
+    return got[0]
+
+
+def _host_equal(what: str, got, want) -> None:
+    """Two trees of host numpy leaves, equal bit for bit."""
+    from repro_torch import params as params_lib
+
+    got, want = params_lib.flatten(got), params_lib.flatten(want)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: keys differ")
+    for k, v in want.items():
+        if got[k].dtype != v.dtype or got[k].shape != v.shape or \
+                got[k].tobytes() != v.tobytes():
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def phase_checkpoints(dev) -> None:
+    """Checkpoints on the card, at full width: a sync CLI run resumed by a
+    second; an async runtime run writing fleet-v1 every
+    ``CKPT_EVERY`` updates, resumed with its version stream continuing.
+    Restored trees equal the saved ones bit for bit, and a checkpoint
+    written on the card loads into the port on the CPU."""
+    import shutil
+
+    from repro_torch import params as params_lib
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.envs import make_catch
+    from repro_torch.distributed import run_async_training
+    from repro_torch.launch import train as train_lib
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        d = str(root / "sync")
+        argv = ["--device", "cuda", "--ckpt-dir", d, "--ckpt-every",
+                str(CKPT_EVERY), "--log-every", str(CKPT_EVERY)]
+        first = train_lib.train(argv + ["--steps", str(2 * CKPT_EVERY)])
+        saved = params_lib.to_jax(first.params)
+        restored, step = ckpt.restore(d, first.params)
+        _host_equal("sync checkpoint", params_lib.to_jax(restored), saved)
+        second = train_lib.train(argv + ["--steps", str(3 * CKPT_EVERY)])
+        if step != 2 * CKPT_EVERY or \
+                [e["step"] for e in second.log] != [3 * CKPT_EVERY] or \
+                ckpt.latest_step(d) != 3 * CKPT_EVERY:
+            raise AssertionError(f"sync resume: restored step {step}, "
+                                 f"second run logged {second.log}")
+        cpu, _ = ckpt.restore(d, params_lib.from_jax(saved, "cpu"),
+                              step=2 * CKPT_EVERY)
+        _host_equal("card checkpoint on the CPU", params_lib.to_jax(cpu),
+                    saved)
+        print(f"checkpoints: sync CLI saved at steps {CKPT_EVERY} and "
+              f"{2 * CKPT_EVERY}, a second run restored step {step} and "
+              f"went on to {3 * CKPT_EVERY}; restored params bit for bit, "
+              f"also on the CPU")
+
+        d = str(root / "async")
+        env = make_catch()
+        arch = get_config("impala-shallow").replace(image_hw=env.image_hw)
+        cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
+                           learning_rate=6e-4, entropy_cost=0.003,
+                           rmsprop_eps=0.01)
+        published = {}
+
+        def keep(step, params, metrics, snapshot_fn):
+            if step % CKPT_EVERY == 0:
+                published[step] = params_lib.to_jax(params)
+
+        kw = dict(num_actors=2, max_batch_trajs=4, seed=0, arch=arch,
+                  device=dev)
+        run_async_training(env, cfg, MAIN_B, 2 * CKPT_EVERY, ckpt_dir=d,
+                           ckpt_every=CKPT_EVERY, on_update=keep, **kw)
+        _no_actor_threads("async checkpoint run")
+        tree, step, extra = ckpt.load_with_extra(d)
+        if (step, extra) != (2 * CKPT_EVERY, {"version": 2 * CKPT_EVERY,
+                                              "format": "fleet-v1"}):
+            raise AssertionError(f"async checkpoint: step {step} {extra}")
+        _host_equal("async fleet params", tree["params"],
+                    published[2 * CKPT_EVERY])
+        params = params_lib.from_jax(tree["params"], dev)
+        opt = params_lib.from_jax(tree["opt"], dev, requires_grad=False)
+        _host_equal("fleet params on the card", params_lib.to_jax(params),
+                    tree["params"])
+        _host_equal("fleet optimizer state on the card",
+                    params_lib.to_jax(opt), tree["opt"])
+        seen = []
+        _, metrics, tel = run_async_training(
+            env, cfg, MAIN_B, 3 * CKPT_EVERY, initial_params=params,
+            initial_opt_state=opt, start_step=step,
+            on_update=lambda u, p, m, f: seen.append(u), **kw)
+        _no_actor_threads("async resumed run")
+        if seen != list(range(step + 1, 3 * CKPT_EVERY + 1)) or \
+                tel["param_version"] != 3 * CKPT_EVERY or \
+                not math.isfinite(float(metrics["loss/total"])):
+            raise AssertionError(f"async resume: updates {seen}, version "
+                                 f"{tel['param_version']}")
+        print(f"checkpoints: async runtime wrote fleet-v1 at versions "
+              f"{CKPT_EVERY} and {2 * CKPT_EVERY}; resumed, its updates "
+              f"ran {seen[0]}-{seen[-1]} to version {tel['param_version']};"
+              f" params and optimizer state restored bit for bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def phase_async_bar(dev) -> float:
@@ -1142,9 +1391,14 @@ def main() -> int:
     launches, run = phase_main(vk, dev)
     phase_bandit()
     async_launches = phase_async(vk, dev)
-    # loss_vtrace's launches over every path that runs it
+    replay_launches = phase_async_replay(vk, dev)
+    # each kernel's launches over every path that runs it
     launches["loss_vtrace"] += async_launches["loss_vtrace"]
+    launches["vtrace"] += replay_launches["vtrace"]
     phase_async_bar(dev)
+    phase_replay_bar(dev)
+    launches["loss_vtrace"] += phase_sync_replay(vk)
+    phase_checkpoints(dev)
     phase_split(run, dev)
     rows = phase_times(vk, dev)
     del run

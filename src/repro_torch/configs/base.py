@@ -1,10 +1,9 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
-Both keep only the fields the ported paths read: ``ArchConfig`` those of
-the conv-LSTM agents, of the dense token decoders and of the Mamba-2 SSM
-stack (the MoE, RG-LRU, enc-dec and VLM fields join with those blocks),
-and ``ImpalaConfig`` all but the replay buffer's, which join with the
-replay learner.
+``ArchConfig`` keeps only the fields the ported paths read: those of the
+conv-LSTM agents, of the dense token decoders and of the Mamba-2 SSM
+stack (the MoE, RG-LRU, enc-dec and VLM fields join with those blocks).
+``ImpalaConfig`` has every field of the reference.
 """
 from __future__ import annotations
 
@@ -75,8 +74,14 @@ class ImpalaConfig:
     pg_q_estimate: str = "vtrace"
     eps_correction: float = 1e-6
     reward_clip: str = "abs_one"         # abs_one | soft_asymmetric | none
-    # replay (paper 5.2.2): only 0 is ported (ROADMAP.md, Queue 1 item 11)
-    replay_fraction: float = 0.0
+    # replay (paper 5.2.2)
+    replay_capacity: int = 10_000
+    replay_fraction: float = 0.0         # 0.5 in the replay experiments
+    replay_reuse: int = 2                # K: max total consumptions/traj
+    replay_priority: str = "pertd"       # pertd | uniform (Ape-X prop.)
+    replay_target_period: int = 16       # updates between target syncs
+    # learner batch (trajectories per update)
+    batch_size: int = 32
     # simulated policy lag (actor params k updates behind learner)
     policy_lag: int = 1
     learning_rate: float = 6e-4
@@ -85,3 +90,4 @@ class ImpalaConfig:
     rmsprop_momentum: float = 0.0
     rmsprop_eps: float = 0.1
     grad_clip_norm: float = 40.0
+    seed: int = 0

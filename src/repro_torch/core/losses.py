@@ -74,7 +74,8 @@ def _metrics(total, pg, bl, ent, vs, pg_adv) -> Dict[str, torch.Tensor]:
 
 
 def impala_loss(cfg: ImpalaConfig, target_logits, values, batch: Dict,
-                impl: str = "auto"
+                impl: str = "auto", corr_values=None, corr_bootstrap=None,
+                per_traj: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The full IMPALA learner loss on a batch of trajectories.
 
@@ -82,31 +83,45 @@ def impala_loss(cfg: ImpalaConfig, target_logits, values, batch: Dict,
     behaviour_logprob (B,T) f32, bootstrap_value (B,) = V(x_T).
     target_logits: (B,T,A) f32; values: (B,T) f32.
 
-    The fused kernel computes V-trace with its own pg advantages, so the
-    ablation variants (other corrections, ``pg_q_estimate='baseline_v'``)
-    take the plain V-trace kernel on CUDA (``pallas``) and the reverse
-    loop on the CPU. The replay path's substitute baseline
-    (``corr_values``) and per-trajectory metric join with the replay
-    learner.
+    ``corr_values``/``corr_bootstrap`` (replay path) substitute the V(x_s)
+    the V-trace recursion reads (``corrections.replay_baseline_mix``'s
+    target-network baseline on replayed rows), while the baseline loss
+    keeps training the online ``values`` toward the resulting vs.
+    ``per_traj=True`` adds ``vtrace/traj_adv_mag`` (B,), the
+    per-trajectory mean |pg advantage|: the replay priority signal.
+
+    The fused kernel computes V-trace with its own pg advantages from the
+    trained values, so the ablation variants (other corrections,
+    ``pg_q_estimate='baseline_v'``) and the replay path take the plain
+    V-trace kernel on CUDA (``pallas``) and the reverse loop on the CPU.
     """
     device = target_logits.device
     impl = resolve_vtrace_impl(impl, device)
     rewards = reward_clip(batch["rewards"], cfg.reward_clip)
+    replay = (corr_values is not None or corr_bootstrap is not None
+              or per_traj)
     if impl == "fused":
-        if cfg.correction == "vtrace" and cfg.pg_q_estimate != "baseline_v":
+        if (cfg.correction == "vtrace" and cfg.pg_q_estimate != "baseline_v"
+                and not replay):
             return _impala_loss_fused(cfg, target_logits, values, batch,
                                       rewards)
         impl = "pallas" if device.type == "cuda" else "scan"
     vs, pg_adv = corrections.compute_correction(
         cfg, batch["behaviour_logprob"], target_logits, batch["actions"],
-        batch["discounts"], rewards, values, batch["bootstrap_value"],
+        batch["discounts"], rewards,
+        values if corr_values is None else corr_values,
+        (batch["bootstrap_value"] if corr_bootstrap is None
+         else corr_bootstrap),
         impl=impl)
     eps = cfg.eps_correction if cfg.correction == "eps" else 0.0
     pg = policy_gradient_loss(target_logits, batch["actions"], pg_adv, eps)
     bl = baseline_loss(values, vs)
     ent = entropy_loss(target_logits)
     total = pg + cfg.baseline_cost * bl + cfg.entropy_cost * ent
-    return total, _metrics(total, pg, bl, ent, vs, pg_adv)
+    metrics = _metrics(total, pg, bl, ent, vs, pg_adv)
+    if per_traj:
+        metrics["vtrace/traj_adv_mag"] = torch.mean(torch.abs(pg_adv), dim=1)
+    return total, metrics
 
 
 def _impala_loss_fused(cfg: ImpalaConfig, target_logits, values, batch,

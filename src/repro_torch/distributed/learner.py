@@ -8,12 +8,20 @@ batching, trains, publishes versioned params and reports telemetry.
                      with ``torch.cat``, host (numpy) items go through
                      ``_HostStager``'s pinned staging buffers;
   train step         the fused ``train_step`` (forward, K2 on the card,
-                     backward, clip, RMSProp);
+                     backward, clip, RMSProp); with replay the replay
+                     train step (the target network's values as the
+                     V-trace baseline of replayed rows, K1 on the card);
+  replay             fresh collection capped at ``_fresh_max``, the batch
+                     topped up with replayed trajectories laid first,
+                     priorities re-scored after the update, the fresh
+                     trajectories stored, the target synced every
+                     ``replay_target_period`` updates;
   publish            every update lands in the learner's own
                      ``ParameterStore``, with the CUDA event that marks
                      the published tree as written;
   telemetry          the JAX package's snapshot keys (updates, fps,
-                     batch/lag histograms, queue, actors).
+                     batch/lag histograms, queue, actors, and ``replay``
+                     with replay on).
 
 The optimizer updates the working parameters in place, so every update
 publishes a copy of them (``params.snapshot``): no actor ever reads a
@@ -32,8 +40,14 @@ freed on the learner's thread, and without the mark the caching
 allocator could hand their memory back to the actor's stream while the
 learner's ``torch.cat`` or forward still reads it.
 
-Learner groups (an exchange, SPMD), replay and the flight recorder are
-not ported yet (ROADMAP.md, Queue 1 items 12, 11 and 13).
+With replay, the update's fresh trajectories are copied to the host
+after it, on the learner's stream, with the per-trajectory advantage
+magnitudes that re-score the replayed ones: one wait per update, as the
+reference's read-back of those magnitudes is. ``on_checkpoint`` receives
+host numpy trees in the JAX layout (the checkpoint format's).
+
+Learner groups (an exchange, SPMD) and the flight recorder are not
+ported yet (ROADMAP.md, Queue 1 items 12 and 13).
 """
 from __future__ import annotations
 
@@ -44,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import params as params_lib
+from repro_torch.core import replay as replay_lib
 from repro_torch.core.metrics import EpisodeTracker
 from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.distributed.serde import TrajectoryItem
@@ -92,7 +107,8 @@ def _buckets(max_batch_trajs: int) -> List[int]:
 
 
 def _collect_batch(queue, buckets: List[int], first: TrajectoryItem,
-                   linger_s: float = 0.0) -> List[TrajectoryItem]:
+                   linger_s: float = 0.0,
+                   max_items: Optional[int] = None) -> List[TrajectoryItem]:
     """Starting from ``first`` (already popped), drain the queue up to
     the largest bucket, then trim to the largest power of two that
     fits, requeueing the overflow *at the front, newest first*, so the
@@ -101,9 +117,12 @@ def _collect_batch(queue, buckets: List[int], first: TrajectoryItem,
 
     ``linger_s`` is the learner-side flush deadline: wait up to this
     long for the bucket to fill rather than train on whatever is queued;
-    a full bucket never waits."""
+    a full bucket never waits.
+
+    ``max_items`` (replay path) caps fresh collection below the top
+    bucket: the learner tops the batch up with replayed trajectories."""
     items = [first]
-    cap = buckets[0]
+    cap = buckets[0] if max_items is None else min(max_items, buckets[0])
     deadline = (time.monotonic() + linger_s) if linger_s > 0 else None
     while len(items) < cap:
         nxt = queue.get_nowait()
@@ -247,14 +266,28 @@ class _HostStager:
         return _unflatten(structure, out)
 
 
+def _is_host(tree) -> bool:
+    return isinstance(_flatten(tree)[0][0], np.ndarray)
+
+
 def _stack(items: List[TrajectoryItem],
            stager: Optional[_HostStager] = None) -> PyTree:
     """One batch of the items' trajectories, stacked on the batch axis.
     A single item of tensors passes through; numpy items go through the
-    stager (or, ragged, one concatenate) and land on its device."""
+    stager (or, ragged, one concatenate) and land on its device. Host
+    items (replayed) may lead tensor items (fresh): each group is stacked
+    so, and the two are concatenated, host rows first."""
     datas = [it.data for it in items]
-    host = isinstance(_flatten(datas[0])[0][0], np.ndarray)
-    if len(items) == 1 and not host:
+    host = [_is_host(d) for d in datas]
+    if any(host) and not all(host):
+        n = host.index(False)
+        if any(host[n:]):
+            raise ValueError("host items must come before tensor items")
+        (lead, _), (rest, structure) = (_flatten(_stack(items[:n], stager)),
+                                        _flatten(_stack(items[n:], stager)))
+        return _unflatten(structure, [torch.cat(xs, dim=0)
+                                      for xs in zip(lead, rest)])
+    if len(items) == 1 and not host[0]:
         return datas[0]
     if stager is not None:
         staged = stager.stack(items)
@@ -280,6 +313,32 @@ def _host_leaf(item: TrajectoryItem, key: str) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _to_host(trees: List[PyTree]) -> List[PyTree]:
+    """Numpy copies of tensor trees. Tensors on the card are copied into
+    pinned buffers on the current stream and waited for once, all
+    together."""
+    flat = [_flatten(t) for t in trees]
+    wait = False
+    copies = []
+    for leaves, _ in flat:
+        out = []
+        for x in leaves:
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x, non_blocking=True)
+                x, wait = h, True
+            out.append(x)
+        copies.append(out)
+    if wait:
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    return [_unflatten(structure, [x.detach().numpy()
+                                   if isinstance(x, torch.Tensor) else x
+                                   for x in leaves])
+            for (_, structure), leaves in zip(flat, copies)]
+
+
 def _copy_tree(tree: PyTree) -> PyTree:
     """Detached copies that keep each leaf's ``requires_grad``."""
     return params_lib.tree_map(
@@ -295,7 +354,8 @@ class Learner:
     pool); ``attach`` binds the pool once it exists; ``run`` executes the
     training loop end to end, owning the start/stop/join/close lifecycle.
     ``initial_params`` (the port's tensors on ``device``) are the working
-    parameters, updated in place."""
+    parameters, updated in place; ``initial_opt_state`` (likewise) resumes
+    the optimizer from a checkpoint."""
 
     def __init__(self, *, arch, icfg, num_actions: int, num_envs: int,
                  num_actors: int, transport, seed: int = 0,
@@ -320,10 +380,6 @@ class Learner:
             raise NotImplementedError(
                 "a gradient exchange is not ported yet (ROADMAP.md, Queue 1 "
                 "item 12: learner groups)")
-        if icfg.replay_fraction > 0:
-            raise NotImplementedError(
-                "replay_fraction > 0 is not ported yet (ROADMAP.md, Queue 1 "
-                "item 11: replay learner path)")
         if trace is not None or phase_timing or profile is not None:
             raise NotImplementedError(
                 "the flight recorder is not ported yet (ROADMAP.md, Queue 1 "
@@ -349,8 +405,20 @@ class Learner:
             specs = bb.backbone_specs(arch, num_actions)
             params = params_lib.from_jax(common.init_params(specs, seed),
                                          self.device)
-        self._train_step, opt = learner_lib.build_train_step(
-            arch, icfg, num_actions, vtrace_impl=vtrace_impl)
+        replay_on = icfg.replay_fraction > 0.0
+        if replay_on:
+            # train_step(params, target_params, opt_state, step, batch):
+            # the target is read, never written
+            replay_step, opt = learner_lib.build_replay_train_step(
+                arch, icfg, num_actions, vtrace_impl=vtrace_impl)
+
+            def train_step(params, opt_state, step, batch):
+                return replay_step(params, self._target_params, opt_state,
+                                   step, batch)
+            self._train_step = train_step
+        else:
+            self._train_step, opt = learner_lib.build_train_step(
+                arch, icfg, num_actions, vtrace_impl=vtrace_impl)
         self._params = params
         self._opt_state = (initial_opt_state if initial_opt_state is not None
                            else opt.init(params))
@@ -363,6 +431,27 @@ class Learner:
         self._buckets = _buckets(max_batch_trajs)
         self._stager = _HostStager(self.device)
         self._frames_per_traj = num_envs * icfg.unroll_length
+        self._num_envs = num_envs
+        if replay_on:
+            # the sample stream's identity is (seed, learner_id), as in
+            # the reference
+            self._replay = replay_lib.ReplayBuffer(
+                icfg.replay_capacity, seed=seed, learner_id=learner_id,
+                reuse_limit=icfg.replay_reuse,
+                priority=icfg.replay_priority)
+            self._fresh_max = max(1, int(round(
+                self._buckets[0] * (1.0 - icfg.replay_fraction))))
+            # IMPACT target: a snapshot of the learner params supplies the
+            # V-trace baseline of replayed rows; replaced by the published
+            # snapshot every replay_target_period updates. Never the
+            # working tree, which every update writes in place
+            self._target_params = params_lib.snapshot(params)
+        else:
+            self._replay = None
+            self._fresh_max = None
+            self._target_params = None
+        self._target_syncs = 0
+        self.frames_trained = 0
         self.pool = None
 
         # telemetry: the lag/batch histograms are registry instruments
@@ -381,6 +470,8 @@ class Learner:
         self._first_t0: Optional[float] = None
         self._first_updates0 = 0
         self._first_frames0 = 0
+        self._steady_trained0 = 0
+        self._first_trained0 = 0
         self.metrics: Dict = {}
         reg = self.obs_registry
         reg.register_producer("learner", self._core_telemetry)
@@ -390,6 +481,7 @@ class Learner:
         reg.register_producer(
             "actors", lambda: (self.pool.stats()
                                if self.pool is not None else {}))
+        reg.register_producer("replay", self._replay_telemetry)
 
     # ------------------------------------------------------------------
 
@@ -439,14 +531,40 @@ class Learner:
             "param_raw_bytes": self.store.serialized_raw_bytes,
         }
 
+    def _replay_telemetry(self) -> Optional[Dict]:
+        """The ``replay`` registry producer: None (so omitted from the
+        snapshot) when replay is off, which keeps the pinned key set."""
+        if self._replay is None:
+            return None
+        now = time.monotonic()
+        if self._steady_t0 is not None:
+            dt, t0 = now - self._steady_t0, self._steady_trained0
+        elif self._first_t0 is not None:
+            dt, t0 = now - self._first_t0, self._first_trained0
+        else:
+            dt, t0 = 0.0, 0
+        snap = self._replay.snapshot()
+        snap["fraction"] = self.icfg.replay_fraction
+        snap["fresh_max"] = self._fresh_max
+        snap["frames_trained"] = self.frames_trained
+        # frames the optimizer saw per env frame consumed (1.0 = one-pass
+        # IMPALA; ~1/(1-fraction) in steady state)
+        snap["reuse_ratio"] = (self.frames_trained / self.frames_consumed
+                               if self.frames_consumed else 0.0)
+        snap["trained_frames_per_sec"] = ((self.frames_trained - t0) / dt
+                                          if dt > 0 else 0.0)
+        snap["target_syncs"] = self._target_syncs
+        snap["target_period"] = self.icfg.replay_target_period
+        return snap
+
     def telemetry_snapshot(self) -> Dict:
         """The pinned snapshot key set, assembled from one registry
-        pull."""
+        pull; ``replay`` only with replay on."""
         col = self.obs_registry.collect()
         core = col.get("learner", {})
         lag_hist = col.get("learner.lag_hist", {})
         n_lags = sum(lag_hist.values())
-        return {
+        snap = {
             "learner_updates": core.get("updates", self.updates),
             "frames_consumed": core.get("frames_consumed",
                                         self.frames_consumed),
@@ -467,6 +585,9 @@ class Learner:
             "actor_mode": self.actor_mode,
             "donate": self.donate,
         }
+        if "replay" in col:
+            snap["replay"] = col["replay"]
+        return snap
 
     # ------------------------------------------------------------------
 
@@ -482,6 +603,11 @@ class Learner:
             _record_stream(first.data, self._stream)
         for b in self._buckets:
             warm = _stack([first] * b, self._stager)
+            if self._replay is not None:
+                # the mask is data: all zero warms each bucket's shapes
+                warm = dict(warm)
+                warm["replay_mask"] = torch.zeros(b * self._num_envs,
+                                                  device=self.device)
             self._train_step(_copy_tree(self._params),
                              _copy_tree(self._opt_state), 0, warm)
         self._sync()
@@ -498,14 +624,17 @@ class Learner:
 
     def run(self, steps: int, *, warm_buckets: bool = False,
             on_update: Optional[Callable] = None,
-            should_stop: Optional[Callable[[], bool]] = None
-            ) -> Tuple[Dict, Dict]:
+            should_stop: Optional[Callable[[], bool]] = None,
+            on_checkpoint: Optional[Callable] = None,
+            ckpt_every: int = 0) -> Tuple[Dict, Dict]:
         """Train until ``steps`` total updates (or ``should_stop``).
         Starts the pool, runs the loop, then stops/joins the workers and
         closes the transport. Returns (last metrics, final telemetry).
         ``on_update(update_index, published params, metrics,
         snapshot_fn)`` runs after every update, on the learner's
-        stream."""
+        stream. ``on_checkpoint(update_index, params, opt_state,
+        version)`` runs every ``ckpt_every`` updates, with host numpy
+        trees in the JAX layout."""
         if self.pool is None:
             raise RuntimeError("attach(pool) before run()")
         if self._stream is not None:
@@ -515,7 +644,8 @@ class Learner:
         try:
             with torch.cuda.stream(self._stream):
                 final_telemetry = self._loop(steps, warm_buckets, on_update,
-                                             should_stop)
+                                             should_stop, on_checkpoint,
+                                             ckpt_every)
         finally:
             self.pool.stop()
             self.pool.join()
@@ -526,7 +656,8 @@ class Learner:
         self.pool.raise_errors()
         return self.metrics, final_telemetry
 
-    def _loop(self, steps, warm_buckets, on_update, should_stop) -> Dict:
+    def _loop(self, steps, warm_buckets, on_update, should_stop,
+              on_checkpoint, ckpt_every) -> Dict:
         if warm_buckets:
             self._warm()
         while self.updates < steps:
@@ -536,8 +667,12 @@ class Learner:
             item = self.queue.get(timeout=0.5)
             if item is None:
                 continue
+            # replay caps fresh collection below the top bucket and tops
+            # the batch back up with replayed rows: that is where the
+            # env-frame saving comes from
             items = _collect_batch(self.queue, self._buckets, item,
-                                   self.batch_linger_s)
+                                   self.batch_linger_s,
+                                   max_items=self._fresh_max)
             k = len(items)
             version_now = self.store.version
             for it in items:
@@ -546,11 +681,32 @@ class Learner:
                                     _host_leaf(it, "done"))
                 if self._stream is not None:
                     _record_stream(it.data, self._stream)
-            batch = _stack(items, self._stager)
-            published, self.metrics = self._update_once(batch)
+            samples = self._sample_replay(k, version_now)
+            train_items = ([s.item for s in samples] + items
+                           if samples else items)
+            batch = _stack(train_items, self._stager)
+            if self._replay is not None:
+                # replayed rows sit first in the stacked batch
+                n_rep = len(samples) if samples else 0
+                mask = torch.zeros(len(train_items) * self._num_envs,
+                                   device=self.device)
+                mask[:n_rep * self._num_envs] = 1.0
+                batch = dict(batch)
+                batch["replay_mask"] = mask
+            published, metrics = self._update_once(batch)
+            if self._replay is not None:
+                metrics = self._replay_bookkeeping(metrics, samples, items)
+            self.metrics = metrics
             self.updates += 1
+            if self._replay is not None and \
+                    self.updates % self.icfg.replay_target_period == 0:
+                # IMPACT target sync: the published snapshot, which no
+                # later update writes
+                self._target_params = published
+                self._target_syncs += 1
             self.frames_consumed += k * self._frames_per_traj
-            self.batch_hist[k] += 1
+            self.frames_trained += len(train_items) * self._frames_per_traj
+            self.batch_hist[len(train_items)] += 1
             if self._steady_t0 is None:
                 self._sync()
                 if self._first_t0 is None:
@@ -559,18 +715,68 @@ class Learner:
                     self._first_t0 = time.monotonic()
                     self._first_updates0 = self.updates
                     self._first_frames0 = self.frames_consumed
+                    self._first_trained0 = self.frames_trained
                 if all(f > 0 for f in self.pool.frames):
                     # every worker is past its set-up and producing
                     self._steady_t0 = time.monotonic()
                     self._steady_updates0 = self.updates
                     self._steady_frames0 = self.frames_consumed
+                    self._steady_trained0 = self.frames_trained
             if on_update is not None:
                 on_update(self.updates, published, self.metrics,
                           self.telemetry_snapshot)
+            if on_checkpoint is not None and ckpt_every > 0 and \
+                    self.updates % ckpt_every == 0:
+                on_checkpoint(self.updates, self._host_jax(published),
+                              self.opt_state_host(), self.store.version)
         # snapshot before teardown: pool.join waits out in-flight unrolls
         # and put timeouts, which would pad the steady-state dt
         self._sync()
         return self.telemetry_snapshot()
+
+    def _sample_replay(self, num_fresh: int, version_now: int):
+        """Plan and draw the replayed top-up for a batch of ``num_fresh``
+        online trajectories; None = train pure online this round
+        (replay off, buffer still filling, or starved)."""
+        if self._replay is None:
+            return None
+        n_rep = replay_lib.plan_mix(
+            num_fresh, self._buckets[0], self.icfg.replay_fraction,
+            self._replay.num_sampleable())
+        if n_rep < 1:
+            return None
+        return self._replay.sample_items(n_rep, version_now=version_now)
+
+    def _replay_bookkeeping(self, metrics, samples, fresh_items) -> Dict:
+        """After the update: pop the per-trajectory advantage magnitudes
+        ((B,)-shaped, kept from scalar metric consumers), re-score the
+        replayed slots with them, and store the fresh trajectories with
+        their measured priority and their online pass pre-counted
+        (``uses=1``), so ``replay_reuse`` caps *total* consumptions. The
+        magnitudes and the fresh trajectories come to the host together,
+        with one wait."""
+        metrics = dict(metrics)
+        mags = metrics.pop("vtrace/traj_adv_mag")
+        n_rep = len(samples) if samples else 0
+        host = _to_host([mags] + [it.data for it in fresh_items])
+        # row r of the stacked batch belongs to trajectory r // num_envs
+        per = np.asarray(host[0], np.float64).reshape(
+            n_rep + len(fresh_items), self._num_envs).mean(axis=1)
+        if n_rep:
+            self._replay.update_priorities([s.uid for s in samples],
+                                           per[:n_rep])
+        for j, (it, data) in enumerate(zip(fresh_items, host[1:])):
+            self._replay.add_item(
+                TrajectoryItem(data, it.param_version, it.actor_id,
+                               it.produced_at),
+                priority=float(per[n_rep + j]), uses=1)
+        return metrics
+
+    def _host_jax(self, tree) -> PyTree:
+        """``tree`` as host numpy leaves in the JAX layout, once the
+        learner's stream has written it."""
+        self._sync()
+        return params_lib.to_jax(tree)
 
     # ------------------------------------------------------------------
 
@@ -581,3 +787,8 @@ class Learner:
         if ready is not None:
             ready.synchronize()
         return params_lib.to_jax(params)
+
+    def opt_state_host(self) -> PyTree:
+        """The optimizer state as host numpy leaves in the JAX layout
+        (copies: a checkpoint writer never races a later update)."""
+        return self._host_jax(self._opt_state)

@@ -20,8 +20,9 @@ policy lag the learner observes is **measured** (``lag = version_now -
 version_acted``), not scripted.
 
 Ported: thread actors in unroll mode over the in-process transport, one
-learner, no replay, no checkpoints, no flight recorder. Every other value
-of the JAX runtime's options raises, naming its ROADMAP.md Queue 1 item.
+learner, replay, periodic fleet-v1 checkpoints; no flight recorder and no
+supervision. Every other value of the JAX runtime's options raises,
+naming its ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -49,6 +50,22 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
     if not (0.0 <= icfg.replay_fraction < 1.0):
         raise ValueError(f"replay_fraction must be in [0, 1), got "
                          f"{icfg.replay_fraction}")
+    if icfg.replay_fraction > 0:
+        from repro_torch.core.replay import PRIORITY_MODES
+
+        if icfg.replay_capacity < 1:
+            raise ValueError(f"replay_capacity must be >= 1, got "
+                             f"{icfg.replay_capacity}")
+        if icfg.replay_reuse < 0:
+            raise ValueError(f"replay_reuse must be >= 0 (0 = unlimited),"
+                             f" got {icfg.replay_reuse}")
+        if icfg.replay_priority not in PRIORITY_MODES:
+            raise ValueError(f"replay_priority must be one of "
+                             f"{PRIORITY_MODES}, got "
+                             f"{icfg.replay_priority!r}")
+        if icfg.replay_target_period < 1:
+            raise ValueError(f"replay_target_period must be >= 1, got "
+                             f"{icfg.replay_target_period}")
     if max_batch_trajs < 1:
         raise ValueError(f"max_batch_trajs must be >= 1, got "
                          f"{max_batch_trajs}")
@@ -67,8 +84,6 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
     if transport == "socket" and actor_backend != "remote":
         raise ValueError("transport='socket' requires "
                          "actor_backend='remote'")
-    if icfg.replay_fraction > 0:
-        raise _unported("replay_fraction > 0", 11, "replay learner path")
     if actor_backend != "thread":
         raise _unported(f"actor_backend={actor_backend!r}", 10,
                         "process and socket actor pools")
@@ -183,13 +198,21 @@ def run_async_training(
     ``elastic`` and the ``infer_*`` options only reach paths that are not
     ported (the socket transport, the inference service, supervision), so
     they are accepted and unused; ``wire_codec`` is checked and reported,
-    and no wire uses it, as on the JAX in-process path. ``obs``,
-    ``supervise`` and ``ckpt_dir`` raise, naming their ROADMAP.md item.
+    and no wire uses it, as on the JAX in-process path. ``obs`` and
+    ``supervise`` raise, naming their ROADMAP.md item.
 
     The learner updates its parameters in place and publishes a copy
     each update, whatever ``donate`` says; ``donate`` is only reported in
-    the telemetry (see ``Learner``). ``initial_params`` become the
-    learner's working parameters.
+    the telemetry (see ``Learner``). ``initial_params`` and
+    ``initial_opt_state`` (the port's tensors on ``device``, e.g.
+    ``params.from_jax`` of a checkpoint's trees) become the learner's
+    working state; with ``start_step`` a resumed run continues the
+    version stream and the learning-rate schedule.
+
+    ``ckpt_dir`` with ``ckpt_every > 0`` saves the combined tree
+    ``{"params", "opt"}`` (JAX layout) every ``ckpt_every`` updates, with
+    ``extra={"version", "format": "fleet-v1"}``. The restart epochs of a
+    supervised run join with supervision (ROADMAP.md, Queue 1 item 13).
 
     ``warm_buckets=True`` runs one throwaway update per batch bucket
     before the timed region. ``batch_linger_s`` is the learner's flush
@@ -207,9 +230,6 @@ def run_async_training(
         raise _unported("obs", 13, "observability")
     if supervise:
         raise _unported("supervise", 13, "observability and supervision")
-    if ckpt_dir:
-        raise _unported("ckpt_dir", 7, "checkpoint save/resume")
-    del ckpt_every
     learner = _setup(
         env_name, icfg, num_envs,
         num_actors=num_actors, actor_backend=actor_backend,
@@ -220,6 +240,18 @@ def run_async_training(
         initial_opt_state=initial_opt_state, start_step=start_step,
         donate=donate, wire_codec=wire_codec, vtrace_impl=vtrace_impl,
         spmd_devices=spmd_devices, device=device)
+    on_ckpt = None
+    if ckpt_dir and ckpt_every > 0:
+        from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+        def on_ckpt(step, params, opt_state, version):
+            # a resumed run restores the optimizer moments and the
+            # version stream
+            ckpt_lib.save(ckpt_dir, step,
+                          {"params": params, "opt": opt_state},
+                          extra={"version": int(version),
+                                 "format": "fleet-v1"})
     metrics, final_telemetry = learner.run(
-        steps, warm_buckets=warm_buckets, on_update=on_update)
+        steps, warm_buckets=warm_buckets, on_update=on_update,
+        on_checkpoint=on_ckpt, ckpt_every=ckpt_every)
     return learner.tracker, metrics, final_telemetry

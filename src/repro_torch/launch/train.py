@@ -21,11 +21,22 @@ compute in full float32, as every check of the port does.
       --smoke --steps 30 --log-every 10
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --runtime async --smoke --env catch --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --smoke --replay-fraction 0.5 --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --smoke --steps 30 --ckpt-dir /tmp/ckpt --ckpt-every 10
+
+Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
+both runtimes, in the JAX package's format: a checkpoint either package
+wrote restores in the other. The sync runtime saves and restores params
+only (its optimizer state starts afresh on resume, as the JAX CLI's
+does); the async runtime saves params only and restores those or a
+fleet-v1 checkpoint with its optimizer state and version.
 
 Values of the JAX CLI's flags whose paths are not ported yet (process
 and remote actors, the shm and socket transports, inference-mode actors,
-learner groups and SPMD, replay, checkpoints, token training, envs other
-than catch and bandit) end the run with a ``SystemExit`` that names the
+learner groups and SPMD, supervision, token training, envs other than
+catch and bandit) end the run with a ``SystemExit`` that names the
 ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
@@ -61,7 +72,30 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--correction", default="vtrace",
                    choices=["vtrace", "onestep_is", "eps", "none"])
     p.add_argument("--replay-fraction", type=float, default=0.0,
-                   help="not ported yet: must stay 0")
+                   help="share of each trained batch drawn from the "
+                        "trajectory replay buffer (0 disables replay; "
+                        "the paper's replay experiments use 0.5). The "
+                        "async learner caps fresh collection at "
+                        "(1-fraction) of the batch and tops it up with "
+                        "replayed rows, so env-frame consumption per "
+                        "update drops by the same share")
+    p.add_argument("--replay-capacity", type=int, default=10_000,
+                   help="replay buffer size in trajectories (FIFO ring)")
+    p.add_argument("--replay-reuse", type=int, default=2,
+                   help="K: max TOTAL consumptions per trajectory "
+                        "(online pass included); 0 = unlimited. The "
+                        "IMPACT-style reuse cap")
+    p.add_argument("--replay-priority", default="pertd",
+                   choices=["pertd", "uniform"],
+                   help="replay sampling: 'pertd' draws proportional to "
+                        "the last-seen V-trace advantage magnitude "
+                        "(Ape-X prioritization), 'uniform' is the "
+                        "paper's uniform mix")
+    p.add_argument("--replay-target-period", type=int, default=16,
+                   help="updates between target-network syncs: replayed "
+                        "rows take the target's values as the V-trace "
+                        "baseline (IMPACT), so K reuses chase a fixed "
+                        "target")
     p.add_argument("--reward-clip", default="abs_one")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke config of --arch")
@@ -104,7 +138,16 @@ def _parser() -> argparse.ArgumentParser:
                         "stacked per update, rounded down to a power of "
                         "two (async runtime)")
     p.add_argument("--ckpt-dir", default="",
-                   help="not ported yet: must stay empty")
+                   help="checkpoint directory: a run restores its latest "
+                        "checkpoint and saves every --ckpt-every steps "
+                        "(updates) and at the end")
+    p.add_argument("--ckpt-every", type=int, default=200)
+    p.add_argument("--resume", action="store_true",
+                   help="learner groups only: not ported yet; "
+                        "single-learner runs resume from --ckpt-dir "
+                        "automatically")
+    p.add_argument("--supervise", action="store_true",
+                   help="self-healing fleet mode: not ported yet")
     p.add_argument("--log-every", type=int, default=25)
     p.add_argument("--seed", type=int, default=0)
     return p
@@ -134,10 +177,10 @@ def _unported(flag: str, item: int, name: str) -> SystemExit:
 def _refuse_unported(args) -> None:
     if args.learner_mode == "spmd" and args.runtime != "async":
         raise SystemExit("--learner-mode spmd requires --runtime async")
-    if args.replay_fraction > 0:
-        raise _unported("--replay-fraction > 0", 11, "replay learner path")
-    if args.ckpt_dir:
-        raise _unported("--ckpt-dir", 7, "checkpoint save/resume")
+    if args.supervise:
+        raise _unported("--supervise", 13, "observability and supervision")
+    if args.resume:
+        raise _unported("--resume", 12, "learner groups")
     if args.runtime != "async":
         return
     if args.actor_backend != "thread":
@@ -207,13 +250,28 @@ def train(argv: Optional[List[str]] = None,
         num_actions=env.num_actions, unroll_length=args.unroll,
         learning_rate=args.lr, entropy_cost=args.entropy_cost,
         rmsprop_eps=args.rmsprop_eps, policy_lag=args.policy_lag,
-        correction=args.correction, reward_clip=args.reward_clip)
+        correction=args.correction, replay_fraction=args.replay_fraction,
+        replay_capacity=args.replay_capacity,
+        replay_reuse=args.replay_reuse,
+        replay_priority=args.replay_priority,
+        replay_target_period=args.replay_target_period,
+        reward_clip=args.reward_clip, seed=args.seed)
     if args.runtime == "async":
         return _run_async(args, env, arch, icfg, device, on_update)
     return _run_sync(args, env, arch, icfg, device)
 
 
+def _init_params(arch, env, seed: int, device) -> Dict:
+    from repro_torch import params as params_lib
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    specs = bb.backbone_specs(arch, env.num_actions)
+    return params_lib.from_jax(common.init_params(specs, seed), device)
+
+
 def _run_sync(args, env, arch, icfg, device) -> SyncRun:
+    from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core.driver import sync_loop
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
@@ -223,6 +281,11 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
           f"env={env.name} actions={env.num_actions} runtime=sync")
     print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
                                 if device.type == "cuda" else ""))
+    params = _init_params(arch, env, args.seed, device)
+    start_step = 0
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        params, start_step = ckpt.restore(args.ckpt_dir, params)
+        print(f"restored checkpoint at step {start_step}")
 
     tracker = EpisodeTracker(args.num_envs)
     frames = 0
@@ -231,13 +294,12 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
     t0 = None
     frames0 = 0
     fps = 0.0
-    params: Dict = {}
     metrics: Dict[str, Any] = {}
     batch: Dict = {}
     log: List[Dict[str, float]] = []
     for step, params, metrics, batch in sync_loop(
             env, arch, icfg, args.num_envs, args.steps, tracker, args.seed,
-            device):
+            device, initial_params=params, start_step=start_step):
         frames += args.num_envs * args.unroll
         if t0 is None:
             _sync(device)
@@ -255,6 +317,10 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
                   f"loss={entry['loss']:10.2f} "
                   f"entropy={entry['entropy']:8.1f} "
                   f"fps={fps:7.0f} episodes={len(tracker.completed)}")
+        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(args.ckpt_dir, step + 1, params)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, args.steps, params)
     print(f"final return(100) = {tracker.mean_return():.3f}")
     return SyncRun(params, metrics, batch, arch, icfg, env, fps, log,
                    tracker)
@@ -267,6 +333,8 @@ TELEMETRY_KEYS = ("learner_updates", "frames_consumed", "updates_per_sec",
 
 
 def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
+    from repro_torch import params as params_lib
+    from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.distributed import run_async_training
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
@@ -282,6 +350,22 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
           f"donate={not args.no_donate}")
     print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
                                 if device.type == "cuda" else ""))
+    initial_params, initial_opt, start_step = None, None, 0
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        tree, ck_step, extra = ckpt.load_with_extra(args.ckpt_dir)
+        if (extra or {}).get("format") == "fleet-v1":
+            # full resume: params + optimizer state + version, so the run
+            # continues the monotonic version stream
+            initial_params = params_lib.from_jax(tree["params"], device)
+            initial_opt = params_lib.from_jax(tree["opt"], device,
+                                              requires_grad=False)
+            start_step = int(extra.get("version", ck_step))
+            print(f"restored fleet checkpoint at version {start_step} "
+                  f"(params + optimizer state)")
+        else:
+            initial_params, start_step = ckpt.restore(
+                args.ckpt_dir, _init_params(arch, env, args.seed, device))
+            print(f"restored checkpoint at step {start_step}")
     last_params: List[Dict] = [{}]
 
     def on_update(step, params, metrics, snapshot_fn):
@@ -296,6 +380,9 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
                   f"{q['dropped']}/{q['put_stalls']} "
                   f"learner_fps={tel['frames_per_sec']:7.0f} "
                   f"actor_fps={tel['actors']['actor_fps']:7.0f}")
+        if args.ckpt_dir and step % args.ckpt_every == 0:
+            # params-only saves, as the JAX CLI's without --supervise
+            ckpt.save(args.ckpt_dir, step, params)
         if hook is not None:
             hook(step, params, metrics, snapshot_fn)
 
@@ -306,9 +393,13 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
         max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
         vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
-        on_update=on_update, device=device)
+        initial_params=initial_params, initial_opt_state=initial_opt,
+        start_step=start_step, on_update=on_update, device=device)
+    if args.ckpt_dir and last_params[0]:
+        ckpt.save(args.ckpt_dir, args.steps, last_params[0])
     print(f"final return(100) = {tracker.mean_return():.3f}")
-    print("telemetry:", json.dumps({k: tel[k] for k in TELEMETRY_KEYS},
+    keys = TELEMETRY_KEYS + (("replay",) if "replay" in tel else ())
+    print("telemetry:", json.dumps({k: tel[k] for k in keys},
                                    default=float))
     return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)
 

@@ -30,15 +30,18 @@ Tree = Any
 
 # the kernel of a torso conv layer: conv1/conv2 (shallow), conv and
 # res<b>a/res<b>b in each section (deep), in the whole agent's tree
-# (under ``torso/``) or in a torso tree passed alone
+# (under ``torso/``, itself under any prefix: ``ms/`` of an optimizer
+# state, ``opt/ms/`` or ``params/`` of a combined checkpoint tree) or in
+# a torso tree passed alone
 _TORSO_CONV_KERNEL = re.compile(
-    r"(torso/)?(section\d+/)?(conv\d*|res\d+[ab])/kernel")
+    r"(?:(?:.+/)?torso/)?(section\d+/)?(conv\d*|res\d+[ab])/kernel")
 
 
 def _is_conv_kernel(path: str) -> bool:
     """The path decides, not the rank or the layer's name alone: the
     kernel of a torso conv layer is HWIO, whether the tree is the whole
-    agent (``torso/conv1/kernel``) or the torso itself (``conv1/kernel``).
+    agent (``torso/conv1/kernel``), a tree that holds it under a prefix
+    (``opt/ms/torso/conv1/kernel``) or the torso itself (``conv1/kernel``).
     The token backbones' leaves keep their layout: the stacked dense
     kernels are 4-D too, e.g. ``stack/scan/l0/attn/q/kernel`` of shape
     (layers, d, H, Dh), and the SSM and RG-LRU blocks' depthwise

@@ -38,6 +38,9 @@ def test_port_imports_no_jax_and_no_repro_module():
         "names = [m.name for m in pkgutil.walk_packages("
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "need = {'repro_torch.checkpoint.checkpoint', "
+        "'repro_torch.core.replay', 'repro_torch.distributed.serde'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
@@ -71,8 +74,8 @@ _ASYNC = ["--runtime", "async"]
 
 @pytest.mark.parametrize("argv,match", [
     (_ASYNC + ["--actor-backend", "process"], "item 10"),
-    (["--replay-fraction", "0.5"], "replay"),
-    (["--ckpt-dir", "x"], "ckpt"),
+    (["--supervise"], "item 13"),
+    (["--resume"], "item 12"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
@@ -83,8 +86,8 @@ _ASYNC = ["--runtime", "async"]
     (_ASYNC + ["--actor-mode", "inference"], "item 9"),
     (_ASYNC + ["--learners", "2"], "item 12"),
     (_ASYNC + ["--learner-mode", "spmd"], "item 12"),
-    (_ASYNC + ["--ckpt-dir", "x"], "item 7"),
-    (_ASYNC + ["--replay-fraction", "0.5"], "item 11"),
+    (_ASYNC + ["--supervise"], "item 13"),
+    (_ASYNC + ["--resume"], "item 12"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
