@@ -670,12 +670,14 @@ def phase_checkpoints(dev) -> None:
     written on the card loads into the port on the CPU."""
     import shutil
 
+    import numpy as np
+
     from repro_torch import params as params_lib
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.configs.base import ImpalaConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.data.envs import make_catch
-    from repro_torch.distributed import run_async_training
+    from repro_torch.distributed import run_async_training, runtime
     from repro_torch.launch import train as train_lib
 
     root = ROOT / "build" / "chip_smoke_ckpt"
@@ -709,23 +711,38 @@ def phase_checkpoints(dev) -> None:
         cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
                            learning_rate=6e-4, entropy_cost=0.003,
                            rmsprop_eps=0.01)
-        published = {}
+        kw = dict(num_actors=2, max_batch_trajs=4, seed=0, arch=arch,
+                  device=dev)
+        # the runtime's own set-up and checkpoint writer, driven here so
+        # the learner's state can be read when each checkpoint is written
+        learner = runtime._setup(env, cfg, MAIN_B, **kw)
+        live = {}
 
         def keep(step, params, metrics, snapshot_fn):
             if step % CKPT_EVERY == 0:
-                published[step] = params_lib.to_jax(params)
+                live[step] = (params_lib.to_jax(params),
+                              learner.opt_state_host())
 
-        kw = dict(num_actors=2, max_batch_trajs=4, seed=0, arch=arch,
-                  device=dev)
-        run_async_training(env, cfg, MAIN_B, 2 * CKPT_EVERY, ckpt_dir=d,
-                           ckpt_every=CKPT_EVERY, on_update=keep, **kw)
+        learner.run(2 * CKPT_EVERY, on_update=keep,
+                    on_checkpoint=runtime.fleet_checkpointer(d),
+                    ckpt_every=CKPT_EVERY)
         _no_actor_threads("async checkpoint run")
         tree, step, extra = ckpt.load_with_extra(d)
         if (step, extra) != (2 * CKPT_EVERY, {"version": 2 * CKPT_EVERY,
                                               "format": "fleet-v1"}):
             raise AssertionError(f"async checkpoint: step {step} {extra}")
         _host_equal("async fleet params", tree["params"],
-                    published[2 * CKPT_EVERY])
+                    live[2 * CKPT_EVERY][0])
+        _host_equal("async fleet optimizer state", tree["opt"],
+                    live[2 * CKPT_EVERY][1])
+        earlier, _, _ = ckpt.load_with_extra(d, step=CKPT_EVERY)
+        _host_equal("async fleet optimizer state, first save",
+                    earlier["opt"], live[CKPT_EVERY][1])
+        if all(np.array_equal(a, b) for a, b in zip(
+                params_lib.flatten(earlier["opt"]).values(),
+                params_lib.flatten(tree["opt"]).values())):
+            raise AssertionError("async checkpoint: the optimizer moments "
+                                 "did not move between the two saves")
         params = params_lib.from_jax(tree["params"], dev)
         opt = params_lib.from_jax(tree["opt"], dev, requires_grad=False)
         _host_equal("fleet params on the card", params_lib.to_jax(params),
@@ -746,7 +763,8 @@ def phase_checkpoints(dev) -> None:
         print(f"checkpoints: async runtime wrote fleet-v1 at versions "
               f"{CKPT_EVERY} and {2 * CKPT_EVERY}; resumed, its updates "
               f"ran {seen[0]}-{seen[-1]} to version {tel['param_version']};"
-              f" params and optimizer state restored bit for bit")
+              f" params and optimizer state saved as the learner held "
+              f"them and restored bit for bit")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

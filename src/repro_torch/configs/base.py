@@ -3,7 +3,8 @@
 ``ArchConfig`` keeps only the fields the ported paths read: those of the
 conv-LSTM agents, of the dense token decoders and of the Mamba-2 SSM
 stack (the MoE, RG-LRU, enc-dec and VLM fields join with those blocks).
-``ImpalaConfig`` has every field of the reference.
+``ImpalaConfig`` has every field of the reference but ``seed``, which
+no code reads: the runs take their seed as an argument.
 """
 from __future__ import annotations
 
@@ -90,4 +91,3 @@ class ImpalaConfig:
     rmsprop_momentum: float = 0.0
     rmsprop_eps: float = 0.1
     grad_clip_norm: float = 40.0
-    seed: int = 0

@@ -25,6 +25,15 @@ def small_arch(env) -> ArchConfig:
     return get_smoke_config("impala_shallow").replace(image_hw=env.image_hw)
 
 
+def init_params(arch: ArchConfig, num_actions: int, seed: int = 0,
+                device="cuda") -> Dict:
+    """The agent's initial params from ``seed``: the JAX package's draw,
+    as the port's tensors on ``device``."""
+    specs = bb.backbone_specs(arch, num_actions)
+    return params_lib.from_jax(common.init_params(specs, seed),
+                               torch.device(device))
+
+
 def sync_loop(env, arch: ArchConfig, icfg: ImpalaConfig, num_envs: int,
               steps: int, tracker: EpisodeTracker, seed: int = 0,
               device="cuda", initial_params=None, start_step: int = 0
@@ -39,11 +48,8 @@ def sync_loop(env, arch: ArchConfig, icfg: ImpalaConfig, num_envs: int,
     state starts afresh, as the JAX sync loop's does: its checkpoints
     hold the params only."""
     device = torch.device(device)
-    if initial_params is None:
-        specs = bb.backbone_specs(arch, env.num_actions)
-        initial_params = params_lib.from_jax(common.init_params(specs, seed),
-                                             device)
-    params = initial_params
+    params = (initial_params if initial_params is not None
+              else init_params(arch, env.num_actions, seed, device))
     init_fn, unroll = actor_lib.build_actor(env, arch, icfg, num_envs,
                                             device)
     train_step, opt = learner_lib.build_train_step(arch, icfg,

@@ -152,6 +152,19 @@ def _setup(
     return learner
 
 
+def fleet_checkpointer(ckpt_dir: str) -> Callable:
+    """``Learner.run``'s ``on_checkpoint`` for ``ckpt_dir``: it saves the
+    combined tree ``{"params", "opt"}`` with ``extra={"version",
+    "format": "fleet-v1"}``, so a resumed run restores the optimizer
+    moments and continues the version stream."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+    def on_ckpt(step, params, opt_state, version):
+        ckpt_lib.save(ckpt_dir, step, {"params": params, "opt": opt_state},
+                      extra={"version": int(version), "format": "fleet-v1"})
+    return on_ckpt
+
+
 def run_async_training(
     env_name,
     icfg: ImpalaConfig,
@@ -240,17 +253,8 @@ def run_async_training(
         initial_opt_state=initial_opt_state, start_step=start_step,
         donate=donate, wire_codec=wire_codec, vtrace_impl=vtrace_impl,
         spmd_devices=spmd_devices, device=device)
-    on_ckpt = None
-    if ckpt_dir and ckpt_every > 0:
-        from repro_torch.checkpoint import checkpoint as ckpt_lib
-
-        def on_ckpt(step, params, opt_state, version):
-            # a resumed run restores the optimizer moments and the
-            # version stream
-            ckpt_lib.save(ckpt_dir, step,
-                          {"params": params, "opt": opt_state},
-                          extra={"version": int(version),
-                                 "format": "fleet-v1"})
+    on_ckpt = (fleet_checkpointer(ckpt_dir)
+               if ckpt_dir and ckpt_every > 0 else None)
     metrics, final_telemetry = learner.run(
         steps, warm_buckets=warm_buckets, on_update=on_update,
         on_checkpoint=on_ckpt, ckpt_every=ckpt_every)

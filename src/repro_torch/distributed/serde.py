@@ -27,7 +27,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import struct
-import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -209,8 +208,10 @@ def decode_tree(buf: bytes, copy: bool = False
 
 
 def encode_item(item: TrajectoryItem, codec: str = DEFAULT_CODEC) -> bytes:
-    """``item.data`` and its provenance (``host`` is not encoded: decoded
-    data is on the host already)."""
+    """``item.data`` and its provenance. ``host`` is not encoded (decoded
+    data is on the host already), nor is ``trace``: the flight recorder
+    that stamps it joins with observability (ROADMAP.md, Queue 1 item
+    13)."""
     check_codec(codec)
     meta = {
         "param_version": int(item.param_version),
@@ -219,11 +220,6 @@ def encode_item(item: TrajectoryItem, codec: str = DEFAULT_CODEC) -> bytes:
     }
     chunks: List[bytes] = []
     spec, _ = _encode_node(item.data, chunks, 0, "$")
-    if item.trace is not None:
-        # stamp the encode-end time ("e1") after the payload bytes exist
-        trace = dict(item.trace)
-        trace["e1"] = time.monotonic()
-        meta["trace"] = trace
     return _pack(spec, meta, chunks)
 
 

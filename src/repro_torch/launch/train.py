@@ -24,7 +24,7 @@ compute in full float32, as every check of the port does.
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --runtime async --smoke --replay-fraction 0.5 --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
-      --smoke --steps 30 --ckpt-dir /tmp/ckpt --ckpt-every 10
+      --smoke --steps 30 --ckpt-dir build/ckpt --ckpt-every 10
 
 Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
 both runtimes, in the JAX package's format: a checkpoint either package
@@ -255,24 +255,15 @@ def train(argv: Optional[List[str]] = None,
         replay_reuse=args.replay_reuse,
         replay_priority=args.replay_priority,
         replay_target_period=args.replay_target_period,
-        reward_clip=args.reward_clip, seed=args.seed)
+        reward_clip=args.reward_clip)
     if args.runtime == "async":
         return _run_async(args, env, arch, icfg, device, on_update)
     return _run_sync(args, env, arch, icfg, device)
 
 
-def _init_params(arch, env, seed: int, device) -> Dict:
-    from repro_torch import params as params_lib
-    from repro_torch.models import backbone as bb
-    from repro_torch.models import common
-
-    specs = bb.backbone_specs(arch, env.num_actions)
-    return params_lib.from_jax(common.init_params(specs, seed), device)
-
-
 def _run_sync(args, env, arch, icfg, device) -> SyncRun:
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.core.driver import sync_loop
+    from repro_torch.core.driver import init_params, sync_loop
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
 
@@ -281,7 +272,7 @@ def _run_sync(args, env, arch, icfg, device) -> SyncRun:
           f"env={env.name} actions={env.num_actions} runtime=sync")
     print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
                                 if device.type == "cuda" else ""))
-    params = _init_params(arch, env, args.seed, device)
+    params = init_params(arch, env.num_actions, args.seed, device)
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
         params, start_step = ckpt.restore(args.ckpt_dir, params)
@@ -335,6 +326,7 @@ TELEMETRY_KEYS = ("learner_updates", "frames_consumed", "updates_per_sec",
 def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     from repro_torch import params as params_lib
     from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.driver import init_params
     from repro_torch.distributed import run_async_training
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
@@ -364,7 +356,8 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
                   f"(params + optimizer state)")
         else:
             initial_params, start_step = ckpt.restore(
-                args.ckpt_dir, _init_params(arch, env, args.seed, device))
+                args.ckpt_dir,
+                init_params(arch, env.num_actions, args.seed, device))
             print(f"restored checkpoint at step {start_step}")
     last_params: List[Dict] = [{}]
 

@@ -231,10 +231,32 @@ def test_async_cli_resumes_a_fleet_checkpoint(tmp_path, capsys):
 
 
 def test_fleet_checkpoint_opt_state_is_the_learners(tmp_path):
-    """The saved optimizer state is the learner's (JAX layout), and a
-    fleet checkpoint of the full-width agent keeps its conv kernels HWIO
-    in both halves."""
+    """The saved optimizer state is the learner's (JAX layout): each
+    fleet-v1 save holds the moments the learner had after that update,
+    and they move between saves. A fleet checkpoint of the full-width
+    agent keeps its conv kernels HWIO in both halves."""
     from repro_torch.distributed import learner as t_learner
+    from repro_torch.distributed import runtime
+
+    d = str(tmp_path / "ckpt")
+    learner = runtime._setup("bandit", _icfg(), 4, num_actors=1,
+                             max_batch_trajs=2, seed=0, device="cpu")
+    live = {}
+
+    def keep(step, params, metrics, snapshot_fn):
+        live[step] = (P.to_jax(params), learner.opt_state_host())
+
+    learner.run(4, on_update=keep,
+                on_checkpoint=runtime.fleet_checkpointer(d), ckpt_every=2)
+    saved = {}
+    for step in (2, 4):
+        tree, got_step, extra = j_ckpt.load_with_extra(d, step=step)
+        assert (got_step, extra) == (step, {"version": step,
+                                            "format": "fleet-v1"})
+        _assert_trees_equal(tree["params"], live[step][0])
+        _assert_trees_equal(tree["opt"], live[step][1])
+        saved[step] = jax.tree.leaves(tree["opt"])
+    assert any(np.any(a != b) for a, b in zip(saved[2], saved[4]))
 
     arch = "impala-shallow"
     fleet = _fleet(arch)
