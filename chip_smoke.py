@@ -37,9 +37,9 @@ exception and a nonzero exit:
    actor thread may outlive the run.
 6b. Async learning bar: the JAX package's acceptance configuration for
    thread actors (tests/test_process_actors.py: smoke impala-shallow, 32
-   envs, unroll 20, 400 updates, 2 actor threads, queue 8/block, batches
-   of up to 4); the last 100 returns above the first 500 by more than
-   0.15, and above -0.3.
+   envs, unroll 20, ``BAR_STEPS`` = 400 updates, 2 actor threads, queue
+   8/block, batches of up to 4); the last 100 returns above the first
+   500 by more than 0.15, and above -0.3.
 6c. The async path with replay: ``repro_torch.launch.train --runtime async
    --replay-fraction 0.5 --replay-reuse 2``, else as 6a, for
    ``ASYNC_STEPS`` updates. Every update trains on the replay loss, so K1
@@ -59,6 +59,36 @@ exception and a nonzero exit:
    (params, optimizer state, version), resumed with its versions
    continuing. Restored trees equal the saved ones bit for bit, on the
    card and loaded on the CPU.
+6g. Envs on the card: rooms, tmaze and chase, 32 envs each, 200 steps
+   from the same actions and draws on the card and on the CPU; every
+   state, token, image, reward and done equal.
+6h. Chase at full width through the sync CLI (impala-shallow, 32 envs,
+   unroll 20) for ``CHASE_SYNC_STEPS`` steps: K2 once a step at (20, 32,
+   5) and K1 never; frames/s beside catch's from phase 5.
+6i. Chase through the async CLI with replay (fraction 0.5, reuse 2), as
+   6c, for ``CHASE_ASYNC_STEPS`` updates: K1 once an update at (20, 32k)
+   and K2 never; frames/s and the card's busy share of a window.
+6j. Inference mode at full width: ``--runtime async --actor-mode
+   inference`` on catch (2 logical actors, 32 envs, unroll 20, queue
+   8/block, batches of up to 4) for ``ASYNC_STEPS`` updates, K2 once an
+   update; learner frames/s beside phase 6a's unroll mode with the same
+   settings in the same run, the service's telemetry (flushes, batch
+   sizes, requests, queue wait), lag, and the card's busy share of a
+   window of updates.
+6k. Inference learning bar: the JAX package's thread-backend inference
+   acceptance configuration
+   (tests/test_inference_service.py::
+   test_inference_mode_learns_on_catch_both_backends: smoke
+   impala-shallow, catch, 32 envs, unroll 20, ``BAR_STEPS`` updates, lr
+   6e-4): last 100 above the first 500 by more than 0.15, and above
+   -0.3, with flushes and measured lag.
+6l. Multi-task: ``train_multitask`` on catch+bandit+tmaze at full width,
+   8 envs a task, ``MULTITASK_STEPS`` steps (K2 at (16, 24, 4)), and each
+   task's expert; every score and the mean capped normalised scores.
+6m. PBT: ``run_pbt`` (pop 4, 2 rounds of 20 steps, catch+bandit, full
+   width): a member that copied in round 0 trains on its copy in round 1
+   while the member it copied from stays bit for bit as it was; and a
+   forced exploit's copy, trained one step, leaves its source untouched.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
@@ -161,13 +191,24 @@ LOGITS_RTOL = 0.05
 MAIN_STEPS = 200
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
-ASYNC_STEPS = 400
-ASYNC_ARGV = ["--device", "cuda", "--runtime", "async", "--env", "catch",
-              "--arch", "impala-shallow", "--actor-threads", "2",
-              "--max-batch-trajs", "4", "--steps", str(ASYNC_STEPS),
-              "--log-every", "100"]
+# the full-width async runs (phases 6a, 6c, 6j: unroll mode, replay,
+# inference mode, with the same settings); the JAX acceptance bars
+# (phases 6b, 6k) keep their 400 updates
+ASYNC_STEPS, BAR_STEPS = 200, 400
+
+
+def _async_argv(env: str, steps: int, *extra: str):
+    """The async CLI at full width: 2 actor threads, batches of up to 4
+    trajectories, the CLI's queue of 8 with ``block``."""
+    return ["--device", "cuda", "--runtime", "async", "--env", env,
+            "--arch", "impala-shallow", "--actor-threads", "2",
+            "--max-batch-trajs", "4", "--steps", str(steps),
+            "--log-every", "100", *extra]
+
+
+ASYNC_ARGV = _async_argv("catch", ASYNC_STEPS)
 # the steady updates timed, then profiled, near the end of phase 6a's run
-ASYNC_WINDOW = 20
+ASYNC_WINDOW = 10
 # the async path with replay at the paper's half (phase 6c)
 REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
                             "2"]
@@ -177,6 +218,16 @@ SYNC_REPLAY_STEPS = 50
 CKPT_EVERY = 10
 # tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
+# slice 8: the new envs, chase at full width, inference mode, multi-task
+ENV_B, ENV_STEPS = 32, 200
+CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, 200
+CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
+                                "--replay-fraction", "0.5",
+                                "--replay-reuse", "2")
+INFER_ARGV = ASYNC_ARGV + ["--actor-mode", "inference"]
+MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
+    ("catch", "bandit", "tmaze"), 60, 8)
+PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -189,7 +240,10 @@ K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256), (20, 64),
 # (20, 64, 3) and (20, 128, 3): the async learner's batches of 2 and 4
 # trajectories of 32 envs
 K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 32, 9), (100, 256, 18),
-             (16, 8, 130), (20, 64, 3), (20, 128, 3)]
+             (16, 8, 130), (20, 64, 3), (20, 128, 3),
+             # chase's and rooms' 5 actions, one trajectory and four;
+             # the catch+bandit+tmaze multi-task step (a partial tile)
+             (20, 32, 5), (20, 128, 5), (16, 24, 4)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
 # K1/K2 timed at the main path's shape, the paper's DMLab learner shape
 # (unroll 100, batch 32, 9 actions), a large one and the batches of 2 and 4
@@ -452,14 +506,15 @@ def _no_actor_threads(what: str) -> None:
     issuing work on the card, into later phases and the interpreter's
     exit."""
     alive = [t.name for t in threading.enumerate()
-             if t.name.startswith("actor-")]
+             if t.name.startswith(("actor-", "inference-driver"))]
     if alive:
         raise AssertionError(f"{what}: actor threads {alive} outlive the run")
 
 
-def _async_run(vk, argv):
-    """``repro_torch.launch.train`` with ``argv`` for ``ASYNC_STEPS``
-    updates, the launch counts zeroed just before and read just after.
+def _async_run(vk, argv, steps: int = ASYNC_STEPS):
+    """``repro_torch.launch.train`` with ``argv`` for ``steps`` updates
+    (its ``--steps``), the launch counts zeroed just before and read just
+    after.
     Near its end ``ASYNC_WINDOW`` updates are timed on the host clock
     between two synchronises, then as many run under ``torch.profiler``.
     Returns (run, launches, telemetry read before the window, unprofiled
@@ -469,7 +524,7 @@ def _async_run(vk, argv):
     from repro_torch.launch import train as train_lib
 
     w = ASYNC_WINDOW
-    first = ASYNC_STEPS - 3 * w
+    first = steps - 3 * w
     marks, before = {}, {}
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
@@ -542,44 +597,45 @@ def phase_async(vk, dev):
           + ("clears" if cleared else "misses")
           + " phase 6b's bar (this full-width run is not held to it)")
     _print_busy("async update", prof, ASYNC_WINDOW, update_ms)
-    return launches
+    return launches, before
 
 
-def phase_async_replay(vk, dev):
+def phase_async_replay(vk, dev, argv=REPLAY_ARGV, steps: int = ASYNC_STEPS,
+                       what: str = "async replay"):
     """The async path with replay at full width (fraction 0.5, reuse 2):
     every update trains on the replay loss, so K1 launches exactly once an
-    update and K2 never."""
-    run, launches, before, update_ms, prof = _async_run(vk, REPLAY_ARGV)
+    update and K2 never. Returns the launches and the learner frames/s."""
+    run, launches, before, update_ms, prof = _async_run(vk, argv, steps)
     tel = run.telemetry
     rp = tel["replay"]
     got = (tel["learner_updates"], tel["param_version"],
            launches["vtrace"], launches["loss_vtrace"])
-    if got != (ASYNC_STEPS, ASYNC_STEPS, ASYNC_STEPS, 0):
-        raise AssertionError(f"async replay: (updates, version, K1 "
-                             f"launches, K2 launches) {got}; expected "
-                             f"{(ASYNC_STEPS,) * 3 + (0,)}")
+    if got != (steps, steps, steps, 0):
+        raise AssertionError(f"{what}: (updates, version, K1 launches, K2 "
+                             f"launches) {got}; expected "
+                             f"{(steps,) * 3 + (0,)}")
     loss = float(run.metrics["loss/total"])
     if not math.isfinite(loss) or "vtrace/traj_adv_mag" in run.metrics:
-        raise AssertionError(f"async replay final metrics {run.metrics}")
+        raise AssertionError(f"{what} final metrics {run.metrics}")
     moved = _params_moved(run, dev)
     frames_per_traj = MAIN_B * MAIN_T
     trained = sum(int(k) * n for k, n in tel["batch_size_hist"].items())
     if not (rp["sampled"] > 0 and rp["fresh_max"] == 2
             and rp["frames_trained"] == trained * frames_per_traj
             and rp["staleness"]["measured"] == rp["sampled"]
-            and rp["target_syncs"] == ASYNC_STEPS // 16):
-        raise AssertionError(f"async replay telemetry {rp}")
-    print(f"async replay: {ASYNC_STEPS} updates, K1 launches "
+            and rp["target_syncs"] == steps // 16):
+        raise AssertionError(f"{what} telemetry {rp}")
+    print(f"{what}: {run.env.name}, {steps} updates, K1 launches "
           f"{launches['vtrace']} K2 {launches['loss_vtrace']}, final loss "
           f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
-    print(f"async replay: sampled {rp['sampled']}, reuse_ratio "
+    print(f"{what}: sampled {rp['sampled']}, reuse_ratio "
           f"{rp['reuse_ratio']:.4f}, target_syncs {rp['target_syncs']} "
           f"(period {rp['target_period']}), fresh_max {rp['fresh_max']}, "
           f"occupancy {rp['occupancy']}, evicted exhausted "
           f"{rp['evicted_exhausted']}, staleness mean "
           f"{rp['staleness']['mean']:.3f} max {rp['staleness']['max']}; "
           f"batch sizes {dict(sorted(tel['batch_size_hist'].items()))}")
-    print(f"async replay: learner frames/s {before['frames_per_sec']:.0f} "
+    print(f"{what}: learner frames/s {before['frames_per_sec']:.0f} "
           f"(env frames consumed), trained frames/s "
           f"{before['replay']['trained_frames_per_sec']:.0f}, actor "
           f"frames/s {before['actors']['actor_fps']:.0f}, updates/s "
@@ -587,8 +643,8 @@ def phase_async_replay(vk, dev):
           f"{tel['lag']['mean']:.3f}; "
           f"{len(run.tracker.completed)} episodes, last 100 mean "
           f"{run.tracker.mean_return(100):.3f}")
-    _print_busy("async replay update", prof, ASYNC_WINDOW, update_ms)
-    return launches
+    _print_busy(f"{what} update", prof, ASYNC_WINDOW, update_ms)
+    return launches, before["frames_per_sec"]
 
 
 def phase_replay_bar(dev) -> float:
@@ -783,14 +839,14 @@ def phase_async_bar(dev) -> float:
                        learning_rate=6e-4, entropy_cost=0.003,
                        rmsprop_eps=0.01)
     tracker, metrics, tel = run_async_training(
-        "catch", cfg, num_envs=32, steps=ASYNC_STEPS, num_actors=2,
+        "catch", cfg, num_envs=32, steps=BAR_STEPS, num_actors=2,
         queue_capacity=8, queue_policy="block", max_batch_trajs=4, seed=0,
         arch=arch, device=dev)
     _no_actor_threads("async learning run")
     returns = tracker.completed
     early = float(sum(returns[:500])) / len(returns[:500])
     late = tracker.mean_return(100)
-    if not (tel["learner_updates"] == tel["param_version"] == ASYNC_STEPS
+    if not (tel["learner_updates"] == tel["param_version"] == BAR_STEPS
             and math.isfinite(float(metrics["loss/total"]))
             and tel["lag"]["max"] > 0):
         raise AssertionError(f"async learning run: {tel['learner_updates']} "
@@ -806,6 +862,288 @@ def phase_async_bar(dev) -> float:
           f"{dict(sorted(tel['batch_size_hist'].items()))}, learner "
           f"frames/s {tel['frames_per_sec']:.0f}")
     return late
+
+
+# ---------------------------------------------------------------------------
+# slice 8: rooms, tmaze and chase; inference mode; multi-task and PBT
+
+
+def _to(tree, dev):
+    """A NamedTuple tree of tensors, moved to ``dev``."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to(x, dev) for x in tree))
+    return tree.to(dev)
+
+
+def _equal_on_host(what: str, got, want) -> None:
+    """Two NamedTuple trees of tensors (one on the card), equal exactly."""
+    for name, g, w in zip(want._fields, got, want):
+        if isinstance(w, tuple):
+            _equal_on_host(f"{what}.{name}", g, w)
+        elif g.dtype != w.dtype or not torch.equal(g.cpu(), w):
+            raise AssertionError(f"{what}: {name} differs between the card "
+                                 f"and the CPU")
+
+
+def phase_envs(dev) -> None:
+    """rooms, tmaze and chase on the card against the CPU: the same
+    actions and draws (made on the CPU, copied to the card), every
+    state and TimeStep field equal at every step."""
+    from repro_torch.data.envs import make_env
+
+    for n, name in enumerate(("rooms", "tmaze", "chase")):
+        env = make_env(name)
+        gen = torch.Generator().manual_seed(100 + n)
+        s_cpu = env.reset(ENV_B, gen, "cpu")
+        s_dev = _to(s_cpu, dev)
+        _equal_on_host(f"{name} observe", env.observe(s_dev),
+                       env.observe(s_cpu))
+        dones, reward = 0, 0.0
+        for i in range(ENV_STEPS):
+            action = torch.randint(0, env.num_actions, (ENV_B,),
+                                   generator=gen)
+            draws = env.draw(ENV_B, gen, "cpu")
+            s_cpu, ts_cpu = env.step(s_cpu, action, draws)
+            s_dev, ts_dev = env.step(s_dev, action.to(dev), _to(draws, dev))
+            _equal_on_host(f"{name} step {i} state", s_dev, s_cpu)
+            _equal_on_host(f"{name} step {i} TimeStep", ts_dev, ts_cpu)
+            dones += int(ts_cpu.done.sum())
+            reward += float(ts_cpu.reward.sum())
+        print(f"envs: {name} x {ENV_B} on the card, {ENV_STEPS} steps equal "
+              f"to the CPU in every field (state, token, image, reward, "
+              f"done); {dones} episode ends, total reward {reward:.2f}")
+
+
+def phase_chase_sync(vk, catch_fps: float) -> int:
+    """Chase through the sync CLI at full width: K2 once a step at
+    (20, 32, 5), K1 never."""
+    from repro_torch.launch import train as train_lib
+
+    vk.reset_launch_counts()
+    run = train_lib.train(["--device", "cuda", "--env", "chase", "--steps",
+                           str(CHASE_SYNC_STEPS), "--log-every",
+                           str(CHASE_SYNC_STEPS // 2)])
+    torch.cuda.synchronize()
+    got = (vk.loss_vtrace.launches, vk.vtrace.launches)
+    if got != (CHASE_SYNC_STEPS, 0) or run.env.num_actions != 5 or \
+            not math.isfinite(float(run.metrics["loss/total"])):
+        raise AssertionError(f"chase sync: (K2, K1) launches {got} in "
+                             f"{CHASE_SYNC_STEPS} steps, final loss "
+                             f"{float(run.metrics['loss/total'])}")
+    print(f"chase sync: {CHASE_SYNC_STEPS} steps, K2 launches {got[0]} K1 "
+          f"{got[1]}, frames/s {run.fps:.0f} against catch's {catch_fps:.0f}"
+          f" (phase 5), final loss {float(run.metrics['loss/total']):.4f}, "
+          f"return(100) {run.tracker.mean_return():.3f} over "
+          f"{len(run.tracker.completed)} episodes")
+    return got[0]
+
+
+def phase_inference(vk, dev, unroll_before) -> int:
+    """Inference mode at full width on catch, K2 once an update; its
+    learner frames/s beside phase 6a's unroll mode, the service's
+    telemetry, lag, and the card's busy share of a window."""
+    run, launches, before, update_ms, prof = _async_run(vk, INFER_ARGV)
+    tel = run.telemetry
+    inf = tel["inference"]
+    lag = tel["lag"]
+    got = (tel["learner_updates"], tel["param_version"],
+           launches["loss_vtrace"], launches["vtrace"])
+    if got != (ASYNC_STEPS, ASYNC_STEPS, ASYNC_STEPS, 0):
+        raise AssertionError(f"inference mode: (updates, version, K2 "
+                             f"launches, K1 launches) {got}; expected "
+                             f"{(ASYNC_STEPS,) * 3 + (0,)}")
+    loss = float(run.metrics["loss/total"])
+    if not (math.isfinite(loss) and tel["actor_mode"] == "inference"
+            and inf["flushes"] > 0 and lag["max"] > 0
+            and lag["measured"] * MAIN_B * MAIN_T == tel["frames_consumed"]
+            and sum(inf["batch_size_hist"].values()) == inf["flushes"]):
+        raise AssertionError(f"inference mode: loss {loss}, lag {lag}, "
+                             f"inference {inf}")
+    moved = _params_moved(run, dev)
+    print(f"inference mode: {ASYNC_STEPS} updates, K2 launches "
+          f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
+          f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
+    print(f"inference mode: learner frames/s {before['frames_per_sec']:.0f},"
+          f" actor frames/s {before['actors']['actor_fps']:.0f}, updates/s "
+          f"{before['updates_per_sec']:.2f}; unroll mode (phase 6a, same "
+          f"process) learner frames/s {unroll_before['frames_per_sec']:.0f},"
+          f" actor frames/s {unroll_before['actors']['actor_fps']:.0f}")
+    print(f"inference service: flushes {inf['flushes']} (full "
+          f"{inf['flush_full']}, ready {inf['flush_ready']}, timeout "
+          f"{inf['flush_timeout']}), batch sizes {inf['batch_size_hist']}, "
+          f"mean batch {inf['mean_batch']:.3f} requests, requests "
+          f"{inf['requests']}, padded {inf['padded_requests']}, frames "
+          f"{inf['frames']}, queue wait p50 {inf['queue_wait_ms_p50']:.3f} "
+          f"ms p95 {inf['queue_wait_ms_p95']:.3f} ms (bucket upper bounds);"
+          f" lag mean {lag['mean']:.3f} max {lag['max']} over "
+          f"{lag['measured']} trajectories; batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}")
+    _print_busy("inference-mode update", prof, ASYNC_WINDOW, update_ms)
+    return launches["loss_vtrace"]
+
+
+def phase_inference_bar(dev) -> float:
+    """tests/test_inference_service.py's acceptance run, thread backend,
+    on the card, held to that test's bar."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.envs import make_catch
+    from repro_torch.distributed import run_async_training
+
+    env = make_catch()
+    arch = get_smoke_config("impala-shallow").replace(image_hw=env.image_hw)
+    cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
+                       learning_rate=6e-4, entropy_cost=0.003,
+                       rmsprop_eps=0.01)
+    tracker, metrics, tel = run_async_training(
+        "catch", cfg, num_envs=32, steps=BAR_STEPS, num_actors=2,
+        actor_backend="thread", actor_mode="inference", transport="inproc",
+        queue_capacity=8, queue_policy="block", max_batch_trajs=4, seed=0,
+        arch=arch, device=dev)
+    _no_actor_threads("inference learning run")
+    returns = tracker.completed
+    early = float(sum(returns[:500])) / len(returns[:500])
+    late = tracker.mean_return(100)
+    if not (tel["learner_updates"] == BAR_STEPS
+            and math.isfinite(float(metrics["loss/total"]))
+            and tel["lag"]["measured"] > 0 and tel["lag"]["max"] > 0
+            and tel["inference"]["flushes"] > 0):
+        raise AssertionError(f"inference learning run: "
+                             f"{tel['learner_updates']} updates, lag "
+                             f"{tel['lag']}, inference {tel['inference']}")
+    if not (late > early + CATCH_CLIMB and late > CATCH_LATE):
+        raise AssertionError(f"inference catch: last 100 mean {late:.3f}, "
+                             f"first 500 mean {early:.3f}; the bar is a "
+                             f"climb of more than {CATCH_CLIMB} to above "
+                             f"{CATCH_LATE}")
+    print(f"inference learning bar: catch (smoke impala-shallow, thread "
+          f"backend) last 100 mean {late:.3f} > first 500 mean {early:.3f} "
+          f"+ {CATCH_CLIMB}, and > {CATCH_LATE}; {len(returns)} episodes, "
+          f"flushes {tel['inference']['flushes']}, lag mean "
+          f"{tel['lag']['mean']:.3f} max {tel['lag']['max']}, learner "
+          f"frames/s {tel['frames_per_sec']:.0f}")
+    return late
+
+
+def phase_multitask(vk, dev) -> int:
+    """``train_multitask`` on catch+bandit+tmaze at full width (K2 at
+    (16, 24, 4)) and each task's expert; the scores and the mean capped
+    normalised scores. No bar, as in the reference benchmark."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.driver import TASK_REFS, train_multitask
+    from repro_torch.core.metrics import capped_normalised_score
+
+    arch = get_config("impala-shallow")
+    tasks = list(MULTITASK_TASKS)
+    vk.reset_launch_counts()
+    t0 = time.perf_counter()
+    multi = train_multitask(tasks, MULTITASK_STEPS, MULTITASK_ENVS, seed=0,
+                            arch=arch, device=dev)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    multi_k2 = vk.loss_vtrace.launches
+    experts = {t: train_multitask([t], MULTITASK_STEPS, MULTITASK_ENVS,
+                                  seed=0, arch=arch, device=dev)[t]
+               for t in tasks}
+    torch.cuda.synchronize()
+    k2 = vk.loss_vtrace.launches
+    want = (MULTITASK_STEPS, (1 + len(tasks)) * MULTITASK_STEPS)
+    scores = list(multi.values()) + list(experts.values())
+    if (multi_k2, k2) != want or vk.vtrace.launches or \
+            not all(math.isfinite(x) for x in scores):
+        raise AssertionError(f"multi-task: K2 launches {multi_k2}, {k2} "
+                             f"(expected {want}), K1 {vk.vtrace.launches}, "
+                             f"scores {multi} {experts}")
+    rnd = [TASK_REFS[t][0] for t in tasks]
+    top = [TASK_REFS[t][1] for t in tasks]
+    m_score = capped_normalised_score([multi[t] for t in tasks], top, rnd)
+    e_score = capped_normalised_score([experts[t] for t in tasks], top, rnd)
+    for t in tasks:
+        print(f"multi-task {t}: multi {multi[t]:.3f} expert "
+              f"{experts[t]:.3f}")
+    print(f"multi-task: mean capped normalised score multi {m_score:.3f} "
+          f"experts {e_score:.3f}; {MULTITASK_STEPS} steps, "
+          f"{MULTITASK_ENVS} envs a task, impala-shallow at full width; the "
+          f"multi-task run {multi_s:.2f} s ({MULTITASK_STEPS} K2 launches "
+          f"at (16, {MULTITASK_ENVS * len(tasks)}, 4)), {k2} K2 launches "
+          f"in all")
+    return k2
+
+
+def phase_pbt(vk, dev) -> int:
+    """``run_pbt`` at full width; an exploit copies, never aliases."""
+    import numpy as np
+
+    from repro_torch import params as params_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core import driver
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.pbt import PBTController
+
+    seen = {}
+
+    def before_turn(rnd, i, weights):
+        seen[(rnd, i)] = [params_lib.flatten(params_lib.to_jax(w))
+                          for w in weights]
+
+    vk.reset_launch_counts()
+    pbt, weights, history = driver.run_pbt(
+        pop=PBT_POP, rounds=PBT_ROUNDS, steps_per_round=PBT_STEPS,
+        arch=get_config("impala-shallow"), device=dev,
+        before_turn=before_turn)
+    torch.cuda.synchronize()
+    k2 = vk.loss_vtrace.launches
+    want = PBT_POP * PBT_ROUNDS * 2 * PBT_STEPS
+    if k2 != want or not all(math.isfinite(m.fitness) for m in pbt.members):
+        raise AssertionError(f"PBT: K2 launches {k2} (expected {want}), "
+                             f"fitness {[m.fitness for m in pbt.members]}")
+    copies = [(h["round"], h["member"], h["copied_from"]) for h in history
+              if h["round"] < PBT_ROUNDS - 1 and h["copied_from"] is not None]
+    for rnd, i, src in copies:
+        # the copy's next turn is in the next round
+        start, end = seen[(rnd + 1, i)], seen[(rnd + 1, i + 1)]
+        if all(np.array_equal(end[i][k], v) for k, v in start[i].items()):
+            raise AssertionError(f"PBT: member {i} did not train in round "
+                                 f"{rnd + 1}")
+        for k, v in start[src].items():
+            if not np.array_equal(end[src][k], v):
+                raise AssertionError(f"PBT: member {src}'s {k} changed "
+                                     f"while member {i} trained its copy "
+                                     f"in round {rnd + 1}")
+    # a forced exploit: member 1 is better by far, so member 0 copies it
+    # at once; the copy then trains one step and its source stays put
+    forced = PBTController(pop_size=2, seed=0)
+    forced.report_fitness(0, -1.0)
+    forced.report_fitness(1, 1.0)
+    pair = [weights[0], weights[1]]
+    if not forced.exploit_explore(0, 0, pair)[1]:
+        raise AssertionError("PBT: the forced exploit did not copy")
+    source = params_lib.flatten(params_lib.to_jax(pair[1]))
+    copy = params_lib.flatten(params_lib.to_jax(pair[0]))
+    if any(not np.array_equal(copy[k], v) for k, v in source.items()):
+        raise AssertionError("PBT: the copy differs from its source")
+    envs, arch, num_actions = driver.padded_suite(("catch", "bandit"),
+                                            get_config("impala-shallow"))
+    cfg = driver.multitask_config(num_actions)
+    init_fn, unroll = actor_lib.build_actor(envs[0], arch, cfg, 8, dev)
+    _, traj = unroll(pair[0], init_fn(0))
+    step_fn, opt = learner_lib.build_train_step(arch, cfg, num_actions)
+    trained, _, _ = step_fn(pair[0], opt.init(pair[0]), 0, traj)
+    after = params_lib.flatten(params_lib.to_jax(pair[1]))
+    moved = params_lib.flatten(params_lib.to_jax(trained))
+    if any(not np.array_equal(after[k], v) for k, v in source.items()) or \
+            all(np.array_equal(moved[k], v) for k, v in copy.items()):
+        raise AssertionError("PBT: training the forced copy changed its "
+                             "source, or left the copy as it was")
+    best = pbt.best()
+    print(f"PBT: pop {PBT_POP}, {PBT_ROUNDS} rounds of {PBT_STEPS} steps a "
+          f"task (catch+bandit, impala-shallow at full width), K2 launches "
+          f"{k2}; copies (round, member, source) before the last round "
+          f"{copies}, each source bit for bit unchanged while its copy "
+          f"trained; a forced copy trained one step, its source unchanged; "
+          f"best member {best} fitness {pbt.members[best].fitness:.3f}")
+    return k2
 
 
 def _device_busy(events):
@@ -1408,8 +1746,8 @@ def main() -> int:
     err_k2 = phase_k2(vk, dev)
     launches, run = phase_main(vk, dev)
     phase_bandit()
-    async_launches = phase_async(vk, dev)
-    replay_launches = phase_async_replay(vk, dev)
+    async_launches, async_before = phase_async(vk, dev)
+    replay_launches, _ = phase_async_replay(vk, dev)
     # each kernel's launches over every path that runs it
     launches["loss_vtrace"] += async_launches["loss_vtrace"]
     launches["vtrace"] += replay_launches["vtrace"]
@@ -1417,6 +1755,15 @@ def main() -> int:
     phase_replay_bar(dev)
     launches["loss_vtrace"] += phase_sync_replay(vk)
     phase_checkpoints(dev)
+    phase_envs(dev)
+    launches["loss_vtrace"] += phase_chase_sync(vk, run.fps)
+    chase_launches, _ = phase_async_replay(
+        vk, dev, CHASE_REPLAY_ARGV, CHASE_ASYNC_STEPS, "chase async replay")
+    launches["vtrace"] += chase_launches["vtrace"]
+    launches["loss_vtrace"] += phase_inference(vk, dev, async_before)
+    phase_inference_bar(dev)
+    launches["loss_vtrace"] += phase_multitask(vk, dev)
+    launches["loss_vtrace"] += phase_pbt(vk, dev)
     phase_split(run, dev)
     rows = phase_times(vk, dev)
     del run

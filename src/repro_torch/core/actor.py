@@ -5,8 +5,8 @@ initial recurrent state (paper §3).
 
 The actor's params are *stale* (k learner updates behind); the training
 loop controls the lag, which V-trace corrects on the learner. One ``unroll``
-call is one n-step trajectory batch. Randomness (action sampling, env
-resets) comes from the ``torch.Generator`` in the carry.
+call is one n-step trajectory batch. Randomness (action sampling, each
+env step's draws) comes from the ``torch.Generator`` in the carry.
 """
 from __future__ import annotations
 
@@ -37,6 +37,13 @@ def sample(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)),
                         dim=-1).to(torch.int32)
+
+
+def action_logprob(logits: torch.Tensor, action: torch.Tensor
+                   ) -> torch.Tensor:
+    """log pi(action | x) of each row of (N, A) logits."""
+    return torch.gather(F.log_softmax(logits, dim=-1), -1,
+                        action.long()[:, None])[:, 0]
 
 
 def build_actor(env: Env, arch_cfg: ArchConfig, cfg: ImpalaConfig,
@@ -80,10 +87,9 @@ def build_actor(env: Env, arch_cfg: ArchConfig, cfg: ImpalaConfig,
         for _ in range(t_len):
             logits, lstm_state = policy_step(params, c)
             action = sample(c.gen, logits)
-            logp = torch.gather(F.log_softmax(logits, dim=-1), -1,
-                                action.long()[:, None])[:, 0]
-            fresh = env.reset(num_envs, c.gen, device)
-            env_state, ts = env.step(c.env_state, action, fresh)
+            logp = action_logprob(logits, action)
+            env_state, ts = env.step(c.env_state, action,
+                                     env.draw(num_envs, c.gen, device))
             steps.append({"obs_image": c.obs_image,
                           "last_action": c.last_action,
                           "last_reward": c.last_reward, "done_in": c.done,

@@ -1,10 +1,22 @@
-"""Episode-return accounting from trajectory streams (the port's own copy
-of ``repro.core.metrics.EpisodeTracker``)."""
+"""Evaluation metrics (the port's own copy of ``repro.core.metrics``):
+the mean capped human-normalised score (paper §5.3 / Appendix B) and
+episode-return accounting from trajectory streams."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
+
+
+def capped_normalised_score(scores: Sequence[float],
+                            human: Sequence[float],
+                            random: Sequence[float]) -> float:
+    """(1/N) sum_t min(1, (s_t - r_t) / (h_t - r_t)) — Table B.1 footer."""
+    vals = []
+    for s, h, r in zip(scores, human, random):
+        denom = max(h - r, 1e-9)
+        vals.append(min(1.0, (s - r) / denom))
+    return float(np.mean(vals))
 
 
 class EpisodeTracker:

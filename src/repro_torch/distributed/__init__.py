@@ -1,16 +1,18 @@
 """The asynchronous actor-learner runtime (``repro.distributed``), as far
-as the port goes: thread actors in unroll mode, the in-process transport
-and one learner (paper §3).
+as the port goes: thread actors in unroll or inference mode, the
+in-process transport and one learner (paper §3).
 
   serde       ``TrajectoryItem``: a trajectory tree plus its provenance
   tqueue      the bounded queue with three backpressure policies
   transport   put/get/backpressure/counters behind one interface
-  runner      the actor loop body
-  actor_pool  ``ActorPool``: thread actors, each on its own CUDA stream
+  runner      the actor loop bodies: unroll, and the inference driver
+  actor_pool  ``ActorPool``: thread actors, each on its own CUDA stream,
+              or one inference driver thread
+  inference   ``InferenceService``: the dynamic-batching policy forward
   paramstore  versioned publish/pull, with the event a reader waits for
   learner     the ``Learner``: dynamic batch collection, train step,
               versioned publish, telemetry
-  runtime     composition root: build env/store/transport/pool and run
+  runtime     composition root: build env/store/service/transport/pool and run
               one ``Learner`` over them
 """
 from repro_torch.distributed.actor_pool import ActorPool

@@ -8,11 +8,15 @@ its ops and while a thread waits for the device, so workers overlap with
 each other and with the learner as far as the host's launches allow.
 On the card each worker issues its work on a CUDA stream of its own.
 
+In inference mode (a ``service``) the pool runs one driver thread that
+multiplexes every logical actor against the shared ``InferenceService``
+(``runner.run_inference_driver_loop``); the actors hold no params.
+
 The pool is written against the ``Transport`` interface, and
 ``stats()["rejected"]`` charges every lost trajectory (drop_newest
 rejections *and* drop_oldest evictions) back to the actor that made it.
-The inference-mode driver and the supervisor's respawns are not ported
-yet (ROADMAP.md, Queue 1 items 9 and 13).
+The supervisor's respawns are not ported yet (ROADMAP.md, Queue 1 item
+13).
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Dict, List, Optional
 
 from repro_torch.core import actor as actor_lib
 from repro_torch.distributed.paramstore import ParameterStore
-from repro_torch.distributed.runner import run_actor_loop
+from repro_torch.distributed.runner import (run_actor_loop,
+                                            run_inference_driver_loop)
 from repro_torch.distributed.serde import TrajectoryItem
 from repro_torch.distributed.supervise import fold_restart_seed
 from repro_torch.distributed.transport import Transport
@@ -90,26 +95,28 @@ class ActorPool(PoolAccounting):
     def __init__(self, env, arch_cfg, icfg, num_envs: int, num_actors: int,
                  store: ParameterStore, queue: Transport, seed: int = 0,
                  service=None, slot_base: int = 0, device="cpu"):
-        """Actors act on ``device``, the learner's. ``service`` (the
-        inference mode) is not ported yet."""
+        """Actors act on ``device``, the learner's. ``service`` (an
+        ``InferenceService``) switches the pool to inference mode: one
+        driver thread steps every logical actor's envs on the host and
+        the service runs the policy (``_run_driver``)."""
         if num_actors < 1:
             raise ValueError("num_actors must be >= 1")
-        if service is not None:
-            raise NotImplementedError(
-                "inference-mode actors are not ported yet (ROADMAP.md, "
-                "Queue 1 item 9: inference service)")
         self.env = env
         self.num_envs = num_envs
         self.store = store
         self.queue = queue
         self.seed = seed
+        self.service = service
         self.device = device
+        self._arch_cfg = arch_cfg
+        self._icfg = icfg
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         # per-actor closure => per-actor env batch
-        self._builders = [actor_lib.build_actor(env, arch_cfg, icfg,
-                                                num_envs, device)
-                          for _ in range(num_actors)]
+        self._builders = ([] if service is not None else
+                          [actor_lib.build_actor(env, arch_cfg, icfg,
+                                                 num_envs, device)
+                           for _ in range(num_actors)])
         self.errors: List[BaseException] = []
         self._init_accounting(num_actors, num_envs * icfg.unroll_length,
                               slot_base)
@@ -150,6 +157,24 @@ class ActorPool(PoolAccounting):
         except BaseException as e:  # surface in the learner thread
             self._note_death(idx, e)
 
+    def _run_driver(self) -> None:
+        """Inference mode: ONE thread multiplexes every logical actor,
+        each with its own env batch, generator and trajectory stream."""
+        try:
+            run_inference_driver_loop(
+                actor_ids=list(range(self.slot_base,
+                                     self.slot_base + self.num_actors)),
+                env=self.env, arch_cfg=self._arch_cfg, icfg=self._icfg,
+                num_envs=self.num_envs, seed=self.seed,
+                service=self.service,
+                emit=lambda aid, item: self._emit(aid - self.slot_base,
+                                                  item),
+                should_stop=self._stop.is_set,
+                on_unroll=lambda aid: self._note_frames(
+                    aid - self.slot_base))
+        except BaseException as e:  # surface in the learner thread
+            self._note_death(-1, e)
+
     def _note_death(self, idx: int, exc: BaseException) -> None:
         """A worker death fails the run: close the queue so the learner
         wakes and ``raise_errors`` fires."""
@@ -159,9 +184,14 @@ class ActorPool(PoolAccounting):
     # ------------------------------------------------------------------
 
     def start(self) -> None:
-        for i in range(self.num_actors):
-            t = threading.Thread(target=self._run, args=(i,),
-                                 name=f"actor-{i}", daemon=True)
+        if self.service is not None:
+            workers = [("inference-driver", self._run_driver, ())]
+        else:
+            workers = [(f"actor-{i}", self._run, (i,))
+                       for i in range(self.num_actors)]
+        for name, target, args in workers:
+            t = threading.Thread(target=target, args=args, name=name,
+                                 daemon=True)
             self._threads.append(t)
             t.start()
 

@@ -20,8 +20,9 @@ batching, trains, publishes versioned params and reports telemetry.
                      ``ParameterStore``, with the CUDA event that marks
                      the published tree as written;
   telemetry          the JAX package's snapshot keys (updates, fps,
-                     batch/lag histograms, queue, actors, and ``replay``
-                     with replay on).
+                     batch/lag histograms, queue, actors, ``inference``
+                     with an inference service, and ``replay`` with
+                     replay on).
 
 The optimizer updates the working parameters in place, so every update
 publishes a copy of them (``params.snapshot``): no actor ever reads a
@@ -339,12 +340,6 @@ def _to_host(trees: List[PyTree]) -> List[PyTree]:
             for (_, structure), leaves in zip(flat, copies)]
 
 
-def _copy_tree(tree: PyTree) -> PyTree:
-    """Detached copies that keep each leaf's ``requires_grad``."""
-    return params_lib.tree_map(
-        lambda x: x.detach().clone().requires_grad_(x.requires_grad), tree)
-
-
 class Learner:
     """One learner worker: drains a ``Transport`` with dynamic batching,
     trains, publishes versioned params, reports telemetry.
@@ -453,6 +448,7 @@ class Learner:
         self._target_syncs = 0
         self.frames_trained = 0
         self.pool = None
+        self.service = None
 
         # telemetry: the lag/batch histograms are registry instruments
         # (the hot-path `hist[k] += 1` writes the registry) and everything
@@ -481,14 +477,19 @@ class Learner:
         reg.register_producer(
             "actors", lambda: (self.pool.stats()
                                if self.pool is not None else {}))
+        reg.register_producer(
+            "inference", lambda: (self.service.snapshot()
+                                  if self.service is not None else None))
         reg.register_producer("replay", self._replay_telemetry)
 
     # ------------------------------------------------------------------
 
-    def attach(self, pool) -> None:
-        """Bind the actor pool this learner drives; it was built against
-        ``self.store`` and ``self.queue``."""
+    def attach(self, pool, service=None) -> None:
+        """Bind the actor pool (and optional inference service) this
+        learner drives; both were built against ``self.store`` and
+        ``self.queue``."""
         self.pool = pool
+        self.service = service
 
     def _mark(self):
         """An event after the work queued so far on the current stream
@@ -559,7 +560,8 @@ class Learner:
 
     def telemetry_snapshot(self) -> Dict:
         """The pinned snapshot key set, assembled from one registry
-        pull; ``replay`` only with replay on."""
+        pull; ``inference`` only with an inference service, ``replay``
+        only with replay on."""
         col = self.obs_registry.collect()
         core = col.get("learner", {})
         lag_hist = col.get("learner.lag_hist", {})
@@ -585,6 +587,8 @@ class Learner:
             "actor_mode": self.actor_mode,
             "donate": self.donate,
         }
+        if "inference" in col:
+            snap["inference"] = col["inference"]
         if "replay" in col:
             snap["replay"] = col["replay"]
         return snap
@@ -608,8 +612,8 @@ class Learner:
                 warm = dict(warm)
                 warm["replay_mask"] = torch.zeros(b * self._num_envs,
                                                   device=self.device)
-            self._train_step(_copy_tree(self._params),
-                             _copy_tree(self._opt_state), 0, warm)
+            self._train_step(params_lib.copy(self._params),
+                             params_lib.copy(self._opt_state), 0, warm)
         self._sync()
         self.queue.requeue_front(first)
 
@@ -647,7 +651,12 @@ class Learner:
                                              should_stop, on_checkpoint,
                                              ckpt_every)
         finally:
+            # stop the workers (the service wakes every client blocked on
+            # it with a None reply), join them, and only then close the
+            # transport
             self.pool.stop()
+            if self.service is not None:
+                self.service.stop()
             self.pool.join()
             self.queue.close()
         if self._stream is not None:

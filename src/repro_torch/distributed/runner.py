@@ -1,7 +1,18 @@
-"""The actor loop body (``repro.distributed.runner.run_actor_loop``): the
-paper's self-contained actor (§3). Pull the current params, run one
-n-step unroll against a private env batch, stamp the trajectory with the
-parameter version it was acted with, hand it to the transport.
+"""The actor loop bodies (``repro.distributed.runner``), two modes:
+
+``run_actor_loop`` is the paper's self-contained actor (§3). Pull the
+current params, run one n-step unroll against a private env batch, stamp
+the trajectory with the parameter version it was acted with, hand it to
+the transport.
+
+``run_inference_driver_loop`` is the dynamic-batching variant (§3.1) for
+thread actors: one thread drives every logical actor, which holds no
+parameters. It steps each actor's env batch on the host, as CPU tensors,
+submits every actor's per-step observation batch to the shared
+``InferenceService`` (the policy forward runs there, on the learner's
+device), and assembles the replies into the unroll's trajectory layout,
+as numpy (``assemble_inference_traj``), which the learner stages through
+its pinned ``_HostStager``.
 
 On the card each actor thread issues its work on a CUDA stream of its
 own, so waiting for its trajectory never waits for the learner's kernels
@@ -26,13 +37,15 @@ with the restart epoch folded in, global actor id), in place of the JAX
 actor's ``fold_in(key(seed), actor_id)``. The id is the *global* slot id,
 so an actor's stream does not depend on how slots are sharded.
 
-The inference-mode and serialized loops come with the inference service
-and the process pools (ROADMAP.md, Queue 1 items 9 and 10).
+In inference mode each logical actor's env draws come from a CPU
+``torch.Generator`` seeded the same way. The serialized loops and the
+pipelined inference actor of the process pools come with them (ROADMAP.md,
+Queue 1 item 10).
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,3 +118,178 @@ def _finish(traj: Dict, stream) -> Dict[str, np.ndarray]:
     done.record(stream)
     done.synchronize()
     return {k: v.numpy() for k, v in pinned.items()}
+
+
+# ---------------------------------------------------------------------------
+# inference mode: host-side env stepping against the shared service
+
+
+def assemble_inference_traj(steps: List[dict], boot: dict,
+                            init_lstm: Tuple[Any, Any], icfg) -> dict:
+    """Package one unroll's per-step records into the learner's
+    trajectory layout — the shape ``core.actor``'s ``_finalize``
+    produces (batch-major arrays, the bootstrap step appended to the
+    observation-side keys, the unroll's *initial* LSTM state attached).
+    Every leaf is numpy.
+
+    ``steps[t]`` keys: obs_image/last_action/last_reward/done_in (the
+    step's *inputs*), action/reward/done/behaviour_logprob (its
+    outputs). ``boot``: the post-final-step obs_image/last_action/
+    last_reward/done."""
+    def col(k):
+        return np.stack([np.asarray(s[k]) for s in steps], axis=1)
+
+    def col_boot(k, final):
+        return np.concatenate([col(k), np.asarray(final)[:, None]],
+                              axis=1)
+
+    step_dones = col("done")
+    return {
+        "actions": col("action"),
+        "rewards": col("reward"),
+        "discounts": (icfg.discount *
+                      (1.0 - step_dones.astype(np.float32))
+                      ).astype(np.float32),
+        "behaviour_logprob": col("behaviour_logprob"),
+        "done": step_dones,
+        "obs_image": col_boot("obs_image", boot["obs_image"]),
+        "last_action": col_boot("last_action", boot["last_action"]),
+        "last_reward": col_boot("last_reward", boot["last_reward"]),
+        "done_in": col_boot("done_in", boot["done"]),
+        "lstm_state": (np.asarray(init_lstm[0]),
+                       np.asarray(init_lstm[1])),
+    }
+
+
+class _ActingState:
+    """Per logical-actor carry for the inference acting loop: everything
+    the threaded layout would keep on an actor thread's stack."""
+
+    __slots__ = ("uid", "gen", "state", "obs_image", "last_action",
+                 "last_reward", "done", "h", "c", "steps", "version",
+                 "handle")
+
+
+def _make_inference_env_fns(env, n: int):
+    """The two env drivers of the inference acting loop: batches of n
+    envs stepped on the host as CPU tensors, observations out as numpy
+    (views of the tensors)."""
+
+    def reset_batch(gen: torch.Generator):
+        state = env.reset(n, gen, "cpu")
+        return state, env.observe(state)
+
+    def step_batch(state, action: np.ndarray, gen: torch.Generator):
+        state, ts = env.step(state, torch.from_numpy(action),
+                             env.draw(n, gen, "cpu"))
+        return state, (ts.obs_image.numpy(), ts.reward.numpy(),
+                       ts.done.numpy())
+
+    return reset_batch, step_batch
+
+
+def _init_acting_state(uid: int, seed: int, reset_batch, arch_cfg,
+                       n: int) -> _ActingState:
+    st = _ActingState()
+    st.uid = uid
+    st.gen = torch.Generator().manual_seed(actor_seed(seed, uid))
+    st.state, ts = reset_batch(st.gen)
+    st.obs_image = ts.obs_image.numpy()
+    st.last_action = np.zeros((n,), np.int32)
+    st.last_reward = np.zeros((n,), np.float32)
+    st.done = np.zeros((n,), bool)
+    st.h = np.zeros((n, arch_cfg.lstm_width), np.float32)
+    st.c = np.zeros((n, arch_cfg.lstm_width), np.float32)
+    return st
+
+
+def _acting_request(st: _ActingState) -> dict:
+    return {"obs_image": st.obs_image, "last_action": st.last_action,
+            "last_reward": st.last_reward, "done": st.done,
+            "lstm_h": st.h, "lstm_c": st.c}
+
+
+def _acting_boot(st: _ActingState) -> dict:
+    return {"obs_image": st.obs_image, "last_action": st.last_action,
+            "last_reward": st.last_reward, "done": st.done}
+
+
+def _record_reply_and_step(st: _ActingState, reply, step_batch) -> None:
+    """The per-step bookkeeping: stamp the first-step version, advance
+    the recurrent state from the reply, step the envs, record the step,
+    carry forward."""
+    if st.version is None:
+        st.version = reply.param_version
+    action = reply.action
+    st.h, st.c = reply.lstm_state
+    st.state, (obs_image, reward, step_done) = step_batch(st.state, action,
+                                                          st.gen)
+    st.steps.append({
+        "obs_image": st.obs_image, "last_action": st.last_action,
+        "last_reward": st.last_reward, "done_in": st.done,
+        "action": action, "reward": reward, "done": step_done,
+        "behaviour_logprob": reply.logprob})
+    st.obs_image = obs_image
+    st.last_action = action
+    st.last_reward = reward
+    st.done = step_done
+
+
+def run_inference_driver_loop(
+    *,
+    actor_ids: List[int],
+    env,
+    arch_cfg,
+    icfg,
+    num_envs: int,
+    seed: int,
+    service,
+    emit: Callable[[int, Any], bool],
+    should_stop: Callable[[], bool],
+    on_unroll: Optional[Callable[[int], None]] = None,
+) -> None:
+    """Drive ALL thread-mode inference actors from one thread
+    (``repro.distributed.runner.run_inference_driver_loop``).
+
+    Under the GIL, per-actor threads buy an inference-mode actor
+    nothing: the service does the policy compute, and what remains is
+    glue that N threads would only serialize, paying a wake-up per actor
+    per step. This driver multiplexes the logical actors instead: submit
+    every actor's per-step request, run the flush inline
+    (``service.drive_flushes``: one copy to the card, one forward, one
+    copy back), step every actor's envs on the host, repeat.
+
+    Each logical actor keeps the identity it has under the per-thread
+    layout: its own env batch, its own generator (seeded from (seed,
+    actor id)), its own trajectory stream stamped with its id and with
+    the param version of its unroll's first step. Emits block on
+    transport backpressure, which stalls all acting."""
+    t_len = icfg.unroll_length
+    reset_batch, step_batch = _make_inference_env_fns(env, num_envs)
+    actors = [_init_acting_state(aid, seed, reset_batch, arch_cfg,
+                                 num_envs) for aid in actor_ids]
+    while not should_stop():
+        init_lstm = {a.uid: (a.h, a.c) for a in actors}
+        for a in actors:
+            a.steps = []
+            a.version = None
+        for _ in range(t_len):
+            for a in actors:
+                a.handle = service.submit_async(_acting_request(a))
+                if a.handle is None:
+                    return                  # service shut down
+            service.drive_flushes()
+            for a in actors:
+                reply = service.wait(a.handle)
+                if reply is None:
+                    return
+                _record_reply_and_step(a, reply, step_batch)
+
+        for a in actors:
+            traj = assemble_inference_traj(a.steps, _acting_boot(a),
+                                           init_lstm[a.uid], icfg)
+            if on_unroll is not None:
+                on_unroll(a.uid)
+            if not emit(a.uid, TrajectoryItem(traj, a.version, a.uid,
+                                              time.monotonic())):
+                return

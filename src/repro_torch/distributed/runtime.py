@@ -19,10 +19,17 @@ comes back stamped with the parameter version it was acted with, so the
 policy lag the learner observes is **measured** (``lag = version_now -
 version_acted``), not scripted.
 
-Ported: thread actors in unroll mode over the in-process transport, one
-learner, replay, periodic fleet-v1 checkpoints; no flight recorder and no
-supervision. Every other value of the JAX runtime's options raises,
-naming its ROADMAP.md Queue 1 item.
+With ``actor_mode='inference'`` the actors hold no params at all: one
+driver thread steps every actor's envs on the host and submits each
+step's observations to one ``InferenceService`` next to the learner,
+which runs the batched policy forward on the learner's device (paper
+§3.1's dynamic batching, actor-side) and adds an ``inference`` section
+to the telemetry.
+
+Ported: thread actors in unroll and inference mode over the in-process
+transport, one learner, replay, periodic fleet-v1 checkpoints; no flight
+recorder and no supervision. Every other value of the JAX runtime's
+options raises, naming its ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.configs.base import ArchConfig, ImpalaConfig
 from repro_torch.data.envs import make_env
 from repro_torch.distributed.actor_pool import ActorPool
+from repro_torch.distributed.inference import (InferenceService, _pow2_floor,
+                                               require_cnn)
 from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.transport import make_transport
 
@@ -90,9 +99,6 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
     if transport != "inproc":
         raise _unported(f"transport={transport!r}", 10,
                         "process and socket actor pools")
-    if actor_mode != "unroll":
-        raise _unported(f"actor_mode={actor_mode!r}", 9,
-                        "inference service")
     if spmd_devices or exchange is not None:
         raise _unported("an SPMD learner or a gradient exchange", 12,
                         "learner groups")
@@ -121,12 +127,14 @@ def _setup(
     vtrace_impl: str = "auto",
     spmd_devices: int = 0,
     exchange=None,
+    infer_flush_timeout_s: float = 0.02,
+    infer_max_batch_requests: Optional[int] = None,
     device="cuda",
 ) -> Learner:
     """Build one learner worker's dependency graph (env, params, train
-    step, store, transport, actor pool) and return the assembled
-    ``Learner``. Actor slot ids are global (``slot_base + i``), so an
-    actor's RNG stream does not depend on how slots are sharded."""
+    step, store, inference service, transport, actor pool) and return the
+    assembled ``Learner``. Actor slot ids are global (``slot_base + i``),
+    so an actor's RNG stream does not depend on how slots are sharded."""
     _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
               transport, env_name, spmd_devices=spmd_devices,
               exchange=exchange)
@@ -134,6 +142,8 @@ def _setup(
     if arch is None:
         from repro_torch.core.driver import small_arch
         arch = small_arch(env)
+    if actor_mode == "inference":
+        require_cnn(arch)
     learner = Learner(
         arch=arch, icfg=icfg, num_actions=env.num_actions,
         num_envs=num_envs, num_actors=num_actors, transport=None,
@@ -146,9 +156,20 @@ def _setup(
     queue = make_transport(transport, queue_capacity, queue_policy,
                            registry=learner.obs_registry)
     learner.queue = queue
+    service = None
+    if actor_mode == "inference":
+        # one request per actor a bucket; the thread driver submits every
+        # actor's request and flushes them at once
+        service = InferenceService(
+            env, arch, icfg, learner.store, num_clients=num_actors,
+            flush_timeout_s=infer_flush_timeout_s,
+            max_batch_requests=(infer_max_batch_requests or
+                                _pow2_floor(num_actors)),
+            seed=seed, registry=learner.obs_registry)
     pool = ActorPool(env, arch, icfg, num_envs, num_actors, learner.store,
-                     queue, seed=seed, device=learner.device)
-    learner.attach(pool)
+                     queue, seed=seed, service=service,
+                     device=learner.device)
+    learner.attach(pool, service)
     return learner
 
 
@@ -207,12 +228,22 @@ def run_async_training(
     on ``device`` (the card unless the caller asks for the CPU).
 
     The signature and defaults are the JAX runtime's, plus ``device``.
-    ``listen_addr``, ``spawn_remote``, ``heartbeat_timeout_s``,
-    ``elastic`` and the ``infer_*`` options only reach paths that are not
-    ported (the socket transport, the inference service, supervision), so
-    they are accepted and unused; ``wire_codec`` is checked and reported,
-    and no wire uses it, as on the JAX in-process path. ``obs`` and
-    ``supervise`` raise, naming their ROADMAP.md item.
+    ``listen_addr``, ``spawn_remote``, ``heartbeat_timeout_s`` and
+    ``elastic`` only reach paths that are not ported (the socket
+    transport, supervision), so they are accepted and unused;
+    ``wire_codec`` is checked and reported, and no wire uses it, as on
+    the JAX in-process path. ``obs`` and ``supervise`` raise, naming
+    their ROADMAP.md item.
+
+    ``actor_mode='inference'`` replaces the actors' unrolls with one
+    driver thread against an ``InferenceService``: the policy forward
+    runs in pow2 buckets of up to ``infer_max_batch_requests`` requests
+    (default: the actor count, rounded down to a power of two) with an
+    ``infer_flush_timeout_s`` flush deadline, and the telemetry grows an
+    ``inference`` section. ``infer_streams`` pipelines the process
+    backend's inference actors (ROADMAP.md, Queue 1 item 10); one driver
+    thread multiplexes the thread backend's, so it is accepted and
+    unused, as on the reference's thread backend.
 
     The learner updates its parameters in place and publishes a copy
     each update, whatever ``donate`` says; ``donate`` is only reported in
@@ -236,9 +267,8 @@ def run_async_training(
     metrics, snapshot_fn)``, where ``params`` is the published tree and
     ``snapshot_fn`` a zero-argument callable producing the telemetry.
     """
-    del listen_addr, spawn_remote, infer_flush_timeout_s
-    del infer_max_batch_requests, infer_streams, heartbeat_timeout_s
-    del elastic
+    del listen_addr, spawn_remote, heartbeat_timeout_s, elastic
+    del infer_streams
     if obs is not None:
         raise _unported("obs", 13, "observability")
     if supervise:
@@ -252,7 +282,9 @@ def run_async_training(
         seed=seed, arch=arch, initial_params=initial_params,
         initial_opt_state=initial_opt_state, start_step=start_step,
         donate=donate, wire_codec=wire_codec, vtrace_impl=vtrace_impl,
-        spmd_devices=spmd_devices, device=device)
+        spmd_devices=spmd_devices,
+        infer_flush_timeout_s=infer_flush_timeout_s,
+        infer_max_batch_requests=infer_max_batch_requests, device=device)
     on_ckpt = (fleet_checkpointer(ckpt_dir)
                if ckpt_dir and ckpt_every > 0 else None)
     metrics, final_telemetry = learner.run(

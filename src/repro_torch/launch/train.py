@@ -7,7 +7,10 @@
                     threads, each on its own CUDA stream, feed a
                     backpressured in-process queue; the learner drains it
                     with dynamic batching, and per-trajectory policy lag
-                    is *measured* from parameter-store versions.
+                    is *measured* from parameter-store versions. With
+                    ``--actor-mode inference`` one driver thread steps
+                    every actor's envs on the host and a dynamic-batching
+                    inference service runs the policy on the card.
 
 It runs on the card unless the caller asks for the CPU; asked for
 ``cuda`` where no card is found, it raises and does not fall back. On the
@@ -25,6 +28,10 @@ compute in full float32, as every check of the port does.
       --runtime async --smoke --replay-fraction 0.5 --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --smoke --steps 30 --ckpt-dir build/ckpt --ckpt-every 10
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --smoke --env chase --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --actor-mode inference --smoke --steps 30
 
 Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
 both runtimes, in the JAX package's format: a checkpoint either package
@@ -34,10 +41,9 @@ does); the async runtime saves params only and restores those or a
 fleet-v1 checkpoint with its optimizer state and version.
 
 Values of the JAX CLI's flags whose paths are not ported yet (process
-and remote actors, the shm and socket transports, inference-mode actors,
-learner groups and SPMD, supervision, token training, envs other than
-catch and bandit) end the run with a ``SystemExit`` that names the
-ROADMAP.md Queue 1 item.
+and remote actors, the shm and socket transports, learner groups and
+SPMD, supervision, token training) end the run with a ``SystemExit`` that
+names the ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -114,8 +120,14 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--actor-mode", default="unroll",
                    choices=["unroll", "inference"],
                    help="unroll: every actor runs its own n-step unroll "
-                        "with the published params; only unroll is "
-                        "ported")
+                        "with the published params. inference: actors "
+                        "are host-side env steppers submitting to one "
+                        "dynamic-batching InferenceService on the "
+                        "learner's device (paper §3.1; conv-LSTM archs)")
+    p.add_argument("--infer-flush-ms", type=float, default=20.0,
+                   help="inference service flush deadline: a pending "
+                        "request is never delayed past this waiting for "
+                        "a fuller batch (actor_mode=inference)")
     p.add_argument("--no-donate", action="store_true",
                    help="reported as donate=False in the async "
                         "telemetry; the port's learner always updates in "
@@ -189,9 +201,6 @@ def _refuse_unported(args) -> None:
     if args.transport not in ("", "inproc"):
         raise _unported(f"--transport {args.transport}", 10,
                         "process and socket actor pools")
-    if args.actor_mode != "unroll":
-        raise _unported(f"--actor-mode {args.actor_mode}", 9,
-                        "inference service")
     if args.learners > 1:
         raise _unported("--learners > 1", 12, "learner groups")
     if args.learner_mode == "spmd":
@@ -366,13 +375,18 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         if step % args.log_every == 0:
             tel = snapshot_fn()
             lag, q = tel["lag"], tel["queue"]
+            extra = ""
+            if "inference" in tel:
+                inf = tel["inference"]
+                extra = (f" infer(batch/wait_p95)={inf['mean_batch']:.1f}/"
+                         f"{inf['queue_wait_ms_p95']:.1f}ms")
             print(f"update {step:6d} "
                   f"loss={float(metrics['loss/total']):10.2f} "
                   f"lag(mean/max)={lag['mean']:.2f}/{lag['max']} "
                   f"queue(occ/drop/stall)={q['mean_occupancy']:.1f}/"
                   f"{q['dropped']}/{q['put_stalls']} "
                   f"learner_fps={tel['frames_per_sec']:7.0f} "
-                  f"actor_fps={tel['actors']['actor_fps']:7.0f}")
+                  f"actor_fps={tel['actors']['actor_fps']:7.0f}" + extra)
         if args.ckpt_dir and step % args.ckpt_every == 0:
             # params-only saves, as the JAX CLI's without --supervise
             ckpt.save(args.ckpt_dir, step, params)
@@ -385,13 +399,15 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         actor_mode=args.actor_mode, transport=transport,
         queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
         max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
+        infer_flush_timeout_s=args.infer_flush_ms / 1e3,
         vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
         initial_params=initial_params, initial_opt_state=initial_opt,
         start_step=start_step, on_update=on_update, device=device)
     if args.ckpt_dir and last_params[0]:
         ckpt.save(args.ckpt_dir, args.steps, last_params[0])
     print(f"final return(100) = {tracker.mean_return():.3f}")
-    keys = TELEMETRY_KEYS + (("replay",) if "replay" in tel else ())
+    keys = TELEMETRY_KEYS + tuple(k for k in ("inference", "replay")
+                                  if k in tel)
     print("telemetry:", json.dumps({k: tel[k] for k in keys},
                                    default=float))
     return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)

@@ -84,6 +84,13 @@ def snapshot(tree: Tree) -> Tree:
     return tree_map(lambda x: x.detach().clone(), tree)
 
 
+def copy(tree: Tree) -> Tree:
+    """A detached copy that keeps each leaf's ``requires_grad``: trainable
+    where the source is, and never an alias of it."""
+    return tree_map(
+        lambda x: x.detach().clone().requires_grad_(x.requires_grad), tree)
+
+
 def from_jax(tree: Tree, device="cpu", requires_grad: bool = True) -> Tree:
     """JAX-layout tree (numpy arrays or tensors) -> the port's float32
     tensors on ``device``.

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_no_repro_module():
         "repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "need = {'repro_torch.checkpoint.checkpoint', "
-        "'repro_torch.core.replay', 'repro_torch.distributed.serde'}\n"
+        "'repro_torch.core.replay', 'repro_torch.distributed.serde', "
+        "'repro_torch.data.multitask', 'repro_torch.core.pbt', "
+        "'repro_torch.distributed.inference'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -79,11 +81,13 @@ _ASYNC = ["--runtime", "async"]
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
-    (["--env", "rooms"], "catch and bandit"),
+    (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference"],
+     "item 10"),
     (_ASYNC + ["--actor-backend", "remote"], "item 10"),
     (_ASYNC + ["--transport", "shm"], "item 10"),
     (_ASYNC + ["--transport", "socket"], "item 10"),
-    (_ASYNC + ["--actor-mode", "inference"], "item 9"),
+    (_ASYNC + ["--transport", "shm", "--actor-mode", "inference"],
+     "item 10"),
     (_ASYNC + ["--learners", "2"], "item 12"),
     (_ASYNC + ["--learner-mode", "spmd"], "item 12"),
     (_ASYNC + ["--supervise"], "item 13"),
