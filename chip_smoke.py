@@ -93,6 +93,10 @@ exception and a nonzero exit:
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
    and the device kernels that take most of it.
+7a. Path shapes: every (T, B) and (T, B, A) at which phases 5-7 launched
+   K1 or K2 (each wrapper's ``shapes``) and that phases 3-4 left out,
+   held against the plain version at ``ATOL`` as they are; its errors
+   join K1's and K2's ``max_abs_err``.
 8. Times: K1 and K2 at the main path's shape, the paper's DMLab learner
    shape (100, 32, 9), (100, 256, 18) and the batches of 2 and 4
    trajectories, (20, 64, 3) and (20, 128, 3); each call timed with CUDA
@@ -192,8 +196,10 @@ MAIN_STEPS = 200
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
 # the full-width async runs (phases 6a, 6c, 6j: unroll mode, replay,
-# inference mode, with the same settings); the JAX acceptance bars
-# (phases 6b, 6k) keep their 400 updates
+# inference mode, with the same settings) take 200 updates: at 400 the
+# whole script ran 818 s on one H100 (PERF.md, section 4), past the 800 s
+# that the script's 1200 s budget leaves for a slower host; the JAX
+# acceptance bars (phases 6b, 6k) keep their 400
 ASYNC_STEPS, BAR_STEPS = 200, 400
 
 
@@ -208,7 +214,7 @@ def _async_argv(env: str, steps: int, *extra: str):
 
 ASYNC_ARGV = _async_argv("catch", ASYNC_STEPS)
 # the steady updates timed, then profiled, near the end of phase 6a's run
-ASYNC_WINDOW = 10
+ASYNC_WINDOW = 20
 # the async path with replay at the paper's half (phase 6c)
 REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
                             "2"]
@@ -242,8 +248,10 @@ K1_SHAPES = [(1, 1), (20, 32), (37, 130), (100, 32), (100, 256), (20, 64),
 K2_SHAPES = [(20, 32, 3), (37, 130, 5), (100, 32, 9), (100, 256, 18),
              (16, 8, 130), (20, 64, 3), (20, 128, 3),
              # chase's and rooms' 5 actions, one trajectory and four;
-             # the catch+bandit+tmaze multi-task step (a partial tile)
-             (20, 32, 5), (20, 128, 5), (16, 24, 4)]
+             # the catch+bandit+tmaze multi-task step (a partial tile);
+             # the experts' and PBT's steps of one task, 3 and 4 actions
+             (20, 32, 5), (20, 128, 5), (16, 24, 4), (16, 8, 3),
+             (16, 8, 4)]
 MAIN_T, MAIN_B, MAIN_A = 20, 32, 3     # the main path's K1/K2 shapes
 # K1/K2 timed at the main path's shape, the paper's DMLab learner shape
 # (unroll 100, batch 32, 9 actions), a large one and the batches of 2 and 4
@@ -358,9 +366,9 @@ def _total(outs, v):
             + 0.01 * torch.sum(ne))
 
 
-def phase_k1(vk, dev) -> float:
+def phase_k1(vk, dev, shapes=K1_SHAPES) -> float:
     worst = 0.0
-    for t, b in K1_SHAPES:
+    for t, b in shapes:
         inp = _inputs(t, b, 3, t * 7 + b, dev)
         for clip in CLIPS:
             rho, c = _weights(_log_rhos(inp), *clip)
@@ -373,9 +381,9 @@ def phase_k1(vk, dev) -> float:
     return worst
 
 
-def phase_k2(vk, dev) -> float:
+def phase_k2(vk, dev, shapes=K2_SHAPES) -> float:
     worst = 0.0
-    for t, b, a in K2_SHAPES:
+    for t, b, a in shapes:
         inp = _inputs(t, b, a, t * 131 + b * 7 + a, dev)
         fwd = grad = 0.0
         for clip in CLIPS:
@@ -1146,6 +1154,18 @@ def phase_pbt(vk, dev) -> int:
     return k2
 
 
+def phase_path_shapes(vk, dev):
+    """Every shape at which phases 5-7 launched K1 or K2 and that
+    ``K1_SHAPES``/``K2_SHAPES`` left out, held against the plain version
+    as phases 3-4 hold theirs. Returns the worst errors (K1, K2)."""
+    k1 = sorted(vk.vtrace.shapes - set(K1_SHAPES))
+    k2 = sorted(vk.loss_vtrace.shapes - set(K2_SHAPES))
+    print(f"path shapes: K1 launched at {sorted(vk.vtrace.shapes)}, K2 at "
+          f"{sorted(vk.loss_vtrace.shapes)}; not in phases 3-4, checked "
+          f"now: K1 {k1}, K2 {k2}")
+    return phase_k1(vk, dev, k1), phase_k2(vk, dev, k2)
+
+
 def _device_busy(events):
     """(busy us, device events, {name: (us, count)}) of the device-side
     events of a profiler trace; busy is the union of their intervals."""
@@ -1744,6 +1764,8 @@ def main() -> int:
 
     err_k1 = phase_k1(vk, dev)
     err_k2 = phase_k2(vk, dev)
+    vk.vtrace.shapes.clear()
+    vk.loss_vtrace.shapes.clear()
     launches, run = phase_main(vk, dev)
     phase_bandit()
     async_launches, async_before = phase_async(vk, dev)
@@ -1765,6 +1787,8 @@ def main() -> int:
     launches["loss_vtrace"] += phase_multitask(vk, dev)
     launches["loss_vtrace"] += phase_pbt(vk, dev)
     phase_split(run, dev)
+    k1_err, k2_err = phase_path_shapes(vk, dev)
+    err_k1, err_k2 = max(err_k1, k1_err), max(err_k2, k2_err)
     rows = phase_times(vk, dev)
     del run
 

@@ -38,8 +38,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.configs.base import ArchConfig, ImpalaConfig
 from repro_torch.data.envs import make_env
 from repro_torch.distributed.actor_pool import ActorPool
-from repro_torch.distributed.inference import (InferenceService, _pow2_floor,
-                                               require_cnn)
+from repro_torch.distributed.inference import InferenceService, require_cnn
 from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.transport import make_transport
 
@@ -163,8 +162,7 @@ def _setup(
         service = InferenceService(
             env, arch, icfg, learner.store, num_clients=num_actors,
             flush_timeout_s=infer_flush_timeout_s,
-            max_batch_requests=(infer_max_batch_requests or
-                                _pow2_floor(num_actors)),
+            max_batch_requests=infer_max_batch_requests,
             seed=seed, registry=learner.obs_registry)
     pool = ActorPool(env, arch, icfg, num_envs, num_actors, learner.store,
                      queue, seed=seed, service=service,
@@ -238,9 +236,13 @@ def run_async_training(
     ``actor_mode='inference'`` replaces the actors' unrolls with one
     driver thread against an ``InferenceService``: the policy forward
     runs in pow2 buckets of up to ``infer_max_batch_requests`` requests
-    (default: the actor count, rounded down to a power of two) with an
-    ``infer_flush_timeout_s`` flush deadline, and the telemetry grows an
-    ``inference`` section. ``infer_streams`` pipelines the process
+    (default: the actor count, rounded down to a power of two), and the
+    telemetry grows an ``inference`` section. The driver thread submits
+    every actor's request and flushes them at once each step, so the
+    ``infer_flush_timeout_s`` deadline delays nothing on this path: it
+    bounds the wait of leader clients (``InferenceClient``) and of the
+    process frontends (ROADMAP.md, Queue 1 item 10), and is reported in
+    the telemetry. ``infer_streams`` pipelines the process
     backend's inference actors (ROADMAP.md, Queue 1 item 10); one driver
     thread multiplexes the thread backend's, so it is accepted and
     unused, as on the reference's thread backend.

@@ -16,7 +16,10 @@ blocks and chunks of a segment, for the launch and the CPU tests alike.
 Each wrapper takes its plain PyTorch version (``vtrace_plain``,
 ``loss_vtrace_plain``) only because the tensors it was given lie on the
 CPU; on CUDA tensors it launches the kernel or raises. ``launches`` on
-each wrapper counts its kernel's launches, and nothing else.
+each wrapper counts its kernel's launches, and nothing else; ``shapes``
+on each is the set of problem shapes it launched at, which
+``reset_launch_counts`` leaves as it is, so that a caller can collect the
+shapes of several runs and hold each against the plain version.
 """
 from __future__ import annotations
 
@@ -158,10 +161,12 @@ def vtrace(rho, c, discounts, rewards, values, values_tp1
         build.stream(dev))
     build.raise_on(code, "repro_vtrace")
     vtrace.launches += 1
+    vtrace.shapes.add((t, b))
     return out.unbind(0)
 
 
 vtrace.launches = 0
+vtrace.shapes = set()
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +244,12 @@ def loss_vtrace(logits, onehot, behaviour_logprob, discounts, rewards,
         c_bar is not None, float(lambda_), build.stream(dev))
     build.raise_on(code, "repro_loss_vtrace")
     loss_vtrace.launches += 1
+    loss_vtrace.shapes.add((t, b, a))
     return out.unbind(0)
 
 
 loss_vtrace.launches = 0
+loss_vtrace.shapes = set()
 
 
 class _FusedLossVtrace(torch.autograd.Function):

@@ -125,9 +125,11 @@ def _parser() -> argparse.ArgumentParser:
                         "dynamic-batching InferenceService on the "
                         "learner's device (paper §3.1; conv-LSTM archs)")
     p.add_argument("--infer-flush-ms", type=float, default=20.0,
-                   help="inference service flush deadline: a pending "
-                        "request is never delayed past this waiting for "
-                        "a fuller batch (actor_mode=inference)")
+                   help="inference service flush deadline for leader "
+                        "clients and process frontends (ROADMAP.md, "
+                        "Queue 1 item 10); the thread backend's driver "
+                        "flushes every step, so it waits on no deadline "
+                        "and this is only reported (actor_mode=inference)")
     p.add_argument("--no-donate", action="store_true",
                    help="reported as donate=False in the async "
                         "telemetry; the port's learner always updates in "

@@ -169,6 +169,24 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
     assert vk.loss_vtrace.launches == 0
 
 
+def test_vtrace_shape_records_grow_only_with_launches():
+    """``shapes`` names the problem shapes a wrapper launched at: a CPU
+    call adds none, and resetting the counts keeps what was recorded, so
+    a caller can collect the shapes of several runs."""
+    t, b, a = 4, 3, 5
+    f = lambda *s: torch.zeros(s, dtype=torch.float32)  # noqa: E731
+    before = (set(vk.vtrace.shapes), set(vk.loss_vtrace.shapes))
+    vk.vtrace.shapes.add((-1, -1))
+    vk.reset_launch_counts()
+    vk.vtrace(*(f(t, b) for _ in range(6)))
+    vk.loss_vtrace(f(t, b, a), f(t, b, a), *(f(t, b) for _ in range(5)))
+    try:
+        assert vk.vtrace.shapes == before[0] | {(-1, -1)}
+        assert vk.loss_vtrace.shapes == before[1]
+    finally:
+        vk.vtrace.shapes.discard((-1, -1))
+
+
 def _scan_inputs(t, n, seed, dev="cpu"):
     g = torch.Generator().manual_seed(seed)
     a = torch.rand(t, n, generator=g)
