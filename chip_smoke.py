@@ -89,6 +89,27 @@ exception and a nonzero exit:
    width): a member that copied in round 0 trains on its copy in round 1
    while the member it copied from stays bit for bit as it was; and a
    forced exploit's copy, trained one step, leaves its source untouched.
+6n. Process actors at full width: 6a's settings with ``--actor-backend
+   process --transport shm`` (2 spawned children acting on the CPU,
+   serialized trajectories and params) for ``ASYNC_STEPS`` updates, K2
+   once an update and K1 never; learner and actor frames/s beside 6a's
+   thread actors in the same run, the wire's counters, and the card's
+   busy share of a window. While the children run, ``nvidia-smi
+   --query-compute-apps=pid`` lists at most one process, and none of
+   the children: no child holds a CUDA context. No child outlives the
+   run.
+6o. Process inference mode: 6n with ``--actor-mode inference``
+   (``ASYNC_STEPS`` updates): the children submit over the service's
+   process frontend and its flusher thread flushes; the flush reasons
+   (deadline flushes included), batch sizes and queue-wait p95.
+6p. The JAX process-backend learning bar (tests/test_process_actors.py,
+   its process half: smoke impala-shallow, ``BAR_STEPS`` updates): last
+   100 above the first 500 by more than 0.15 and above -0.3, trajectories
+   over the wire.
+6q. Remote actors over loopback TCP: unroll mode, inference mode and
+   unroll mode with ``--wire-codec bf16``, each at full width for
+   ``REMOTE_STEPS`` updates with K2 once an update; no decode error and
+   no torn tail, and the bf16 wire carries under 1/1.5 of the raw bytes.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
@@ -201,6 +222,8 @@ BANDIT_BAR = 0.6
 # that the script's 1200 s budget leaves for a slower host; the JAX
 # acceptance bars (phases 6b, 6k) keep their 400
 ASYNC_STEPS, BAR_STEPS = 200, 400
+# the remote loopback runs (phase 6q), three of them
+REMOTE_STEPS = 100
 
 
 def _async_argv(env: str, steps: int, *extra: str):
@@ -231,6 +254,18 @@ CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
                                 "--replay-fraction", "0.5",
                                 "--replay-reuse", "2")
 INFER_ARGV = ASYNC_ARGV + ["--actor-mode", "inference"]
+# slice 9: process and remote actors, 6a's settings otherwise
+PROC_ARGV = ASYNC_ARGV + ["--actor-backend", "process", "--transport", "shm"]
+PROC_INFER_ARGV = PROC_ARGV + ["--actor-mode", "inference"]
+REMOTE_ARGV = _async_argv("catch", REMOTE_STEPS, "--actor-backend",
+                          "remote", "--transport", "socket")
+REMOTE_RUNS = [("remote unroll", REMOTE_ARGV),
+               ("remote inference", REMOTE_ARGV + ["--actor-mode",
+                                                   "inference"]),
+               ("remote unroll bf16", REMOTE_ARGV + ["--wire-codec",
+                                                     "bf16"])]
+# the bf16 wire's raw bytes over its wire bytes must pass this
+WIRE_DIET = 1.5
 MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
     ("catch", "bandit", "tmaze"), 60, 8)
 PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
@@ -509,24 +544,36 @@ def phase_bandit() -> float:
     return final
 
 
+_WORKER_THREADS = ("actor-", "inference-driver", "inference-service",
+                   "inference-frontend", "param-server", "shm-drain",
+                   "socket-")
+
+
 def _no_actor_threads(what: str) -> None:
-    """An actor thread still alive after its run returned would go on
-    issuing work on the card, into later phases and the interpreter's
-    exit."""
+    """An actor thread (or a transport's or service's thread) still alive
+    after its run returned would go on issuing work on the card, into
+    later phases and the interpreter's exit; so would a child process."""
+    import multiprocessing as mp
+
     alive = [t.name for t in threading.enumerate()
-             if t.name.startswith(("actor-", "inference-driver"))]
+             if t.name.startswith(_WORKER_THREADS)]
     if alive:
         raise AssertionError(f"{what}: actor threads {alive} outlive the run")
+    children = mp.active_children()
+    if children:
+        raise AssertionError(f"{what}: child processes {children} outlive "
+                             f"the run")
 
 
-def _async_run(vk, argv, steps: int = ASYNC_STEPS):
+def _async_run(vk, argv, steps: int = ASYNC_STEPS, during=None):
     """``repro_torch.launch.train`` with ``argv`` for ``steps`` updates
     (its ``--steps``), the launch counts zeroed just before and read just
     after.
     Near its end ``ASYNC_WINDOW`` updates are timed on the host clock
     between two synchronises, then as many run under ``torch.profiler``.
-    Returns (run, launches, telemetry read before the window, unprofiled
-    and profiled ms an update, the profiler)."""
+    ``during()``, if given, runs once at the window's first update,
+    while the actors run. Returns (run, launches, telemetry read before
+    the window, unprofiled and profiled ms an update, the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as train_lib
@@ -540,6 +587,8 @@ def _async_run(vk, argv, steps: int = ASYNC_STEPS):
         if step == first:
             # the rates before the window's synchronises and profiling
             before.update(snapshot_fn())
+            if during is not None:
+                during()
         if step in (first, first + w, first + 2 * w):
             torch.cuda.synchronize()
             marks[step] = time.perf_counter()
@@ -946,10 +995,11 @@ def phase_chase_sync(vk, catch_fps: float) -> int:
     return got[0]
 
 
-def phase_inference(vk, dev, unroll_before) -> int:
+def phase_inference(vk, dev, unroll_before):
     """Inference mode at full width on catch, K2 once an update; its
     learner frames/s beside phase 6a's unroll mode, the service's
-    telemetry, lag, and the card's busy share of a window."""
+    telemetry, lag, and the card's busy share of a window. Returns K2's
+    launches and the learner frames/s."""
     run, launches, before, update_ms, prof = _async_run(vk, INFER_ARGV)
     tel = run.telemetry
     inf = tel["inference"]
@@ -987,7 +1037,7 @@ def phase_inference(vk, dev, unroll_before) -> int:
           f"{lag['measured']} trajectories; batch sizes "
           f"{dict(sorted(tel['batch_size_hist'].items()))}")
     _print_busy("inference-mode update", prof, ASYNC_WINDOW, update_ms)
-    return launches["loss_vtrace"]
+    return launches["loss_vtrace"], before["frames_per_sec"]
 
 
 def phase_inference_bar(dev) -> float:
@@ -1031,6 +1081,205 @@ def phase_inference_bar(dev) -> float:
           f"{tel['lag']['mean']:.3f} max {tel['lag']['max']}, learner "
           f"frames/s {tel['frames_per_sec']:.0f}")
     return late
+
+
+# ---------------------------------------------------------------------------
+# slice 9: process and remote actors
+
+
+def _compute_pids():
+    """The pids ``nvidia-smi`` lists with a compute context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _check_wire_run(what, run, launches, steps: int = ASYNC_STEPS):
+    """What every process or remote run must show: the update count and
+    version, K2 once an update and K1 never, a finite loss, measured lag
+    covering every trajectory consumed, and a clean wire."""
+    tel = run.telemetry
+    q, lag = tel["queue"], tel["lag"]
+    got = (tel["learner_updates"], tel["param_version"],
+           launches["loss_vtrace"], launches["vtrace"])
+    if got != (steps, steps, steps, 0):
+        raise AssertionError(f"{what}: (updates, version, K2 launches, K1 "
+                             f"launches) {got}; expected "
+                             f"{(steps,) * 3 + (0,)}")
+    loss = float(run.metrics["loss/total"])
+    errors = (q.get("drain_errors", 0) + q.get("decode_errors", 0)
+              + q.get("torn_tails", 0) + q.get("remote_errors", 0))
+    if not (math.isfinite(loss) and errors == 0 and lag["max"] > 0
+            and lag["measured"] * MAIN_B * MAIN_T == tel["frames_consumed"]):
+        raise AssertionError(f"{what}: loss {loss}, lag {lag}, queue {q}")
+    return tel, q, lag, loss
+
+
+def phase_process(vk, dev, thread_before):
+    """Process actors at full width (6n): K2 once an update, no child with
+    a CUDA context, frames/s beside 6a's thread actors."""
+    seen = {}
+
+    def during():
+        import multiprocessing as mp
+        import os
+
+        seen["parent"] = os.getpid()
+        seen["children"] = [p.pid for p in mp.active_children()]
+        seen["pids"] = _compute_pids()
+
+    run, launches, before, update_ms, prof = _async_run(vk, PROC_ARGV,
+                                                        during=during)
+    tel, q, lag, loss = _check_wire_run("process actors", run, launches)
+    if tel["actors"]["backend"] != "process" or not q["wire_received"]:
+        raise AssertionError(f"process actors: actors {tel['actors']}, "
+                             f"queue {q}")
+    kids, pids = seen["children"], seen["pids"]
+    if len(kids) != 2 or len(pids) > 1 or set(kids) & set(pids):
+        raise AssertionError(f"process actors: nvidia-smi lists compute "
+                             f"pids {pids} while the children {kids} run "
+                             f"(parent {seen['parent']}); a child holds a "
+                             f"CUDA context")
+    moved = _params_moved(run, dev)
+    print(f"process actors: {ASYNC_STEPS} updates, K2 launches "
+          f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
+          f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
+    print(f"process actors: nvidia-smi compute pids {pids} while children "
+          f"{kids} ran (parent {seen['parent']} in this pid namespace); "
+          f"no child outlived the run")
+    print(f"process actors: learner frames/s {before['frames_per_sec']:.0f}"
+          f", actor frames/s {before['actors']['actor_fps']:.0f}, updates/s"
+          f" {before['updates_per_sec']:.2f}; thread actors (phase 6a, same "
+          f"process) learner frames/s {thread_before['frames_per_sec']:.0f}"
+          f", actor frames/s {thread_before['actors']['actor_fps']:.0f}: "
+          f"{before['frames_per_sec'] / thread_before['frames_per_sec']:.2f}"
+          f"x")
+    print(f"process actors: wire {q['wire_received']} buffers, "
+          f"{q['bytes_per_frame']:.0f} bytes each, put stalls "
+          f"{q['wire_put_stalls']}; batch sizes "
+          f"{dict(sorted(tel['batch_size_hist'].items()))}; lag mean "
+          f"{lag['mean']:.3f} max {lag['max']}; queue occupancy "
+          f"{q['mean_occupancy']:.3f}, get stalls {q['get_stalls']}; "
+          f"{len(run.tracker.completed)} episodes, last 100 mean "
+          f"{run.tracker.mean_return(100):.3f}")
+    _print_busy("process-actor update", prof, ASYNC_WINDOW, update_ms)
+    return launches["loss_vtrace"]
+
+
+def phase_process_inference(vk, dev, thread_infer_fps):
+    """Process inference mode (6o): the children submit over the process
+    frontend; the service's flusher thread flushes on full, ready or the
+    deadline."""
+    run, launches, before, update_ms, prof = _async_run(vk, PROC_INFER_ARGV)
+    tel, q, lag, loss = _check_wire_run("process inference", run, launches)
+    inf = tel["inference"]
+    if not (tel["actor_mode"] == "inference" and inf["flushes"] > 0
+            and tel["actors"]["backend"] == "process"
+            and sum(inf["batch_size_hist"].values()) == inf["flushes"]
+            and inf["flushes"] == inf["flush_full"] + inf["flush_ready"]
+            + inf["flush_timeout"]):
+        raise AssertionError(f"process inference: {inf}")
+    print(f"process inference: {ASYNC_STEPS} updates, K2 launches "
+          f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
+          f"{loss:.4f}; learner frames/s {before['frames_per_sec']:.0f}, "
+          f"actor frames/s {before['actors']['actor_fps']:.0f} (thread "
+          f"inference mode, phase 6j: learner frames/s "
+          f"{thread_infer_fps:.0f})")
+    print(f"process inference service: flushes {inf['flushes']} (full "
+          f"{inf['flush_full']}, ready {inf['flush_ready']}, deadline "
+          f"{inf['flush_timeout']}), batch sizes {inf['batch_size_hist']}, "
+          f"mean batch {inf['mean_batch']:.3f}, padded "
+          f"{inf['padded_requests']}, queue wait p50 "
+          f"{inf['queue_wait_ms_p50']:.3f} ms p95 "
+          f"{inf['queue_wait_ms_p95']:.3f} ms (bucket upper bounds), "
+          f"deadline {1e3 * inf['flush_timeout_s']:.0f} ms; lag mean "
+          f"{lag['mean']:.3f} max {lag['max']}")
+    _print_busy("process-inference update", prof, ASYNC_WINDOW, update_ms)
+    return launches["loss_vtrace"]
+
+
+def phase_process_bar(dev) -> float:
+    """tests/test_process_actors.py's acceptance run, process half, on the
+    card, held to that test's bar."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.envs import make_catch
+    from repro_torch.distributed import run_async_training
+
+    env = make_catch()
+    arch = get_smoke_config("impala-shallow").replace(image_hw=env.image_hw)
+    cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
+                       learning_rate=6e-4, entropy_cost=0.003,
+                       rmsprop_eps=0.01)
+    tracker, metrics, tel = run_async_training(
+        "catch", cfg, num_envs=32, steps=BAR_STEPS, num_actors=2,
+        actor_backend="process", transport="shm", queue_capacity=8,
+        queue_policy="block", max_batch_trajs=4, seed=0, arch=arch,
+        device=dev)
+    _no_actor_threads("process learning run")
+    returns = tracker.completed
+    early = float(sum(returns[:500])) / len(returns[:500])
+    late = tracker.mean_return(100)
+    if not (tel["learner_updates"] == tel["param_version"] == BAR_STEPS
+            and math.isfinite(float(metrics["loss/total"]))
+            and tel["lag"]["max"] > 0
+            and tel["queue"]["wire_received"] > 0):
+        raise AssertionError(f"process learning run: "
+                             f"{tel['learner_updates']} updates, version "
+                             f"{tel['param_version']}, lag {tel['lag']}, "
+                             f"queue {tel['queue']}")
+    if not (late > early + CATCH_CLIMB and late > CATCH_LATE):
+        raise AssertionError(f"process catch: last 100 mean {late:.3f}, "
+                             f"first 500 mean {early:.3f}; the bar is a "
+                             f"climb of more than {CATCH_CLIMB} to above "
+                             f"{CATCH_LATE}")
+    print(f"process learning bar: catch (smoke impala-shallow, process "
+          f"backend) last 100 mean {late:.3f} > first 500 mean "
+          f"{early:.3f} + {CATCH_CLIMB}, and > {CATCH_LATE}; "
+          f"{len(returns)} episodes, wire {tel['queue']['wire_received']} "
+          f"buffers, lag mean {tel['lag']['mean']:.3f} max "
+          f"{tel['lag']['max']}, learner frames/s "
+          f"{tel['frames_per_sec']:.0f}")
+    return late
+
+
+def phase_remote(vk, dev) -> int:
+    """Remote actors over loopback TCP (6q), three runs; returns K2's
+    launches over them."""
+    k2 = 0
+    for what, argv in REMOTE_RUNS:
+        run, launches, before, update_ms, prof = _async_run(
+            vk, argv, REMOTE_STEPS)
+        tel, q, lag, loss = _check_wire_run(what, run, launches,
+                                            REMOTE_STEPS)
+        if tel["actors"]["backend"] != "remote" or q["frames_in"] < 1:
+            raise AssertionError(f"{what}: {tel['actors']}, {q}")
+        codec = q["wire_codec"]
+        diet = q["traj_raw_bytes"] / max(1, q["traj_wire_bytes"])
+        if codec == "bf16" and not diet > WIRE_DIET:
+            raise AssertionError(f"{what}: raw/wire bytes {diet:.3f}, "
+                                 f"not above {WIRE_DIET}")
+        k2 += launches["loss_vtrace"]
+        extra = ""
+        if "inference" in tel:
+            inf = tel["inference"]
+            extra = (f"; flushes {inf['flushes']} (full {inf['flush_full']}"
+                     f", ready {inf['flush_ready']}, deadline "
+                     f"{inf['flush_timeout']}), queue wait p95 "
+                     f"{inf['queue_wait_ms_p95']:.3f} ms")
+        print(f"{what}: {REMOTE_STEPS} updates, K2 launches "
+              f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final "
+              f"loss {loss:.4f}; frames in {q['frames_in']}, decode errors "
+              f"{q['decode_errors']}, torn tails {q['torn_tails']}, "
+              f"reconnects {q['reconnects']}; wire codec {codec}: "
+              f"{q['traj_wire_bytes']} wire bytes for "
+              f"{q['traj_raw_bytes']} raw ({diet:.3f}x); learner frames/s "
+              f"{before['frames_per_sec']:.0f}, actor frames/s "
+              f"{before['actors']['actor_fps']:.0f}; lag mean "
+              f"{lag['mean']:.3f} max {lag['max']}" + extra)
+        _print_busy(f"{what} update", prof, ASYNC_WINDOW, update_ms)
+    return k2
 
 
 def phase_multitask(vk, dev) -> int:
@@ -1782,8 +2031,14 @@ def main() -> int:
     chase_launches, _ = phase_async_replay(
         vk, dev, CHASE_REPLAY_ARGV, CHASE_ASYNC_STEPS, "chase async replay")
     launches["vtrace"] += chase_launches["vtrace"]
-    launches["loss_vtrace"] += phase_inference(vk, dev, async_before)
+    infer_launches, infer_fps = phase_inference(vk, dev, async_before)
+    launches["loss_vtrace"] += infer_launches
     phase_inference_bar(dev)
+    launches["loss_vtrace"] += phase_process(vk, dev, async_before)
+    launches["loss_vtrace"] += phase_process_inference(vk, dev,
+                                                       infer_fps)
+    phase_process_bar(dev)
+    launches["loss_vtrace"] += phase_remote(vk, dev)
     launches["loss_vtrace"] += phase_multitask(vk, dev)
     launches["loss_vtrace"] += phase_pbt(vk, dev)
     phase_split(run, dev)

@@ -20,15 +20,22 @@ A partial flush is padded up to its bucket by repeating the last request
 (its duplicate replies are discarded), so the forward sees at most
 log2 shapes. Each bucket runs the forward eagerly.
 
-Only the thread frontend is ported: ``service.connect()`` clients submit
-live numpy requests on a lock-protected deque and get replies through an
-Event. Their threads run the flushes themselves (leader-executed
-flushes, ``submit_and_wait``; ``drive_flushes`` for the one-thread
-inference driver; a ``wait`` past the flush deadline flushes the
-stragglers), so the service starts no thread of its own: the reference's
-background flusher serves process frontends only, which come with the
-process pools (``attach_frontend``, ``process_frontend``; ROADMAP.md,
-Queue 1 item 10).
+Two client frontends share the service core:
+
+  thread    ``service.connect()`` clients submit live numpy requests on
+            a lock-protected deque and get replies through an Event.
+            Their threads run the flushes themselves (leader-executed
+            flushes, ``submit_and_wait``; ``drive_flushes`` for the
+            one-thread inference driver; a ``wait`` past the flush
+            deadline flushes the stragglers).
+  process   ``service.process_frontend(ctx, n)``: requests travel as
+            serde-encoded frames over a bounded multiprocessing wire,
+            replies go back serde-encoded over a per-client pipe. Such
+            requests have no waiting thread in this process, so
+            attaching a frontend starts the service's own flusher thread
+            (``_loop``), which applies the full/ready/timeout rules and
+            so honours ``flush_timeout_s`` as a deadline. The socket
+            transport's frontend (``netserve``) attaches the same way.
 
 On the card a flush is one round trip: the requests are packed into one
 pinned host buffer and cross to the card in one copy, on the service's
@@ -60,16 +67,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import actor as actor_lib
+from repro_torch.distributed import serde
 from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.models import backbone as bb
 from repro_torch.params import tree_leaves
 
 PyTree = Any
 
-def _unported_frontend() -> NotImplementedError:
-    return NotImplementedError(
-        "process frontends of the inference service are not ported yet "
-        "(ROADMAP.md, Queue 1 item 10: process and socket actor pools)")
+_STOP_FRAME = b""          # reply-pipe sentinel: service shut down
 
 
 def require_cnn(arch_cfg) -> None:
@@ -235,8 +240,18 @@ class InferenceService:
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         self._pending: collections.deque = collections.deque()
-        self._clients = 0           # connected clients
+        self._clients = 0           # connected clients (both frontends)
+        self._paused = 0            # clients blocked outside the service
         self._stop = threading.Event()
+        self._frontends: List[Any] = []
+        self.errors: List[BaseException] = []
+        # the background flusher serves frontends only: thread clients
+        # flush for themselves
+        self._thread = threading.Thread(target=self._loop,
+                                        name="inference-service",
+                                        daemon=True)
+        self._started = False
+        self._loop_needed = False
 
         # telemetry: written under self._lock, read by snapshot()
         if registry is None:
@@ -278,17 +293,40 @@ class InferenceService:
         h, c = out.cache
         return out.policy_logits[:, 0], h, c
 
+    def _loop(self) -> None:
+        """The flusher thread of the frontends: flush whenever the rules
+        say so, sleeping until the oldest request's deadline otherwise."""
+        try:
+            while not self._stop.is_set():
+                with self._cond:
+                    batch, reason = self._take_locked()
+                    if batch is None:
+                        remaining = 0.05
+                        if self._pending:
+                            oldest = self._pending[0].submitted_at
+                            remaining = max(0.0, self.flush_timeout_s -
+                                            (time.monotonic() - oldest))
+                        self._cond.wait(min(0.05, remaining))
+                        continue
+                self._run_flush(batch, reason)
+        except BaseException as e:     # surfaces in the learner thread
+            self.errors.append(e)
+            self.stop()
+
     def _take_locked(self) -> Tuple[Optional[List[_Pending]], str]:
         """Decide (under the lock) whether to flush now; pops the batch."""
         n = len(self._pending)
         if n == 0:
             return None, ""
+        active = self._clients - self._paused
         if n >= self.max_batch_requests:
             k, reason = self.max_batch_requests, "full"
-        elif self._clients and n >= self._clients:
-            # every connected client has a request in: waiting out the
-            # timeout cannot grow the batch. Take everything up
-            # to the bucket — the flush pads partial batches
+        elif self._clients and n >= max(1, active):
+            # every client that *can* submit has a request in (paused
+            # ones are blocked elsewhere, on trajectory backpressure):
+            # waiting out the timeout cannot grow the batch. Take
+            # everything up to the bucket — the flush pads partial
+            # batches
             k, reason = min(n, self.max_batch_requests), "ready"
         elif (time.monotonic() - self._pending[0].submitted_at
                 >= self.flush_timeout_s):
@@ -354,23 +392,40 @@ class InferenceService:
         for p in batch:
             b = p.data["last_action"].shape[0]
             rows = slice(off, off + b)
-            p.reply_fn(InferenceReply(actions[rows], r[rows, 1],
-                                      (r[rows, 2:2 + w], r[rows, 2 + w:]),
-                                      version))
+            try:
+                p.reply_fn(InferenceReply(
+                    actions[rows], r[rows, 1],
+                    (r[rows, 2:2 + w], r[rows, 2 + w:]), version))
+            except Exception as e:      # a dead pipe must not kill a flush
+                self.errors.append(e)
             off += b
 
     # ------------------------------------------------------------------
     # submission + thread frontend
 
+    def submit(self, data: PyTree,
+               reply_fn: Callable[[Optional[InferenceReply]], None],
+               submitted_at: Optional[float] = None) -> bool:
+        """Queue one request for the background flusher; False iff the
+        service is shut down (no reply comes). The frontends' path."""
+        with self._cond:
+            if self._stop.is_set():
+                return False
+            self._pending.append(_Pending(
+                data, reply_fn, submitted_at or time.monotonic()))
+            self._cond.notify()
+        return True
+
     def submit_async(self, data: PyTree) -> Optional[_Waiter]:
         """Queue one request and return a waiter (None if shut down).
-        The caller, or another client's thread, flushes it."""
+        The caller, another client's thread or the flusher flushes it."""
         w = _Waiter()
         with self._cond:
             if self._stop.is_set():
                 return None
             self._pending.append(_Pending(data, w.deliver,
                                           time.monotonic()))
+            self._cond.notify()
         return w
 
     def wait(self, w: _Waiter) -> Optional[InferenceReply]:
@@ -432,28 +487,76 @@ class InferenceService:
     def _disconnect(self) -> None:
         with self._cond:
             self._clients = max(0, self._clients - 1)
+            self._cond.notify()     # remaining pending may now be "ready"
+
+    def _pause(self) -> None:
+        """A client blocked outside the service (its transport put is
+        backpressured): stop counting it towards the ready rule, so the
+        others' batches flush without waiting out the deadline for it."""
+        with self._cond:
+            self._paused += 1
+            self._cond.notify()
+
+    def _resume(self) -> None:
+        with self._cond:
+            self._paused = max(0, self._paused - 1)
 
     def attach_frontend(self, fe, num_clients: int = 0) -> None:
-        raise _unported_frontend()
+        """Register a frontend (process pipes, sockets): count its clients
+        towards the ready rule and make sure the flusher thread runs,
+        since frontend submits have no waiting thread here."""
+        with self._lock:
+            self._clients += num_clients
+        self._frontends.append(fe)
+        self._loop_needed = True
+        if self._started and not self._thread.is_alive():
+            self._thread.start()
 
     def process_frontend(self, ctx, num_clients: int,
-                         wire_capacity: Optional[int] = None):
-        raise _unported_frontend()
+                         wire_capacity: Optional[int] = None
+                         ) -> "ProcessFrontend":
+        fe = ProcessFrontend(self, ctx, num_clients, wire_capacity)
+        # clients are counted per register() call, not up front
+        self.attach_frontend(fe, num_clients=0)
+        return fe
 
     # ------------------------------------------------------------------
     # lifecycle
 
+    def start(self) -> None:
+        if not self._started:
+            self._started = True
+            if self._loop_needed:
+                self._thread.start()
+
     def stop(self) -> None:
         """Shut down: wake every blocked client with a None reply. Safe
-        to call from any thread, idempotent."""
+        to call from any thread, idempotent. Process frontends are closed
+        by the pool that made them, after its children joined."""
         with self._cond:
             if self._stop.is_set():
                 return
             self._stop.set()
             drained = list(self._pending)
             self._pending.clear()
+            self._cond.notify_all()
         for p in drained:
-            p.reply_fn(None)
+            try:
+                p.reply_fn(None)
+            except Exception:
+                pass
+        if self._thread.is_alive() and \
+                self._thread is not threading.current_thread():
+            self._thread.join(timeout=5.0)
+
+    @property
+    def closed(self) -> bool:
+        return self._stop.is_set()
+
+    def raise_errors(self) -> None:
+        if self.errors:
+            raise RuntimeError("inference service failed") from \
+                self.errors[0]
 
     # ------------------------------------------------------------------
 
@@ -488,24 +591,251 @@ class InferenceClient:
 
     def __init__(self, service: InferenceService):
         self._svc = service
+        self._paused = False
 
     def infer(self, data: PyTree) -> Optional[InferenceReply]:
         """None means the service shut down: stop producing."""
         return self._svc.submit_and_wait(data)
 
+    def submit_async(self, data: PyTree) -> Optional[_Waiter]:
+        """Pipeline half of ``infer``; pair with ``wait``."""
+        return self._svc.submit_async(data)
+
+    def wait(self, w: Optional[_Waiter]) -> Optional[InferenceReply]:
+        return None if w is None else self._svc.wait(w)
+
+    def pause(self) -> None:
+        """This client left the request loop (transport backpressure):
+        batches do not wait for it. Idempotent."""
+        if not self._paused:
+            self._paused = True
+            self._svc._pause()
+
+    def resume(self) -> None:
+        if self._paused:
+            self._paused = False
+            self._svc._resume()
+
     def close(self) -> None:
+        self.resume()       # a paused client must not leak the count
         self._svc._disconnect()
 
 
-class ProcessFrontend:
-    """Parent-side bridge for actor *processes*: not ported yet."""
+def _encode_reply(r: InferenceReply, meta: Dict[str, Any]) -> bytes:
+    return serde.encode_tree(
+        {"action": np.asarray(r.action),
+         "logprob": np.asarray(r.logprob),
+         "lstm_h": np.asarray(r.lstm_state[0]),
+         "lstm_c": np.asarray(r.lstm_state[1])}, meta=meta)
 
-    def __init__(self, *args, **kwargs):
-        raise _unported_frontend()
+
+def _decode_reply(buf: bytes) -> Tuple[InferenceReply, Dict[str, Any]]:
+    tree, meta = serde.decode_tree(buf, copy=True)
+    return (InferenceReply(tree["action"], tree["logprob"],
+                           (tree["lstm_h"], tree["lstm_c"]),
+                           int(meta["version"])), meta)
+
+
+class ProcessFrontend:
+    """Parent-side bridge for actor *processes*: serde request frames in
+    over one bounded wire, encoded replies out over per-client pipes.
+
+    Mirrors ``ShmTransport``'s shutdown discipline: ``begin_shutdown``
+    flips the drain loop to discard so children winding down can always
+    flush their queue feeders; ``close`` (after the children are joined)
+    tears the wire down."""
+
+    def __init__(self, service: InferenceService, ctx, num_clients: int,
+                 wire_capacity: Optional[int] = None):
+        self._svc = service
+        self._ctx = ctx
+        self._wire = ctx.Queue(maxsize=wire_capacity or
+                               max(2, num_clients * 2))
+        self._reply_conns: Dict[int, Any] = {}
+        self._paused_cids: set = set()
+        self._discard = False
+        self._stop_evt = threading.Event()
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop,
+                                        name="inference-frontend",
+                                        daemon=True)
+
+    def register(self, client_id: int) -> "PipeInferenceClient":
+        """The picklable child-side handle of one client (one pipeline
+        stream of one actor process). Call before spawning; the parent
+        keeps the reply send-end."""
+        recv_conn, send_conn = self._ctx.Pipe(duplex=False)
+        self._reply_conns[client_id] = send_conn
+        with self._svc._lock:
+            self._svc._clients += 1
+        return PipeInferenceClient(client_id, self._wire, recv_conn)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def _reply_fn_for(self, client_id: int
+                      ) -> Callable[[Optional[InferenceReply]], None]:
+        conn = self._reply_conns[client_id]
+
+        def reply(r: Optional[InferenceReply]) -> None:
+            buf = (_STOP_FRAME if r is None else
+                   _encode_reply(r, {"version": int(r.param_version)}))
+            try:
+                conn.send_bytes(buf)
+            except (OSError, BrokenPipeError, ValueError):
+                pass                    # client exited first: fine
+
+        return reply
+
+    def _loop(self) -> None:
+        import queue as stdlib_queue
+        while not self._stop_evt.is_set():
+            try:
+                buf = self._wire.get(timeout=0.1)
+            except stdlib_queue.Empty:
+                continue
+            except (EOFError, OSError):
+                break
+            try:
+                data, meta = serde.decode_tree(buf)   # zero-copy views
+            except serde.SerdeError as e:
+                self._svc.errors.append(e)
+                continue
+            cid = int(meta["client"])
+            ctl = meta.get("ctl")
+            if ctl is not None:
+                # pause/resume hints, tracked per client id so duplicated
+                # or reordered hints never over- or under-count the
+                # service's paused total
+                if ctl == "pause" and cid not in self._paused_cids:
+                    self._paused_cids.add(cid)
+                    self._svc._pause()
+                elif ctl == "resume" and cid in self._paused_cids:
+                    self._paused_cids.discard(cid)
+                    self._svc._resume()
+                continue
+            if self._discard or self._svc.closed:
+                # shutdown: keep the wire flowing so child feeders can
+                # always flush, and unblock the sender promptly
+                self._reply_fn_for(cid)(None)
+                continue
+            if not self._svc.submit(data, self._reply_fn_for(cid),
+                                    float(meta.get("t0",
+                                                   time.monotonic()))):
+                self._reply_fn_for(cid)(None)
+
+    def begin_shutdown(self) -> None:
+        """Flip to discard: the wire keeps draining but nothing reaches
+        the service anymore."""
+        self._discard = True
+
+    def close(self) -> None:
+        """Call after the client processes are joined."""
+        if self._closed:
+            return
+        self._closed = True
+        self._discard = True
+        self._stop_evt.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=5.0)
+        try:
+            while True:
+                self._wire.get_nowait()
+        except Exception:
+            pass
+        self._wire.close()
+        self._wire.cancel_join_thread()
+        for conn in self._reply_conns.values():
+            try:
+                conn.close()
+            except OSError:
+                pass
 
 
 class PipeInferenceClient:
-    """Child-side client of a ``ProcessFrontend``: not ported yet."""
+    """Picklable child-side handle: encodes the request tree, ships it
+    over the shared wire, blocks (stop-aware) on its private reply pipe.
+    Moves only serde buffers."""
 
-    def __init__(self, *args, **kwargs):
-        raise _unported_frontend()
+    def __init__(self, client_id: int, wire: Any, conn: Any):
+        self._id = client_id
+        self._wire = wire
+        self._conn = conn
+        self._stop: Optional[Any] = None    # bound by the child at start
+        self._paused = False
+
+    def bind_stop(self, stop_event: Any) -> None:
+        self._stop = stop_event
+
+    def _send_ctl(self, ctl: str, tries: int = 1) -> None:
+        import queue as stdlib_queue
+        buf = serde.encode_tree(None, meta={"client": self._id,
+                                            "ctl": ctl})
+        for _ in range(tries):
+            if self._stop is not None and self._stop.is_set():
+                return
+            try:
+                self._wire.put(buf, timeout=0.05)
+                return
+            except stdlib_queue.Full:
+                continue
+            except Exception:
+                return                  # closed wire: shutting down
+
+    def pause(self) -> None:
+        """Tell the service this client left the request loop. A tiny
+        meta-only control frame rides the same FIFO wire, behind this
+        client's requests. Best-effort: a lost pause costs the others one
+        flush-deadline wait."""
+        if not self._paused:
+            self._paused = True
+            self._send_ctl("pause")
+
+    def resume(self) -> None:
+        """A lost *resume* would leave the service under-counting active
+        clients for the rest of the run, so it retries hard."""
+        if self._paused:
+            self._paused = False
+            self._send_ctl("resume", tries=40)
+
+    def submit_async(self, data: PyTree) -> Optional[bool]:
+        """Ship the request frame; ``wait`` reads the reply. One
+        outstanding request per client (each pipeline stream holds its
+        own client, so FIFO on the private reply pipe is enough)."""
+        import queue as stdlib_queue
+        buf = serde.encode_tree(
+            data, meta={"client": self._id, "t0": time.monotonic()})
+        while True:
+            if self._stop is not None and self._stop.is_set():
+                return None
+            try:
+                self._wire.put(buf, timeout=0.1)
+                return True
+            except stdlib_queue.Full:
+                continue
+            except (ValueError, OSError):
+                return None
+
+    def wait(self, token: Optional[bool]) -> Optional[InferenceReply]:
+        if token is None:
+            return None
+        while not self._conn.poll(0.1):
+            if self._stop is not None and self._stop.is_set():
+                return None
+        try:
+            rbuf = self._conn.recv_bytes()
+        except (EOFError, OSError):
+            return None
+        if rbuf == _STOP_FRAME:
+            return None
+        return _decode_reply(rbuf)[0]
+
+    def infer(self, data: PyTree) -> Optional[InferenceReply]:
+        return self.wait(self.submit_async(data))
+
+    def close(self) -> None:
+        self.resume()
+        try:
+            self._conn.close()
+        except OSError:
+            pass

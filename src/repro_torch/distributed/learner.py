@@ -491,6 +491,11 @@ class Learner:
         self.pool = pool
         self.service = service
 
+    def _raise_worker_errors(self) -> None:
+        self.pool.raise_errors()
+        if self.service is not None:
+            self.service.raise_errors()
+
     def _mark(self):
         """An event after the work queued so far on the current stream
         (None on the CPU)."""
@@ -601,7 +606,7 @@ class Learner:
         shapes (K2's, cuDNN's plans) stay out of the timed window."""
         first = None
         while first is None:
-            self.pool.raise_errors()
+            self._raise_worker_errors()
             first = self.queue.get(timeout=0.5)
         if self._stream is not None:
             _record_stream(first.data, self._stream)
@@ -644,6 +649,8 @@ class Learner:
         if self._stream is not None:
             # the initial params were written on the caller's stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self.service is not None:
+            self.service.start()
         self.pool.start()
         try:
             with torch.cuda.stream(self._stream):
@@ -662,7 +669,7 @@ class Learner:
         if self._stream is not None:
             # the caller reads the params on its own stream
             torch.cuda.current_stream(self.device).wait_stream(self._stream)
-        self.pool.raise_errors()
+        self._raise_worker_errors()
         return self.metrics, final_telemetry
 
     def _loop(self, steps, warm_buckets, on_update, should_stop,
@@ -672,7 +679,7 @@ class Learner:
         while self.updates < steps:
             if should_stop is not None and should_stop():
                 break
-            self.pool.raise_errors()
+            self._raise_worker_errors()
             item = self.queue.get(timeout=0.5)
             if item is None:
                 continue

@@ -15,19 +15,28 @@ tree was written; an actor on another stream waits for it before it
 reads the tree. It is None on the CPU, where every op has finished when
 it returns.
 
-Serialized pulls for actor processes (``pull_serialized``) come with the
-process pools (ROADMAP.md, Queue 1 item 10): ``serialized_wire_bytes``
-and ``serialized_raw_bytes`` stay 0, as they do on the JAX package's
-in-process path.
+Actor *processes* cannot share the live tree, so the store also has a
+serialized subscribe path: ``pull_serialized(have_version)`` returns a
+serde-encoded buffer only when something newer than ``have_version`` is
+published (else None, a cheap "you're current"). The encode runs at most
+once per published version and is cached, so N subscribing children
+cost one device-to-host copy per update, not N. That copy runs on the
+store's own CUDA stream after it waited for the publish's ``ready``
+event (the tree is written on the learner's stream; a plain ``.cpu()``
+on the caller's thread could read it half-written), into pinned buffers
+reused from version to version.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any, Tuple
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+from repro_torch.distributed import serde
+from repro_torch.params import tree_leaves, tree_unflatten_like
 
 PyTree = Any
-
-WIRE_CODECS = ("none", "bf16", "int8")
 
 
 class ParameterStore:
@@ -36,18 +45,23 @@ class ParameterStore:
 
     def __init__(self, params: PyTree, version: int = 0,
                  wire_codec: str = "none", ready: Any = None):
-        if wire_codec not in WIRE_CODECS:
-            raise ValueError(f"unsupported wire codec {wire_codec!r} "
-                             f"(this side speaks {', '.join(WIRE_CODECS)})")
         self._lock = threading.Lock()
         self._params = params
         self._version = version
         self._ready = ready
-        self.wire_codec = wire_codec
+        self.wire_codec = serde.check_codec(wire_codec)
         self.publishes = 0
         self.pulls = 0
-        self.serialized_wire_bytes = 0
-        self.serialized_raw_bytes = 0
+        self.serialized_pulls = 0
+        self.serialized_encodes = 0
+        self.serialized_wire_bytes = 0   # last encode: bytes on the wire
+        self.serialized_raw_bytes = 0    # last encode: raw leaf bytes
+        self._ser_cache: Optional[Tuple[int, bytes]] = None
+        # one encoder at a time (the param server thread, or the socket
+        # transport's connection threads): it owns the pinned buffers
+        self._ser_lock = threading.Lock()
+        self._pinned: Optional[List[torch.Tensor]] = None
+        self._copy_stream = None
 
     def publish(self, params: PyTree, ready: Any = None) -> int:
         """Install new params; returns the new version."""
@@ -87,6 +101,57 @@ class ParameterStore:
         with self._lock:
             self.pulls += 1
             return self._params, self._version, self._ready
+
+    def pull_serialized(self, have_version: int = -1
+                        ) -> Optional[Tuple[bytes, int]]:
+        """(encoded params, version) if anything newer than
+        ``have_version`` is published, else None. Encoded once per
+        version, outside the publish lock."""
+        with self._lock:
+            self.serialized_pulls += 1
+            version = self._version
+            if version <= have_version:
+                return None
+            params, ready = self._params, self._ready
+            cached = self._ser_cache
+        if cached is not None and cached[0] == version:
+            return cached[1], version
+        with self._ser_lock:
+            cached = self._ser_cache
+            if cached is not None and cached[0] >= version:
+                return cached[1], cached[0]
+            buf = serde.encode_tree(self._host_view(params, ready),
+                                    codec=self.wire_codec)
+            self.serialized_encodes += 1
+            self._ser_cache = (version, buf)
+            self.serialized_wire_bytes = len(buf)
+            self.serialized_raw_bytes = serde.tree_nbytes(params)
+        return buf, version
+
+    def _host_view(self, params: PyTree, ready: Any) -> PyTree:
+        """``params`` readable on the host: CPU trees as they are; a tree
+        on the card copied into the store's pinned buffers on its own
+        stream, after ``ready``, and waited for. Called under
+        ``_ser_lock``."""
+        leaves = tree_leaves(params)
+        if not any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in leaves):
+            return params
+        if self._pinned is None or [tuple(p.shape) for p in self._pinned] \
+                != [tuple(x.shape) for x in leaves]:
+            self._pinned = [torch.empty(x.shape, dtype=x.dtype,
+                                        pin_memory=True) for x in leaves]
+            self._copy_stream = torch.cuda.Stream(leaves[0].device)
+        stream = self._copy_stream
+        with torch.cuda.stream(stream):
+            if ready is not None:
+                stream.wait_event(ready)
+            for dst, x in zip(self._pinned, leaves):
+                dst.copy_(x.detach(), non_blocking=True)
+        # ``params`` stays referenced until the copies finished, so the
+        # allocator cannot hand its blocks to another stream meanwhile
+        stream.synchronize()
+        return tree_unflatten_like(params, self._pinned)
 
     @property
     def version(self) -> int:

@@ -38,18 +38,34 @@ actor's ``fold_in(key(seed), actor_id)``. The id is the *global* slot id,
 so an actor's stream does not depend on how slots are sharded.
 
 In inference mode each logical actor's env draws come from a CPU
-``torch.Generator`` seeded the same way. The serialized loops and the
-pipelined inference actor of the process pools come with them (ROADMAP.md,
-Queue 1 item 10).
+``torch.Generator`` seeded the same way.
+
+The serialized entries (``run_serialized_unroll_actor``,
+``run_serialized_inference_actor`` and the spawn targets
+``process_actor_main`` / ``inference_actor_main``) run an actor on the
+far side of a byte boundary: a spawned child process (shm transport) or
+a remote machine (socket transport). The child acts on the CPU: it sets
+``CUDA_VISIBLE_DEVICES`` empty before anything could touch the card, so
+it never creates a CUDA context nor loads the kernels, and it pins torch
+to one thread, so N children do not each start one OpenMP thread per
+core and take the host from the learner, whose launches set the pace.
+Its seeds follow the thread actors' ``actor_seed`` scheme, so a thread
+run and a process run with the same seed act out the same per-actor
+randomness.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
+import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import serde
 from repro_torch.distributed.serde import TrajectoryItem
 
 PyTree = Any
@@ -85,7 +101,10 @@ def run_actor_loop(
     device = torch.device(device)
     init_fn, unroll = builder
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    with torch.cuda.stream(stream):
+    # no torch.cuda call at all on the CPU: an actor child must not
+    # create a CUDA context
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
         carry = init_fn(actor_seed(seed, actor_id))
         while not should_stop():
             pulled = pull_params()
@@ -165,7 +184,7 @@ class _ActingState:
     """Per logical-actor carry for the inference acting loop: everything
     the threaded layout would keep on an actor thread's stack."""
 
-    __slots__ = ("uid", "gen", "state", "obs_image", "last_action",
+    __slots__ = ("uid", "client", "gen", "state", "obs_image", "last_action",
                  "last_reward", "done", "h", "c", "steps", "version",
                  "handle")
 
@@ -188,11 +207,12 @@ def _make_inference_env_fns(env, n: int):
     return reset_batch, step_batch
 
 
-def _init_acting_state(uid: int, seed: int, reset_batch, arch_cfg,
-                       n: int) -> _ActingState:
+def _init_acting_state(uid: int, gen_seed: int, reset_batch, arch_cfg,
+                       n: int, client=None) -> _ActingState:
     st = _ActingState()
     st.uid = uid
-    st.gen = torch.Generator().manual_seed(actor_seed(seed, uid))
+    st.client = client
+    st.gen = torch.Generator().manual_seed(gen_seed)
     st.state, ts = reset_batch(st.gen)
     st.obs_image = ts.obs_image.numpy()
     st.last_action = np.zeros((n,), np.int32)
@@ -266,8 +286,8 @@ def run_inference_driver_loop(
     transport backpressure, which stalls all acting."""
     t_len = icfg.unroll_length
     reset_batch, step_batch = _make_inference_env_fns(env, num_envs)
-    actors = [_init_acting_state(aid, seed, reset_batch, arch_cfg,
-                                 num_envs) for aid in actor_ids]
+    actors = [_init_acting_state(aid, actor_seed(seed, aid), reset_batch,
+                                 arch_cfg, num_envs) for aid in actor_ids]
     while not should_stop():
         init_lstm = {a.uid: (a.h, a.c) for a in actors}
         for a in actors:
@@ -293,3 +313,425 @@ def run_inference_driver_loop(
             if not emit(a.uid, TrajectoryItem(traj, a.version, a.uid,
                                               time.monotonic())):
                 return
+
+
+def _stream_seed(seed: int, actor_id: int, stream: int,
+                 n_streams: int) -> int:
+    """Generator seed of one pipeline stream of an inference actor: the
+    thread driver's ``actor_seed`` for a single stream, so both backends
+    act out the same randomness; one stream of its own per stream
+    otherwise."""
+    if n_streams == 1:
+        return actor_seed(seed, actor_id)
+    return int(np.random.SeedSequence(
+        (seed, actor_id, 2, stream)).generate_state(1)[0])
+
+
+def _concat_trajs(trajs: List[Any]) -> Any:
+    """Recombine per-stream trajectories along the batch axis."""
+    t0 = trajs[0]
+    if isinstance(t0, dict):
+        return {k: _concat_trajs([t[k] for t in trajs]) for k in t0}
+    if isinstance(t0, tuple):
+        return tuple(_concat_trajs([t[i] for t in trajs])
+                     for i in range(len(t0)))
+    return np.concatenate(trajs, axis=0)
+
+
+def run_inference_actor_loop(
+    *,
+    actor_id: int,
+    env,
+    arch_cfg,
+    icfg,
+    num_envs: int,
+    seed: int,
+    clients: List[Any],
+    emit: Callable[[Any], bool],
+    should_stop: Callable[[], bool],
+    on_unroll: Optional[Callable[[], None]] = None,
+) -> None:
+    """Drive one *inference-mode* actor of a process or remote pool:
+    host-side env stepping against the shared batched-inference service.
+
+    ``clients`` is one service client per **pipeline stream**: the env
+    batch is split evenly across them, and the streams are
+    software-pipelined: while one stream's request is in flight (in a
+    flush on the learner's card), the actor steps the other stream's
+    envs. With a single client the loop is the plain submit/step
+    alternation. Each client exposes ``submit_async(request) -> handle |
+    None``, ``wait(handle) -> InferenceReply | None`` (None: the service
+    shut down), ``infer`` and ``pause``/``resume``.
+
+    The emitted trajectory recombines the streams along the batch axis in
+    the unroll actor's layout (``assemble_inference_traj``), numpy
+    throughout, and is stamped with the oldest first-step param version
+    across streams, so measured lag stays conservative."""
+    t_len = icfg.unroll_length
+    n_streams = len(clients)
+    if num_envs % n_streams:
+        raise ValueError(f"num_envs={num_envs} must divide evenly over "
+                         f"{n_streams} pipeline streams")
+    n_sub = num_envs // n_streams
+    reset_batch, step_batch = _make_inference_env_fns(env, n_sub)
+    streams = [
+        _init_acting_state(s, _stream_seed(seed, actor_id, s, n_streams),
+                           reset_batch, arch_cfg, n_sub, client=client)
+        for s, client in enumerate(clients)]
+
+    while not should_stop():
+        init_lstm = [(st.h, st.c) for st in streams]
+        for st in streams:
+            st.steps = []
+            st.version = None
+            if n_streams > 1:
+                st.handle = st.client.submit_async(_acting_request(st))
+        for t in range(t_len):
+            for st in streams:
+                if n_streams > 1:
+                    # while this wait blocks, the other streams' requests
+                    # are pending service-side and our env step below
+                    # overlaps their flush
+                    reply = st.client.wait(st.handle)
+                else:
+                    reply = st.client.infer(_acting_request(st))
+                if reply is None:
+                    return              # service shut down mid-unroll
+                _record_reply_and_step(st, reply, step_batch)
+                if n_streams > 1 and t + 1 < t_len:
+                    st.handle = st.client.submit_async(_acting_request(st))
+        trajs = [assemble_inference_traj(st.steps, _acting_boot(st),
+                                         init_lstm[s], icfg)
+                 for s, st in enumerate(streams)]
+        traj = trajs[0] if n_streams == 1 else _concat_trajs(trajs)
+        version = min(st.version for st in streams)
+        if on_unroll is not None:
+            on_unroll()
+        if not emit(TrajectoryItem(traj, version, actor_id,
+                                   time.monotonic())):
+            break
+
+
+# ---------------------------------------------------------------------------
+# serialized-actor scaffolding, shared by the pipe (process) and socket
+# (remote) backends: the loop bodies above never see the wire; what
+# varies is how params arrive (``pull_msg``) and where encoded trajectory
+# buffers go (``send_buf``)
+
+
+class _ParamSlots:
+    """The child's two parameter trees, filled in place by the subscriber
+    thread and handed to the unroll by ``pull``. A tree handed out stays
+    unwritten until the next ``pull`` (the unroll reads it throughout),
+    so each new version is decoded into the *other* tree, under the lock
+    ``pull`` takes: an unroll never sees a torn tree."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._trees: List[Any] = []
+        self._current = -1      # index of the newest tree
+        self._in_use = -1       # index handed to the unroll
+        self.version = -1
+
+    def install(self, buf: bytes, version: int) -> None:
+        with self._lock:
+            # the tree not handed out (before any pull: not the newest)
+            held = self._in_use if self._in_use >= 0 else self._current
+            target = 1 - held if held >= 0 else 0
+            try:
+                if not self._trees:
+                    raise serde.SerdeError("no tree yet")
+                serde.decode_tree_into(buf, self._trees[target])
+            except serde.SerdeError:
+                # first version, or a structure change: allocate anew
+                tree, _ = serde.decode_tree(buf, copy=True)
+                self._trees = [_tensor_tree(tree), _tensor_tree(tree)]
+                self._in_use = -1
+                target = 0
+            self._current = target
+            self.version = version
+
+    def pull(self) -> Optional[Tuple[Any, int]]:
+        with self._lock:
+            if self._current < 0:
+                return None
+            self._in_use = self._current
+            return self._trees[self._current], self.version
+
+
+def _tensor_tree(tree):
+    """A decoded numpy tree as CPU tensors that own their memory."""
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensor_tree(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return torch.from_numpy(np.array(tree))
+
+
+def _run_sender(stop, encode: Callable[[Any], bytes],
+                send_buf: Callable[[bytes], bool]):
+    """A *sender* thread owning encode + send behind a depth-1 outbox:
+    deep enough to overlap the send with the next unroll, shallow enough
+    that wire backpressure stalls the actor within two trajectories.
+    Returns (emit, close)."""
+    import queue as stdlib_queue
+
+    outbox: stdlib_queue.Queue = stdlib_queue.Queue(maxsize=1)
+
+    def send_loop():
+        while True:
+            try:
+                item = outbox.get(timeout=0.1)
+            except stdlib_queue.Empty:
+                if stop.is_set():
+                    return
+                continue
+            if item is None or not send_buf(encode(item)):
+                return              # done, or the channel says so
+
+    snd = threading.Thread(target=send_loop, daemon=True,
+                           name="traj-sender")
+    snd.start()
+
+    def offer(item, on_block=None) -> bool:
+        blocked = False
+        try:
+            while not stop.is_set():
+                try:
+                    outbox.put(item, timeout=0.1)
+                    return True
+                except stdlib_queue.Full:
+                    if not blocked and on_block is not None:
+                        blocked = True
+                        on_block(True)
+                    continue        # wire backpressure reached us
+        finally:
+            if blocked:
+                on_block(False)
+        return False
+
+    def close():
+        try:
+            outbox.put_nowait(None)
+        except stdlib_queue.Full:
+            pass
+        snd.join(timeout=5.0)
+
+    return offer, close
+
+
+def run_serialized_unroll_actor(*, actor_id: int, env_name: str,
+                                arch_cfg, icfg, num_envs: int, seed: int,
+                                send_buf: Callable[[bytes], bool],
+                                pull_msg: Callable[[int], Optional[Tuple]],
+                                stop, wire_codec: str = "none") -> None:
+    """One unroll-mode actor on the far side of a serialized boundary,
+    acting on the CPU.
+
+    ``pull_msg(have_version)`` returns ``("params", version, buf)``,
+    ``("keep",)``, ``("stop",)`` or None (a pipe wrapper or a socket
+    pull); a channel error also means stop. ``send_buf(buf)`` blocks
+    until the encoded trajectory is accepted by the wire and returns
+    False only when shutting down. ``stop`` is any Event-alike with
+    ``is_set``/``wait``.
+
+    The unroll stays on the critical path alone: a *subscriber* thread
+    refreshes the params in the background (at most every 0.1 s; the
+    loop never waits on the channel once the first version landed), and
+    a sender thread owns encode + send (``_run_sender``)."""
+    import threading
+
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.data.envs import make_env
+
+    env = make_env(env_name)
+    builder = actor_lib.build_actor(env, arch_cfg, icfg, num_envs, "cpu")
+    slots = _ParamSlots()
+    fresh = threading.Event()
+
+    def subscribe():
+        # version-gated pub/sub: ask for anything newer than we hold (a
+        # "keep" reply costs one tiny message), at a bounded rate; params
+        # are at most ``interval`` stale, the off-policy gap V-trace
+        # corrects
+        interval = 0.1
+        while not stop.is_set():
+            try:
+                msg = pull_msg(slots.version)
+            except (EOFError, OSError, BrokenPipeError, ValueError):
+                break               # the channel closed under us
+            if msg is None or msg[0] == "stop":
+                break
+            if msg[0] == "params":
+                _, version, buf = msg
+                # a retried pull can deliver a stale queued reply: never
+                # step the behaviour policy backwards
+                if version > slots.version:
+                    slots.install(buf, version)
+                    fresh.set()
+            if stop.wait(interval):
+                break
+        fresh.set()                 # wake a pull that waits for params
+
+    def pull_params():
+        while not fresh.wait(timeout=0.2):
+            if stop.is_set():
+                return None
+        got = slots.pull()
+        if got is None:
+            return None             # the subscriber died before params
+        return got[0], got[1], None
+
+    def encode(item):
+        return serde.encode_item(item, codec=wire_codec)
+
+    emit, close = _run_sender(stop, encode, send_buf)
+    sub = threading.Thread(target=subscribe, daemon=True,
+                           name="param-subscriber")
+    sub.start()
+    try:
+        run_actor_loop(actor_id=actor_id, builder=builder, seed=seed,
+                       pull_params=pull_params, emit=emit,
+                       should_stop=stop.is_set, device="cpu")
+    finally:
+        close()
+
+
+def run_serialized_inference_actor(*, actor_id: int, env_name: str,
+                                   arch_cfg, icfg, num_envs: int,
+                                   seed: int,
+                                   send_buf: Callable[[bytes], bool],
+                                   infer_clients: List[Any], stop,
+                                   wire_codec: str = "none") -> None:
+    """One inference-mode actor on the far side of a serialized boundary:
+    no parameters, no policy network, env stepping plus frames both ways
+    (observation requests up, action replies down, finished trajectories
+    out through ``send_buf``). ``infer_clients`` is one service client
+    per pipeline stream (pipe- or socket-backed; same surface). While
+    wire backpressure blocks the sender, the clients are paused, so the
+    service does not hold the others' batches for this actor."""
+    from repro_torch.data.envs import make_env
+
+    for cl in infer_clients:
+        cl.bind_stop(stop)
+    env = make_env(env_name)
+
+    def encode(item):
+        return serde.encode_item(item, codec=wire_codec)
+
+    def on_block(blocked: bool) -> None:
+        for cl in infer_clients:
+            cl.pause() if blocked else cl.resume()
+
+    offer, close = _run_sender(stop, encode, send_buf)
+    try:
+        run_inference_actor_loop(
+            actor_id=actor_id, env=env, arch_cfg=arch_cfg, icfg=icfg,
+            num_envs=num_envs, seed=seed, clients=infer_clients,
+            emit=lambda item: offer(item, on_block),
+            should_stop=stop.is_set)
+    finally:
+        close()
+        for cl in infer_clients:
+            cl.close()
+
+
+# ---------------------------------------------------------------------------
+# process worker entry points (spawn targets: module-level)
+
+
+def _tune_child_scheduling(actor_id: int) -> None:
+    """Keep an actor child on the CPU and out of the learner's way. It
+    hides the card (``CUDA_VISIBLE_DEVICES`` empty) before anything could
+    initialise CUDA, runs torch on one thread, yields to the learner
+    (``nice`` +3; ``REPRO_ACTOR_NICE`` overrides) and sticks to one core
+    chosen by its *global* slot id (``REPRO_ACTOR_PIN=0`` turns that
+    off)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+    nice_step = int(os.environ.get("REPRO_ACTOR_NICE", "3"))
+    if nice_step:
+        try:
+            os.nice(nice_step)
+        except OSError:  # pragma: no cover
+            pass
+    if os.environ.get("REPRO_ACTOR_PIN", "1") == "1":
+        try:
+            ncpu = os.cpu_count() or 1
+            os.sched_setaffinity(0, {actor_id % ncpu})
+        except (AttributeError, OSError):  # pragma: no cover
+            pass
+
+
+def _wire_send_buf(producer, stop_event) -> Callable[[bytes], bool]:
+    """Adapt a ``ShmProducer``-style offer-with-timeout handle to the
+    blocking ``send_buf`` contract of the serialized actor bodies."""
+    def send_buf(buf: bytes) -> bool:
+        while not stop_event.is_set():
+            if producer.send(buf, timeout=0.1):
+                return True
+        return False
+    return send_buf
+
+
+def process_actor_main(actor_id: int, env_name: str, arch_cfg, icfg,
+                       num_envs: int, seed: int, producer, param_conn,
+                       stop_event, wire_codec: str = "none") -> None:
+    """Entry point of one actor *process*: subscribes to params by version
+    from the parent's param server over the pipe, and ships serde-encoded
+    trajectories through the wire (``run_serialized_unroll_actor``,
+    shared with the socket backend). A failure is reported up the pipe
+    as a traceback."""
+    try:
+        _tune_child_scheduling(actor_id)
+
+        def pull_msg(have_version):
+            param_conn.send(("pull", actor_id, have_version))
+            return param_conn.recv()
+
+        run_serialized_unroll_actor(
+            actor_id=actor_id, env_name=env_name, arch_cfg=arch_cfg,
+            icfg=icfg, num_envs=num_envs, seed=seed,
+            send_buf=_wire_send_buf(producer, stop_event),
+            pull_msg=pull_msg, stop=stop_event, wire_codec=wire_codec)
+    except BaseException:
+        try:
+            param_conn.send(("error", actor_id, traceback.format_exc()))
+        except (EOFError, OSError, BrokenPipeError):
+            pass
+    finally:
+        try:
+            param_conn.close()
+        except OSError:
+            pass
+
+
+def inference_actor_main(actor_id: int, env_name: str, arch_cfg, icfg,
+                         num_envs: int, seed: int, producer, infer_clients,
+                         ctrl_conn, stop_event,
+                         wire_codec: str = "none") -> None:
+    """Entry point of one *inference-mode* actor process: env stepping
+    plus serde frames both ways (observation requests up the service's
+    shared wire, action replies down per-stream pipes, trajectories
+    through the transport wire). ``ctrl_conn`` carries error reports
+    only: the service owns the params."""
+    try:
+        _tune_child_scheduling(actor_id)
+        run_serialized_inference_actor(
+            actor_id=actor_id, env_name=env_name, arch_cfg=arch_cfg,
+            icfg=icfg, num_envs=num_envs, seed=seed,
+            send_buf=_wire_send_buf(producer, stop_event),
+            infer_clients=infer_clients, stop=stop_event,
+            wire_codec=wire_codec)
+    except BaseException:
+        try:
+            ctrl_conn.send(("error", actor_id, traceback.format_exc()))
+        except (EOFError, OSError, BrokenPipeError):
+            pass
+    finally:
+        try:
+            ctrl_conn.close()
+        except OSError:
+            pass

@@ -26,10 +26,18 @@ which runs the batched policy forward on the learner's device (paper
 §3.1's dynamic batching, actor-side) and adds an ``inference`` section
 to the telemetry.
 
-Ported: thread actors in unroll and inference mode over the in-process
-transport, one learner, replay, periodic fleet-v1 checkpoints; no flight
-recorder and no supervision. Every other value of the JAX runtime's
-options raises, naming its ROADMAP.md Queue 1 item.
+``actor_backend`` picks where actors live: ``thread`` (this
+interpreter, on the learner's device), ``process`` (spawned children on
+the CPU, over the ``shm`` transport) or ``remote`` (children or other
+machines dialing a TCP listen address, over the ``socket`` transport).
+The learner and the inference service stay on the card whichever
+backend acts.
+
+Ported: the three actor backends in unroll and inference mode, the
+three transports with their wire codecs, one learner, replay, periodic
+fleet-v1 checkpoints; no flight recorder and no supervision. Every other
+value of the JAX runtime's options raises, naming its ROADMAP.md Queue 1
+item.
 """
 from __future__ import annotations
 
@@ -38,7 +46,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.configs.base import ArchConfig, ImpalaConfig
 from repro_torch.data.envs import make_env
 from repro_torch.distributed.actor_pool import ActorPool
-from repro_torch.distributed.inference import InferenceService, require_cnn
+from repro_torch.distributed.inference import (InferenceService,
+                                               _pow2_floor, require_cnn)
 from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.transport import make_transport
 
@@ -92,12 +101,9 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
     if transport == "socket" and actor_backend != "remote":
         raise ValueError("transport='socket' requires "
                          "actor_backend='remote'")
-    if actor_backend != "thread":
-        raise _unported(f"actor_backend={actor_backend!r}", 10,
-                        "process and socket actor pools")
-    if transport != "inproc":
-        raise _unported(f"transport={transport!r}", 10,
-                        "process and socket actor pools")
+    if transport not in ("inproc", "shm", "socket"):
+        raise ValueError(f"transport must be one of inproc/shm/socket, "
+                         f"got {transport!r}")
     if spmd_devices or exchange is not None:
         raise _unported("an SPMD learner or a gradient exchange", 12,
                         "learner groups")
@@ -128,6 +134,9 @@ def _setup(
     exchange=None,
     infer_flush_timeout_s: float = 0.02,
     infer_max_batch_requests: Optional[int] = None,
+    infer_streams: int = 1,
+    listen_addr: Optional[Tuple[str, int]] = None,
+    spawn_remote: bool = True,
     device="cuda",
 ) -> Learner:
     """Build one learner worker's dependency graph (env, params, train
@@ -151,22 +160,56 @@ def _setup(
         start_step=start_step, initial_params=initial_params,
         initial_opt_state=initial_opt_state, wire_codec=wire_codec,
         vtrace_impl=vtrace_impl, device=device)
-    # the transport's counters land in the registry the snapshot reads
-    queue = make_transport(transport, queue_capacity, queue_policy,
-                           registry=learner.obs_registry)
-    learner.queue = queue
     service = None
     if actor_mode == "inference":
-        # one request per actor a bucket; the thread driver submits every
-        # actor's request and flushes them at once
+        if actor_backend == "thread" or infer_streams < 1 or \
+                num_envs % infer_streams:
+            # one driver thread multiplexes thread actors; pipelining
+            # needs an even env split
+            infer_streams = 1
+        # bucket = one request per *actor*: with pipelined streams the
+        # other stream group stays pending, so its flush overlaps the
+        # actors' env stepping
         service = InferenceService(
-            env, arch, icfg, learner.store, num_clients=num_actors,
+            env, arch, icfg, learner.store,
+            num_clients=num_actors * infer_streams,
             flush_timeout_s=infer_flush_timeout_s,
-            max_batch_requests=infer_max_batch_requests,
+            max_batch_requests=(infer_max_batch_requests or
+                                _pow2_floor(num_actors)),
             seed=seed, registry=learner.obs_registry)
-    pool = ActorPool(env, arch, icfg, num_envs, num_actors, learner.store,
-                     queue, seed=seed, service=service,
-                     device=learner.device)
+    # the transport's counters land in the registry the snapshot reads
+    transport_kw: Dict[str, Any] = {"registry": learner.obs_registry}
+    if transport in ("shm", "socket"):
+        # inproc hands live trees between threads: nothing to encode
+        transport_kw["wire_codec"] = wire_codec
+    if transport == "socket":
+        transport_kw.update({"listen": listen_addr or ("127.0.0.1", 0),
+                             "max_actors": num_actors})
+    queue = make_transport(transport, queue_capacity, queue_policy,
+                           **transport_kw)
+    learner.queue = queue
+    env_name = env_name if isinstance(env_name, str) else env.name
+    if actor_backend == "remote":
+        from repro_torch.distributed.procpool import SocketActorPool
+        pool = SocketActorPool(
+            env_name, arch, icfg, num_envs, num_actors, learner.store,
+            queue, seed=seed, service=service, infer_streams=infer_streams,
+            spawn_local=spawn_remote)
+        if not spawn_remote:
+            host, port = queue.address
+            print(f"learner listening on {host}:{port} — waiting for "
+                  f"{num_actors} remote actor(s): "
+                  f"PYTHONPATH=src python -m repro_torch.launch.train "
+                  f"--connect {host}:{port}", flush=True)
+    elif actor_backend == "process":
+        from repro_torch.distributed.procpool import ProcessActorPool
+        pool = ProcessActorPool(
+            env_name, arch, icfg, num_envs, num_actors, learner.store,
+            queue, seed=seed, service=service, infer_streams=infer_streams)
+    else:
+        pool = ActorPool(env, arch, icfg, num_envs, num_actors,
+                         learner.store, queue, seed=seed, service=service,
+                         device=learner.device)
     learner.attach(pool, service)
     return learner
 
@@ -226,26 +269,35 @@ def run_async_training(
     on ``device`` (the card unless the caller asks for the CPU).
 
     The signature and defaults are the JAX runtime's, plus ``device``.
-    ``listen_addr``, ``spawn_remote``, ``heartbeat_timeout_s`` and
-    ``elastic`` only reach paths that are not ported (the socket
-    transport, supervision), so they are accepted and unused;
-    ``wire_codec`` is checked and reported, and no wire uses it, as on
-    the JAX in-process path. ``obs`` and ``supervise`` raise, naming
-    their ROADMAP.md item.
+    ``heartbeat_timeout_s`` and ``elastic`` belong to supervision
+    (ROADMAP.md, Queue 1 item 13): the first is accepted and unused, as
+    on the reference's unsupervised path, and ``elastic=True`` raises;
+    ``obs`` and ``supervise`` raise, naming their ROADMAP.md item.
 
-    ``actor_mode='inference'`` replaces the actors' unrolls with one
-    driver thread against an ``InferenceService``: the policy forward
+    ``actor_backend`` picks where actors live and ``transport`` how
+    trajectories travel: ``thread`` actors over ``inproc`` (live trees)
+    or ``shm`` (every byte of the serialization boundary without process
+    start-up); ``process`` actors over ``shm``; ``remote`` actors over
+    ``socket``, where ``listen_addr`` is the (host, port) the learner
+    binds (default loopback, ephemeral port) and ``spawn_remote`` picks
+    the single-box shape (True: spawn ``num_actors`` loopback children
+    that dial in like any remote machine) or the deployment shape
+    (False: wait for ``num_actors`` external ``--connect`` actors).
+    ``wire_codec`` (none | bf16 | int8) encodes the published params and
+    the trajectories on the shm and socket wires, in JAX's bytes.
+
+    ``actor_mode='inference'`` replaces the actors' unrolls with an
+    ``InferenceService`` on the learner's device: the policy forward
     runs in pow2 buckets of up to ``infer_max_batch_requests`` requests
     (default: the actor count, rounded down to a power of two), and the
-    telemetry grows an ``inference`` section. The driver thread submits
-    every actor's request and flushes them at once each step, so the
-    ``infer_flush_timeout_s`` deadline delays nothing on this path: it
-    bounds the wait of leader clients (``InferenceClient``) and of the
-    process frontends (ROADMAP.md, Queue 1 item 10), and is reported in
-    the telemetry. ``infer_streams`` pipelines the process
-    backend's inference actors (ROADMAP.md, Queue 1 item 10); one driver
-    thread multiplexes the thread backend's, so it is accepted and
-    unused, as on the reference's thread backend.
+    telemetry grows an ``inference`` section. Thread actors are driven by
+    one thread that submits every actor's request and flushes them at
+    once each step; process and remote actors submit over their wires,
+    and the service's flusher thread flushes a partial bucket at the
+    latest ``infer_flush_timeout_s`` after its oldest request.
+    ``infer_streams`` splits each process or remote actor's env batch
+    into that many software-pipelined request streams (1 when
+    ``num_envs`` does not divide evenly; thread actors ignore it).
 
     The learner updates its parameters in place and publishes a copy
     each update, whatever ``donate`` says; ``donate`` is only reported in
@@ -269,8 +321,10 @@ def run_async_training(
     metrics, snapshot_fn)``, where ``params`` is the published tree and
     ``snapshot_fn`` a zero-argument callable producing the telemetry.
     """
-    del listen_addr, spawn_remote, heartbeat_timeout_s, elastic
-    del infer_streams
+    del heartbeat_timeout_s
+    if elastic:
+        raise _unported("elastic membership", 13,
+                        "observability and supervision")
     if obs is not None:
         raise _unported("obs", 13, "observability")
     if supervise:
@@ -286,7 +340,9 @@ def run_async_training(
         donate=donate, wire_codec=wire_codec, vtrace_impl=vtrace_impl,
         spmd_devices=spmd_devices,
         infer_flush_timeout_s=infer_flush_timeout_s,
-        infer_max_batch_requests=infer_max_batch_requests, device=device)
+        infer_max_batch_requests=infer_max_batch_requests,
+        infer_streams=infer_streams, listen_addr=listen_addr,
+        spawn_remote=spawn_remote, device=device)
     on_ckpt = (fleet_checkpointer(ckpt_dir)
                if ckpt_dir and ckpt_every > 0 else None)
     metrics, final_telemetry = learner.run(

@@ -11,6 +11,13 @@
                     ``--actor-mode inference`` one driver thread steps
                     every actor's envs on the host and a dynamic-batching
                     inference service runs the policy on the card.
+                    ``--actor-backend process`` (``--transport shm``)
+                    spawns the actors as CPU children that ship
+                    serialized trajectories; ``--actor-backend remote``
+                    (``--transport socket``) has them dial a TCP address,
+                    and ``--connect HOST:PORT`` runs this machine's
+                    actors against a learner listening there. The learner
+                    and the inference service stay on the card.
 
 It runs on the card unless the caller asks for the CPU; asked for
 ``cuda`` where no card is found, it raises and does not fall back. On the
@@ -32,6 +39,12 @@ compute in full float32, as every check of the port does.
       --smoke --env chase --steps 30
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --runtime async --actor-mode inference --smoke --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --actor-backend process --transport shm \
+      --smoke --steps 30
+  PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
+      --runtime async --actor-backend remote --listen 0.0.0.0:7000
+  PYTHONPATH=src python -m repro_torch.launch.train --connect HOST:7000
 
 Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
 both runtimes, in the JAX package's format: a checkpoint either package
@@ -40,10 +53,9 @@ only (its optimizer state starts afresh on resume, as the JAX CLI's
 does); the async runtime saves params only and restores those or a
 fleet-v1 checkpoint with its optimizer state and version.
 
-Values of the JAX CLI's flags whose paths are not ported yet (process
-and remote actors, the shm and socket transports, learner groups and
-SPMD, supervision, token training) end the run with a ``SystemExit`` that
-names the ROADMAP.md Queue 1 item.
+Values of the JAX CLI's flags whose paths are not ported yet (learner
+groups and SPMD, supervision and elastic membership, token training) end
+the run with a ``SystemExit`` that names the ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -116,7 +128,13 @@ def _parser() -> argparse.ArgumentParser:
                    help="only process (with --learners 1) is ported")
     p.add_argument("--actor-backend", default="thread",
                    choices=["thread", "process", "remote"],
-                   help="where actors live; only thread is ported")
+                   help="where actors live: threads of this interpreter "
+                        "on the learner's device, spawned CPU processes "
+                        "(serialized trajectories, no GIL shared with "
+                        "the learner), or remote machines dialing a TCP "
+                        "listen address (--transport socket; without "
+                        "--listen the learner spawns loopback children "
+                        "itself)")
     p.add_argument("--actor-mode", default="unroll",
                    choices=["unroll", "inference"],
                    help="unroll: every actor runs its own n-step unroll "
@@ -125,11 +143,11 @@ def _parser() -> argparse.ArgumentParser:
                         "dynamic-batching InferenceService on the "
                         "learner's device (paper §3.1; conv-LSTM archs)")
     p.add_argument("--infer-flush-ms", type=float, default=20.0,
-                   help="inference service flush deadline for leader "
-                        "clients and process frontends (ROADMAP.md, "
-                        "Queue 1 item 10); the thread backend's driver "
-                        "flushes every step, so it waits on no deadline "
-                        "and this is only reported (actor_mode=inference)")
+                   help="inference service flush deadline: a request "
+                        "of a process or remote actor is never held "
+                        "past this waiting for a fuller batch. The "
+                        "thread backend's driver flushes every step, so "
+                        "there it delays nothing (actor_mode=inference)")
     p.add_argument("--no-donate", action="store_true",
                    help="reported as donate=False in the async "
                         "telemetry; the port's learner always updates in "
@@ -138,7 +156,33 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--transport", default="",
                    choices=["", "inproc", "shm", "socket"],
                    help="trajectory transport; default inproc for thread "
-                        "actors; only inproc is ported")
+                        "actors, shm (serialized buffers over a "
+                        "cross-process wire) for process actors, socket "
+                        "(CRC-framed TCP) for remote actors")
+    p.add_argument("--listen", default="",
+                   help="HOST:PORT the learner binds for remote actors "
+                        "(--actor-backend remote). Given: wait for "
+                        "--actor-threads external actors to dial in. "
+                        "Empty: loopback ephemeral port, and the learner "
+                        "spawns its own loopback actor children")
+    p.add_argument("--connect", default="",
+                   help="run as REMOTE ACTOR(S) instead of a learner: "
+                        "dial HOST:PORT, receive the whole run config "
+                        "in the handshake, act on the CPU until the "
+                        "learner says stop. --actor-threads sets how "
+                        "many actor processes this machine contributes")
+    p.add_argument("--wire-codec", default="none",
+                   choices=["none", "bf16", "int8"],
+                   help="quantize serialized wire payloads (published "
+                        "params and trajectory observations on the shm "
+                        "and socket transports), in the JAX package's "
+                        "bytes: bf16 rounds float leaves to bfloat16, "
+                        "int8 stores per-leaf absmax scales (max error "
+                        "absmax/127); both deflate the other leaves. "
+                        "Remote actors take the codec from the handshake")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic membership of remote actors: not "
+                        "ported yet")
     p.add_argument("--vtrace-impl", default="auto",
                    choices=["auto", "fused", "pallas", "scan", "reference"],
                    help="V-trace implementation for the async learner's "
@@ -195,14 +239,10 @@ def _refuse_unported(args) -> None:
         raise _unported("--supervise", 13, "observability and supervision")
     if args.resume:
         raise _unported("--resume", 12, "learner groups")
+    if args.elastic:
+        raise _unported("--elastic", 13, "observability and supervision")
     if args.runtime != "async":
         return
-    if args.actor_backend != "thread":
-        raise _unported(f"--actor-backend {args.actor_backend}", 10,
-                        "process and socket actor pools")
-    if args.transport not in ("", "inproc"):
-        raise _unported(f"--transport {args.transport}", 10,
-                        "process and socket actor pools")
     if args.learners > 1:
         raise _unported("--learners > 1", 12, "learner groups")
     if args.learner_mode == "spmd":
@@ -236,11 +276,18 @@ class AsyncRun:
 
 
 def train(argv: Optional[List[str]] = None,
-          on_update: Optional[Callable] = None) -> Union[SyncRun, AsyncRun]:
+          on_update: Optional[Callable] = None
+          ) -> Union[SyncRun, AsyncRun, int]:
     """Parse the CLI flags and run the trainer. ``on_update(update_index,
     published params, metrics, snapshot_fn)``, for ``--runtime async``
-    only, runs after each update's log line, on the learner's thread."""
+    only, runs after each update's log line, on the learner's thread.
+    With ``--connect`` this process runs remote actors instead and the
+    result is their exit code."""
     args = _parser().parse_args(argv)
+    if args.connect:
+        # remote actor mode: every run parameter arrives in the
+        # connection handshake, so none of the learner flags apply here
+        return _run_remote_actors(args)
     _refuse_unported(args)
     if on_update is not None and args.runtime != "async":
         raise ValueError("on_update is a hook of --runtime async")
@@ -342,7 +389,19 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     from repro_torch.models import backbone as bb
     from repro_torch.models import common
 
-    transport = args.transport or "inproc"
+    transport = args.transport or {
+        "process": "shm", "remote": "socket"}.get(args.actor_backend,
+                                                  "inproc")
+    if args.actor_backend == "process" and transport != "shm":
+        raise SystemExit("--actor-backend process requires --transport shm")
+    if args.actor_backend == "remote" and transport != "socket":
+        raise SystemExit("--actor-backend remote requires "
+                         "--transport socket")
+    if transport == "socket" and args.actor_backend != "remote":
+        raise SystemExit("--transport socket requires --actor-backend "
+                         "remote")
+    listen_addr = (_parse_hostport(args.listen, default_host="0.0.0.0")
+                   if args.listen else None)
     specs = bb.backbone_specs(arch, env.num_actions)
     print(f"arch={arch.name} params={common.param_count(specs):,} "
           f"env={env.name} actions={env.num_actions} runtime=async "
@@ -396,9 +455,12 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
             hook(step, params, metrics, snapshot_fn)
 
     tracker, metrics, tel = run_async_training(
-        env, icfg, args.num_envs, args.steps,
+        env if args.actor_backend == "thread" else args.env, icfg,
+        args.num_envs, args.steps,
         num_actors=args.actor_threads, actor_backend=args.actor_backend,
         actor_mode=args.actor_mode, transport=transport,
+        listen_addr=listen_addr, spawn_remote=not args.listen,
+        wire_codec=args.wire_codec,
         queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
         max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
         infer_flush_timeout_s=args.infer_flush_ms / 1e3,
@@ -415,14 +477,62 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)
 
 
+def _parse_hostport(spec: str, default_host: str = "127.0.0.1"):
+    host, sep, port = spec.rpartition(":")
+    if not sep or not port.isdigit():
+        raise SystemExit(f"expected HOST:PORT, got {spec!r}")
+    return (host or default_host, int(port))
+
+
+def _run_remote_actors(args) -> int:
+    """``--connect HOST:PORT``: contribute ``--actor-threads`` actor
+    processes (on this machine's CPU) to the learner listening there.
+    Returns the exit code: nonzero if any actor failed."""
+    import multiprocessing as mp
+
+    from repro_torch.distributed.netserve import (remote_actor_child,
+                                                  remote_actor_main)
+    from repro_torch.distributed.supervise import KillSafeEvent
+
+    addr = _parse_hostport(args.connect)
+    n = max(1, args.actor_threads)
+    print(f"remote actor mode: {n} actor process(es) -> "
+          f"{addr[0]}:{addr[1]}", flush=True)
+    if n == 1:
+        err = remote_actor_main(addr)
+        if err:
+            print(err)
+            return 1
+        print("learner said stop; exiting cleanly")
+        return 0
+    ctx = mp.get_context("spawn")
+    stop = KillSafeEvent(ctx)
+    procs = [ctx.Process(target=remote_actor_child, args=(addr, stop),
+                         name=f"remote-actor-{i}") for i in range(n)]
+    for proc in procs:
+        proc.start()
+    try:
+        for proc in procs:
+            proc.join()
+    except KeyboardInterrupt:
+        stop.set()
+        for proc in procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.terminate()
+        return 0
+    # a failed actor (dial timeout, refusal, crash) exits nonzero
+    return 1 if any(p.exitcode not in (0, None) for p in procs) else 0
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    train(argv)
-    return 0
+    out = train(argv)
+    return out if isinstance(out, int) else 0
 
 
 if __name__ == "__main__":

@@ -30,8 +30,9 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 def test_port_imports_no_jax_and_no_repro_module():
     """Import every module of repro_torch, and chip_smoke.py, in a fresh
-    interpreter; then neither jax nor ``repro``/``repro.*`` may be loaded
-    (``repro_torch`` itself starts with ``repro`` and is allowed)."""
+    interpreter; then neither jax nor ``repro``/``repro.*`` nor
+    ``ml_dtypes`` may be loaded (``repro_torch`` itself starts with
+    ``repro`` and is allowed)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -41,11 +42,16 @@ def test_port_imports_no_jax_and_no_repro_module():
         "need = {'repro_torch.checkpoint.checkpoint', "
         "'repro_torch.core.replay', 'repro_torch.distributed.serde', "
         "'repro_torch.data.multitask', 'repro_torch.core.pbt', "
-        "'repro_torch.distributed.inference'}\n"
+        "'repro_torch.distributed.inference', "
+        "'repro_torch.distributed.procpool', "
+        "'repro_torch.distributed.socket_transport', "
+        "'repro_torch.distributed.netserve', "
+        "'repro_torch.distributed.transport'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "print(len(names))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ)
@@ -75,19 +81,21 @@ _ASYNC = ["--runtime", "async"]
 
 
 @pytest.mark.parametrize("argv,match", [
-    (_ASYNC + ["--actor-backend", "process"], "item 10"),
+    (_ASYNC + ["--actor-backend", "process", "--learners", "2"],
+     "item 12"),
     (["--supervise"], "item 13"),
     (["--resume"], "item 12"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
-    (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference"],
-     "item 10"),
-    (_ASYNC + ["--actor-backend", "remote"], "item 10"),
-    (_ASYNC + ["--transport", "shm"], "item 10"),
-    (_ASYNC + ["--transport", "socket"], "item 10"),
-    (_ASYNC + ["--transport", "shm", "--actor-mode", "inference"],
-     "item 10"),
+    (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference",
+               "--supervise"], "item 13"),
+    (_ASYNC + ["--actor-backend", "remote", "--elastic"], "item 13"),
+    (_ASYNC + ["--transport", "shm", "--resume"], "item 12"),
+    (_ASYNC + ["--actor-backend", "remote", "--transport", "socket",
+               "--learner-mode", "spmd"], "item 12"),
+    (_ASYNC + ["--transport", "shm", "--actor-mode", "inference",
+               "--learners", "2"], "item 12"),
     (_ASYNC + ["--learners", "2"], "item 12"),
     (_ASYNC + ["--learner-mode", "spmd"], "item 12"),
     (_ASYNC + ["--supervise"], "item 13"),

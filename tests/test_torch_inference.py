@@ -222,16 +222,47 @@ def test_service_stop_unblocks_clients():
     assert c.infer(req) is None
 
 
+@pytest.mark.timeout_s(60)
 def test_process_frontends_are_not_ported():
-    svc, _, _ = _make_service()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        svc.process_frontend(None, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        svc.attach_frontend(object(), 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        inf.ProcessFrontend(svc, None, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        inf.PipeInferenceClient()
+    """The process frontend (ROADMAP.md Queue 1 item 10, done): a
+    pipe client's request crosses the wire, waits for a second client
+    that never submits, and is flushed by the service's own thread at
+    the ``flush_timeout_s`` deadline, not before."""
+    import multiprocessing as mp
+
+    svc, arch, n = _make_service(num_clients=2, flush_timeout_s=0.3)
+    fe = svc.process_frontend(mp.get_context("spawn"), 2)
+    clients = [fe.register(0), fe.register(1)]
+    stop = threading.Event()
+    for c in clients:
+        c.bind_stop(stop)
+    svc.start()
+    fe.start()
+    try:
+        req = _request(n, arch.lstm_width, make_bandit().image_hw)
+        t0 = time.monotonic()
+        reply = clients[0].infer(req)
+        waited = time.monotonic() - t0
+        assert reply is not None and reply.action.shape == (n,)
+        assert reply.lstm_state[0].shape == (n, arch.lstm_width)
+        assert waited >= 0.3
+        snap = svc.snapshot()
+        assert snap["flush_timeout"] == 1 and snap["flushes"] == 1
+        # a paused client leaves the ready rule: the next request of the
+        # other flushes as "ready", without the deadline
+        clients[1].pause()
+        deadline = time.monotonic() + 10
+        while svc._paused != 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert clients[0].infer(req) is not None
+        assert svc.snapshot()["flush_ready"] == 1
+    finally:
+        fe.begin_shutdown()
+        svc.stop()
+        stop.set()
+        fe.close()
+    assert not svc._thread.is_alive()
+    svc.raise_errors()
 
 
 # ---------------------------------------------------------------------------
@@ -386,7 +417,16 @@ def test_inference_mode_requires_cnn_family():
 
 
 def test_process_inference_actors_are_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """Process inference actors run (ROADMAP.md Queue 1 item 10, done;
+    tests/test_torch_procpool.py trains them); what is still refused is
+    refused before any child is spawned: a token arch, or a transport
+    without a wire."""
+    with pytest.raises(ValueError, match="unroll"):
         run_async_training("bandit", _icfg(), num_envs=4, steps=1,
                            actor_backend="process", transport="shm",
+                           actor_mode="inference", device="cpu",
+                           arch=get_smoke_config("mistral-nemo-12b"))
+    with pytest.raises(ValueError, match="shm"):
+        run_async_training("bandit", _icfg(), num_envs=4, steps=1,
+                           actor_backend="process", transport="inproc",
                            actor_mode="inference", device="cpu")
