@@ -9,6 +9,16 @@ exception and a nonzero exit:
 
 1. Card: ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` with nvcc.
+2a. Device times, first, in a process that has traced nothing yet: each
+   kernel at every shape phases 8, 14 and 19 time, and the library call
+   beside K4 and K5, from a ``torch.profiler`` trace of ``DEVICE_CALLS``
+   calls. Only the kernel's own device events count (``KERNEL_EVENTS``:
+   its launch, and K5's combine pass), over its launches. Every trace has
+   idle host time at both ends (``TRACE_PAD_S``): the profiler drops a
+   device event stamped outside its window, and now and then stamps the
+   card's events milliseconds early. A trace that still lacks some of
+   its calls' events is taken again, up to ``DEVICE_TRIES`` times, and
+   then fails the run.
 3. K1 (V-trace recurrence) against its plain PyTorch version, on the card,
    at the replay learner's batches of 2 and 4 trajectories too.
 4. K2 (fused loss + V-trace) against its plain version, forward and the
@@ -31,9 +41,10 @@ exception and a nonzero exit:
    and actor frames/s (read before the window below), the batch-size
    histogram, the measured lag and the queue's occupancy, stalls and
    drops. In the same run, where an async update's time goes:
-   ``ASYNC_WINDOW`` steady updates timed unprofiled, then as many under
-   ``torch.profiler``: the card's busy time per update against the
-   unprofiled update, and the device kernels that take most of it. No
+   ``ASYNC_WINDOW`` steady updates timed unprofiled, then
+   ``ASYNC_PROFILED`` under ``torch.profiler``, after a pad whose events
+   (the actors') are left out: the card's busy time per update against
+   the unprofiled update, and the device kernels that take most of it. No
    actor thread may outlive the run.
 6b. Async learning bar: the JAX package's acceptance configuration for
    thread actors (tests/test_process_actors.py: smoke impala-shallow, 32
@@ -110,19 +121,45 @@ exception and a nonzero exit:
    unroll mode with ``--wire-codec bf16``, each at full width for
    ``REMOTE_STEPS`` updates with K2 once an update; no decode error and
    no torn tail, and the bf16 wire carries under 1/1.5 of the raw bytes.
+6r. A learner group at full width: ``--runtime async --learners 2`` on
+   catch with impala-shallow (32 envs, unroll 20, 2 actor threads, one a
+   learner, batches of up to 4) for ``GROUP_STEPS`` rounds: identical
+   replicas (the workers' digests), versions ``[GROUP_STEPS] * 2``, no
+   stale drop, both shards consumed, slot bases 0 and 1, the exchange and
+   K2 once a round in each learner (counted in the worker processes and
+   shipped back), K1 never; each learner's frames/s, their sum and the
+   reduce wait beside 6a's single learner, and ``nvidia-smi``'s compute
+   pids while the group runs (at most this process and the two workers).
+6s. 6r with ``--replay-fraction 0.5 --replay-reuse 2`` for
+   ``GROUP_REPLAY_STEPS`` rounds: K1 once a round in each learner, K2
+   never, identical replicas.
+6t. 6r with ``--actor-backend process --transport shm`` for
+   ``GROUP_PROC_STEPS`` rounds: none of the workers' children (the
+   actors) holds a CUDA context.
+6u. The JAX group learning bar (tests/test_group.py::
+   test_two_learner_group_learns_catch: smoke impala-shallow, 2 learners,
+   4 actor threads, ``GROUP_BAR_STEPS`` rounds): last 100 above the first
+   500 by more than 0.15, and above -0.3, with identical replicas; with a
+   ``ckpt_dir``, its publisher saves fleet-v1 after the last round, with
+   the replicas' digest.
+6v. Group resume, in 6u's configuration: a group resumed from 6u's
+   checkpoint with no round left publishes the saved params (the same
+   digest) in both workers, and one resumed for ``GROUP_RESUMED`` more
+   rounds continues the version stream with identical replicas.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
    and the device kernels that take most of it.
 7a. Path shapes: every (T, B) and (T, B, A) at which phases 5-7 launched
-   K1 or K2 (each wrapper's ``shapes``) and that phases 3-4 left out,
+   K1 or K2 (each wrapper's ``shapes``; a group's workers ship theirs
+   back) and that phases 3-4 left out,
    held against the plain version at ``ATOL`` as they are; its errors
    join K1's and K2's ``max_abs_err``.
 8. Times: K1 and K2 at the main path's shape, the paper's DMLab learner
    shape (100, 32, 9), (100, 256, 18) and the batches of 2 and 4
    trajectories, (20, 64, 3) and (20, 128, 3); each call timed with CUDA
-   events and each kernel's device time from a ``torch.profiler`` trace,
-   beside the plain version and the least time the card could take
+   events and each kernel's device time from phase 2a, beside the plain
+   version and the least time the card could take
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32; the larger of
    the two).
 9. K4 (flash attention) against its plain version on the card, in bf16
@@ -150,7 +187,8 @@ exception and a nonzero exit:
     one long shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
     ``F.scaled_dot_product_attention``, that the port never calls; with
-    the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound.
+    the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound;
+    and the kernel's and the library call's device times from phase 2a.
 15. K3 (the linear scan) against its plain version on the card, with h0
     and without: small and ragged shapes, the mamba2 serving path's
     cross-chunk pass (8, 8388608) and the RG-LRU prefill's (2048, 40960).
@@ -165,8 +203,9 @@ exception and a nonzero exit:
     traces, the card's busy time against the unprofiled times.
 19. Times with CUDA events: K3 at the serving shape and at (2048, 40960),
     beside the plain version and the bound (bytes over 3.35 TB/s,
-    operations over 67 TFLOP/s fp32); no single PyTorch call computes the
-    recurrence, so there is no library time.
+    operations over 67 TFLOP/s fp32), and its device time from phase 2a;
+    no single PyTorch call computes the recurrence, so there is no
+    library time.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -176,11 +215,13 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
@@ -216,14 +257,18 @@ LOGITS_RTOL = 0.05
 MAIN_STEPS = 200
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
-# the full-width async runs (phases 6a, 6c, 6j: unroll mode, replay,
-# inference mode, with the same settings) take 200 updates: at 400 the
-# whole script ran 818 s on one H100 (PERF.md, section 4), past the 800 s
-# that the script's 1200 s budget leaves for a slower host; the JAX
-# acceptance bars (phases 6b, 6k) keep their 400
-ASYNC_STEPS, BAR_STEPS = 200, 400
-# the remote loopback runs (phase 6q), three of them
-REMOTE_STEPS = 100
+# the full-width async runs (phases 6a, 6c, 6i, 6j, 6n, 6o: unroll mode,
+# replay, chase replay, inference mode, process actors, with the same
+# settings) take 80 updates, the remote loopback runs (6q, three of them)
+# 80 too: at 400 the whole script ran 818 s on one H100, at 200 661-736 s
+# before the learner groups (6r-6v) came, with them and 120 it ran 1052 s
+# on a host 1.7x slower, and the script must stay within the ~800 s that
+# its 1200 s budget leaves for a slower host (PERF.md, section 4). An
+# async run's timed window starts at update steps - 2 * ASYNC_WINDOW -
+# ASYNC_PROFILED. The JAX acceptance bars (phases 6b, 6k, 6p) keep their
+# 400
+ASYNC_STEPS, BAR_STEPS = 80, 400
+REMOTE_STEPS = 80
 
 
 def _async_argv(env: str, steps: int, *extra: str):
@@ -236,8 +281,9 @@ def _async_argv(env: str, steps: int, *extra: str):
 
 
 ASYNC_ARGV = _async_argv("catch", ASYNC_STEPS)
-# the steady updates timed, then profiled, near the end of phase 6a's run
-ASYNC_WINDOW = 20
+# the steady updates timed, then those profiled, near the end of an async
+# run (phases 6a, 6c, 6i, 6j, 6n, 6o, 6q)
+ASYNC_WINDOW, ASYNC_PROFILED = 20, 5
 # the async path with replay at the paper's half (phase 6c)
 REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
                             "2"]
@@ -249,7 +295,7 @@ CKPT_EVERY = 10
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 # slice 8: the new envs, chase at full width, inference mode, multi-task
 ENV_B, ENV_STEPS = 32, 200
-CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, 200
+CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, 80
 CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
                                 "--replay-fraction", "0.5",
                                 "--replay-reuse", "2")
@@ -266,6 +312,20 @@ REMOTE_RUNS = [("remote unroll", REMOTE_ARGV),
                                                      "bf16"])]
 # the bf16 wire's raw bytes over its wire bytes must pass this
 WIRE_DIET = 1.5
+# slice 10: learner groups at full width, one actor thread a learner
+GROUP_LEARNERS, GROUP_STEPS, GROUP_PROC_STEPS = 2, 100, 30
+GROUP_REPLAY_STEPS = 50
+GROUP_ARGV = _async_argv("catch", GROUP_STEPS, "--learners", "2")
+GROUP_REPLAY_ARGV = _async_argv("catch", GROUP_REPLAY_STEPS, "--learners",
+                                "2", "--replay-fraction", "0.5",
+                                "--replay-reuse", "2")
+GROUP_PROC_ARGV = _async_argv("catch", GROUP_PROC_STEPS, "--learners", "2",
+                              "--actor-backend", "process", "--transport",
+                              "shm")
+# tests/test_group.py::test_two_learner_group_learns_catch: 240 rounds
+GROUP_BAR_STEPS = 240
+# the rounds a group resumed from the bar run's checkpoint takes (6v)
+GROUP_RESUMED = 10
 MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
     ("catch", "bandit", "tmaze"), 60, 8)
 PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
@@ -327,6 +387,36 @@ K5_CASES = [
     (4, 32, 8, 4097, 128, 4096, 0),         # S = 4097: splits, ragged
     (4, 32, 2, 1000, 128, 999, 0),          # G = 16 at D = 128
 ]
+# each kernel's device events in a profiler trace: its launch, then any
+# pass it launches with it (K5's combine of the S splits)
+KERNEL_EVENTS = {"vtrace": ("vtrace_tile_kernel<false>",),
+                 "loss_vtrace": ("vtrace_tile_kernel<true>",),
+                 "flash_attention": ("flash_attention_kernel",),
+                 "decode_attention": ("decode_attention_kernel",
+                                      "combine_kernel"),
+                 "linear_scan": ("linear_scan_kernel",)}
+# calls a device-time trace holds
+DEVICE_CALLS = 50
+# traces of one call that phase 2a takes before it fails where one holds
+# only some of its device events
+DEVICE_TRIES = 3
+# idle host seconds a trace keeps before its first launch and after its
+# last synchronise. The trace drops a device event whose time, converted
+# to the host's clock, falls outside its window, and now and then the
+# conversion puts a kernel up to 3.9 ms before its own launch
+# (``tools/trace_clock.py``)
+TRACE_PAD_S = 0.05
+# the device-time traces that lost events and were taken again
+TRACES_RETAKEN = []
+# the async windows' pad less the largest shift allowed for: the busy
+# time leaves out what the actors launched in it
+ASYNC_SKIP_US = (TRACE_PAD_S - 0.01) * 1e6
+# K4 timed: (label, (B, T, H, K, D), calls); K5: (label, (B, H, K, S, D),
+# cache_index, calls)
+K4_TIMED = [("main", (16, 128, 32, 8, 128), 200),
+            ("long", (1, 4096, 32, 8, 128), 10)]
+K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 200),
+            ("long", (8, 32, 8, 32768, 128), 40000, 20)]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
 # K3 checks: (T, N). (8, 8388608) is the mamba2 serving path's cross-chunk
@@ -570,18 +660,21 @@ def _async_run(vk, argv, steps: int = ASYNC_STEPS, during=None):
     (its ``--steps``), the launch counts zeroed just before and read just
     after.
     Near its end ``ASYNC_WINDOW`` updates are timed on the host clock
-    between two synchronises, then as many run under ``torch.profiler``.
-    ``during()``, if given, runs once at the window's first update,
-    while the actors run. Returns (run, launches, telemetry read before
-    the window, unprofiled and profiled ms an update, the profiler)."""
+    between two synchronises, then ``ASYNC_PROFILED`` run under
+    ``torch.profiler`` (device activity only: reading a trace's events
+    back costs host seconds per ten thousand), and ``ASYNC_WINDOW`` more
+    before the run ends. ``during()``, if given, runs once at the
+    window's first update, while the actors run. Returns (run, launches,
+    telemetry read before the window, unprofiled and profiled ms an
+    update, the profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import train as train_lib
 
-    w = ASYNC_WINDOW
-    first = steps - 3 * w
+    w, p = ASYNC_WINDOW, ASYNC_PROFILED
+    first = steps - 2 * w - p
     marks, before = {}, {}
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
 
     def window(step, params, metrics, snapshot_fn):
         if step == first:
@@ -589,12 +682,16 @@ def _async_run(vk, argv, steps: int = ASYNC_STEPS, during=None):
             before.update(snapshot_fn())
             if during is not None:
                 during()
-        if step in (first, first + w, first + 2 * w):
+        if step in (first, first + w, first + w + p):
             torch.cuda.synchronize()
             marks[step] = time.perf_counter()
         if step == first + w:
             prof.start()
-        elif step == first + 2 * w:
+            # the learner's first launches clear the window's start; the
+            # actors' launches in the pad are left out (``ASYNC_SKIP_US``)
+            _trace_pad()
+            marks[step] = time.perf_counter()
+        elif step == first + w + p:
             prof.stop()
 
     vk.reset_launch_counts()
@@ -604,10 +701,10 @@ def _async_run(vk, argv, steps: int = ASYNC_STEPS, during=None):
                 "loss_vtrace": vk.loss_vtrace.launches}
     _no_actor_threads(" ".join(argv))
     update_ms = (marks[first + w] - marks[first]) / w * 1e3
-    profiled_ms = (marks[first + 2 * w] - marks[first + w]) / w * 1e3
+    profiled_ms = (marks[first + w + p] - marks[first + w]) / p * 1e3
     print(f"async split: {update_ms:.3f} ms an update unprofiled, "
           f"{profiled_ms:.3f} ms profiled (updates {first}-{first + w} and "
-          f"{first + w}-{first + 2 * w})")
+          f"{first + w}-{first + w + p})")
     return run, launches, before, update_ms, prof
 
 
@@ -653,7 +750,8 @@ def phase_async(vk, dev):
           f"{early:.3f}, last 100 mean {late:.3f}: "
           + ("clears" if cleared else "misses")
           + " phase 6b's bar (this full-width run is not held to it)")
-    _print_busy("async update", prof, ASYNC_WINDOW, update_ms)
+    _print_busy("async update", prof, ASYNC_PROFILED, update_ms,
+                "loss_vtrace", skip_us=ASYNC_SKIP_US)
     return launches, before
 
 
@@ -700,7 +798,8 @@ def phase_async_replay(vk, dev, argv=REPLAY_ARGV, steps: int = ASYNC_STEPS,
           f"{tel['lag']['mean']:.3f}; "
           f"{len(run.tracker.completed)} episodes, last 100 mean "
           f"{run.tracker.mean_return(100):.3f}")
-    _print_busy(f"{what} update", prof, ASYNC_WINDOW, update_ms)
+    _print_busy(f"{what} update", prof, ASYNC_PROFILED, update_ms, "vtrace",
+                skip_us=ASYNC_SKIP_US)
     return launches, before["frames_per_sec"]
 
 
@@ -1036,7 +1135,8 @@ def phase_inference(vk, dev, unroll_before):
           f" lag mean {lag['mean']:.3f} max {lag['max']} over "
           f"{lag['measured']} trajectories; batch sizes "
           f"{dict(sorted(tel['batch_size_hist'].items()))}")
-    _print_busy("inference-mode update", prof, ASYNC_WINDOW, update_ms)
+    _print_busy("inference-mode update", prof, ASYNC_PROFILED, update_ms,
+                "loss_vtrace", skip_us=ASYNC_SKIP_US)
     return launches["loss_vtrace"], before["frames_per_sec"]
 
 
@@ -1088,11 +1188,35 @@ def phase_inference_bar(dev) -> float:
 
 
 def _compute_pids():
-    """The pids ``nvidia-smi`` lists with a compute context on the card."""
+    """The pids ``nvidia-smi`` lists with a compute context on the card.
+    In a container they are the host's or a stand-in (1 for every
+    context), so they only count contexts; ``_holds_card`` says which
+    process holds one."""
     out = subprocess.run(
         ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _holds_card(pid: int) -> bool:
+    """Whether process ``pid`` has a card's device node (``/dev/nvidia0``,
+    ...) open, as every process with a CUDA context on it has; read from
+    its ``/proc/<pid>/fd``. False for a process that is gone."""
+    import os
+    import re
+
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            return True
+    return False
 
 
 def _check_wire_run(what, run, launches, steps: int = ASYNC_STEPS):
@@ -1128,6 +1252,8 @@ def phase_process(vk, dev, thread_before):
         seen["parent"] = os.getpid()
         seen["children"] = [p.pid for p in mp.active_children()]
         seen["pids"] = _compute_pids()
+        seen["on_card"] = [p for p in [seen["parent"]] + seen["children"]
+                           if _holds_card(p)]
 
     run, launches, before, update_ms, prof = _async_run(vk, PROC_ARGV,
                                                         during=during)
@@ -1136,18 +1262,21 @@ def phase_process(vk, dev, thread_before):
         raise AssertionError(f"process actors: actors {tel['actors']}, "
                              f"queue {q}")
     kids, pids = seen["children"], seen["pids"]
-    if len(kids) != 2 or len(pids) > 1 or set(kids) & set(pids):
+    if len(kids) != 2 or len(pids) > 1 or \
+            seen["on_card"] != [seen["parent"]]:
         raise AssertionError(f"process actors: nvidia-smi lists compute "
                              f"pids {pids} while the children {kids} run "
-                             f"(parent {seen['parent']}); a child holds a "
-                             f"CUDA context")
+                             f"(parent {seen['parent']}); of these, "
+                             f"{seen['on_card']} have the card's device "
+                             f"node open, where only the parent may")
     moved = _params_moved(run, dev)
     print(f"process actors: {ASYNC_STEPS} updates, K2 launches "
           f"{launches['loss_vtrace']} K1 {launches['vtrace']}, final loss "
           f"{loss:.4f}, params moved (max |dp| {moved:.3e})")
     print(f"process actors: nvidia-smi compute pids {pids} while children "
-          f"{kids} ran (parent {seen['parent']} in this pid namespace); "
-          f"no child outlived the run")
+          f"{kids} ran; of the parent {seen['parent']} and the children "
+          f"only {seen['on_card']} had the card's device node open; no "
+          f"child outlived the run")
     print(f"process actors: learner frames/s {before['frames_per_sec']:.0f}"
           f", actor frames/s {before['actors']['actor_fps']:.0f}, updates/s"
           f" {before['updates_per_sec']:.2f}; thread actors (phase 6a, same "
@@ -1163,7 +1292,8 @@ def phase_process(vk, dev, thread_before):
           f"{q['mean_occupancy']:.3f}, get stalls {q['get_stalls']}; "
           f"{len(run.tracker.completed)} episodes, last 100 mean "
           f"{run.tracker.mean_return(100):.3f}")
-    _print_busy("process-actor update", prof, ASYNC_WINDOW, update_ms)
+    _print_busy("process-actor update", prof, ASYNC_PROFILED, update_ms,
+                "loss_vtrace", skip_us=ASYNC_SKIP_US)
     return launches["loss_vtrace"]
 
 
@@ -1195,7 +1325,8 @@ def phase_process_inference(vk, dev, thread_infer_fps):
           f"{inf['queue_wait_ms_p95']:.3f} ms (bucket upper bounds), "
           f"deadline {1e3 * inf['flush_timeout_s']:.0f} ms; lag mean "
           f"{lag['mean']:.3f} max {lag['max']}")
-    _print_busy("process-inference update", prof, ASYNC_WINDOW, update_ms)
+    _print_busy("process-inference update", prof, ASYNC_PROFILED, update_ms,
+                "loss_vtrace", skip_us=ASYNC_SKIP_US)
     return launches["loss_vtrace"]
 
 
@@ -1278,7 +1409,8 @@ def phase_remote(vk, dev) -> int:
               f"{before['frames_per_sec']:.0f}, actor frames/s "
               f"{before['actors']['actor_fps']:.0f}; lag mean "
               f"{lag['mean']:.3f} max {lag['max']}" + extra)
-        _print_busy(f"{what} update", prof, ASYNC_WINDOW, update_ms)
+        _print_busy(f"{what} update", prof, ASYNC_PROFILED, update_ms,
+                    "loss_vtrace", skip_us=ASYNC_SKIP_US)
     return k2
 
 
@@ -1403,6 +1535,311 @@ def phase_pbt(vk, dev) -> int:
     return k2
 
 
+# ---------------------------------------------------------------------------
+# slice 10: learner groups
+
+
+class _ComputePids:
+    """Samples, about once a second while a group runs, the pids
+    ``nvidia-smi`` lists with a compute context, the learner workers and
+    the workers' own children (their actors), read from /proc, and which
+    of the workers and children have the card's device node open."""
+
+    def __init__(self):
+        self.pids, self.most, self.children = set(), 0, set()
+        self.workers, self.on_card = set(), set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="compute-pids", daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def _loop(self) -> None:
+        import multiprocessing as mp
+        import os
+
+        while not self._stop.wait(1.0):
+            pids = _compute_pids()
+            self.pids.update(pids)
+            self.most = max(self.most, len(pids))
+            workers = {p.pid for p in mp.active_children()}
+            self.workers.update(workers)
+            self.on_card.update(p for p in workers if _holds_card(p))
+            for entry in os.listdir("/proc"):
+                if not entry.isdigit():
+                    continue
+                try:
+                    with open(f"/proc/{entry}/stat") as f:
+                        ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+                except (OSError, ValueError, IndexError):
+                    continue
+                if ppid in workers:
+                    self.children.add(int(entry))
+                    if _holds_card(int(entry)):
+                        self.on_card.add(int(entry))
+
+
+def _group_counts(vk, run) -> Tuple[list, list]:
+    """Each learner's K1 and K2 launches in a group run, from its worker
+    process; the shapes it launched them at join the wrappers' ``shapes``,
+    so phase 7a holds the kernels at them too."""
+    k1, k2 = [], []
+    for _k, counts in sorted(run.kernel_counts.items()):
+        k1.append(counts["launches"]["vtrace"])
+        k2.append(counts["launches"]["loss_vtrace"])
+        vk.vtrace.shapes.update(map(tuple, counts["shapes"]["vtrace"]))
+        vk.loss_vtrace.shapes.update(
+            map(tuple, counts["shapes"]["loss_vtrace"]))
+    return k1, k2
+
+
+def _check_group(what: str, vk, run, steps: int, replay: bool = False):
+    """What every group run must show: identical replicas, one version
+    stream ``[steps, steps]``, no stale drop, both shards consumed, slot
+    bases 0 and 1, the exchange once a round in each learner, and K2 (K1
+    with replay) once a round in each learner's gradient step."""
+    tel = run.telemetry
+    g = tel["group"]
+    subs = [tel["learners"][f"learner_{k}"] for k in range(GROUP_LEARNERS)]
+    k1, k2 = _group_counts(vk, run)
+    per = tel["actors"]["per_learner_trajectories"]
+    want_k1, want_k2 = ([steps] * GROUP_LEARNERS, [0] * GROUP_LEARNERS) \
+        if replay else ([0] * GROUP_LEARNERS, [steps] * GROUP_LEARNERS)
+    got = {"replicas_identical": g["replicas_identical"],
+           "param_versions": g["param_versions"],
+           "stale_dropped": g["stale_dropped"],
+           "slot_base": [s["slot_base"] for s in subs],
+           "rounds": [s["exchange"]["rounds"] for s in subs],
+           "K1": k1, "K2": k2}
+    want = {"replicas_identical": True,
+            "param_versions": [steps] * GROUP_LEARNERS,
+            "stale_dropped": 0, "slot_base": list(range(GROUP_LEARNERS)),
+            "rounds": [steps] * GROUP_LEARNERS, "K1": want_k1,
+            "K2": want_k2}
+    loss = float(run.metrics["loss/total"])
+    if got != want or not all(n > 0 for n in per.values()) or \
+            not math.isfinite(loss):
+        raise AssertionError(f"{what}: {got}, expected {want}; "
+                             f"per-learner trajectories {per}, loss {loss}")
+    print(f"{what}: {steps} rounds, replicas identical (digests "
+          f"{g['param_digests']}), versions {g['param_versions']}, stale "
+          f"dropped {g['stale_dropped']}, slot bases {got['slot_base']}, "
+          f"exchange rounds {got['rounds']}, K1 launches {k1}, K2 {k2}, "
+          f"per-learner trajectories {per}, final loss {loss:.4f}")
+    return tel, subs, k1, k2
+
+
+def _group_rates(what: str, tel, subs) -> None:
+    fps = [s["frames_per_sec"] for s in subs]
+    print(f"{what}: learner frames/s {[round(f) for f in fps]}, sum "
+          f"{sum(fps):.0f}; reduce wait ms mean "
+          f"{[round(s['exchange']['reduce_wait_ms_mean'], 3) for s in subs]}"
+          f"; exchange bytes out {[s['exchange']['bytes_out'] for s in subs]}"
+          f"; batch sizes "
+          f"{[dict(sorted(s['batch_size_hist'].items())) for s in subs]}; "
+          f"lag mean {tel['lag']['mean']:.3f} max {tel['lag']['max']}; "
+          f"{tel['actors']['trajectories']} trajectories")
+
+
+def phase_group(vk, dev, single_before) -> int:
+    """6r: ``--runtime async --learners 2`` at full width, one actor
+    thread a learner, ``GROUP_STEPS`` rounds; frames/s beside 6a's single
+    learner and the compute pids while it runs. Returns K2's launches."""
+    from repro_torch.launch import train as train_lib
+
+    with _ComputePids() as seen:
+        run = train_lib.train(GROUP_ARGV)
+    _no_actor_threads("learner group")
+    tel, subs, _k1, k2 = _check_group("learner group", vk, run,
+                                      GROUP_STEPS)
+    if seen.most > 1 + GROUP_LEARNERS or seen.on_card != seen.workers or \
+            len(seen.workers) != GROUP_LEARNERS:
+        raise AssertionError(f"learner group: nvidia-smi listed "
+                             f"{seen.most} compute pids at once; at most "
+                             f"this process and {GROUP_LEARNERS} workers "
+                             f"may hold a CUDA context; workers "
+                             f"{sorted(seen.workers)}, those with the "
+                             f"card's device node open "
+                             f"{sorted(seen.on_card)}")
+    _group_rates("learner group", tel, subs)
+    print(f"learner group: single learner (phase 6a, same process) learner "
+          f"frames/s {single_before['frames_per_sec']:.0f}; nvidia-smi "
+          f"compute pids {sorted(seen.pids)} (at most {seen.most} at once) "
+          f"while the group ran, both workers "
+          f"{sorted(seen.workers)} with the card's device node open; "
+          f"{len(run.tracker.completed)} episodes, "
+          f"last 100 mean {run.tracker.mean_return(100):.3f}")
+    return sum(k2)
+
+
+def phase_group_replay(vk, dev) -> int:
+    """6s: 6r with ``--replay-fraction 0.5 --replay-reuse 2``: K1 once a
+    round in each learner, K2 never. Returns K1's launches."""
+    from repro_torch.launch import train as train_lib
+
+    run = train_lib.train(GROUP_REPLAY_ARGV)
+    _no_actor_threads("learner group with replay")
+    tel, subs, k1, _k2 = _check_group("learner group replay", vk, run,
+                                      GROUP_REPLAY_STEPS, replay=True)
+    rp = tel["replay"]
+    if not (rp["sampled"] > 0 and rp["fresh_max"] == 2):
+        raise AssertionError(f"learner group replay: {rp}")
+    _group_rates("learner group replay", tel, subs)
+    print(f"learner group replay: sampled {rp['sampled']}, reuse_ratio "
+          f"{rp['reuse_ratio']:.4f}, target_syncs {rp['target_syncs']}, "
+          f"trained frames/s {rp['trained_frames_per_sec']:.0f}")
+    return sum(k1)
+
+
+def phase_group_process(vk, dev) -> int:
+    """6t: 6r with ``--actor-backend process --transport shm`` for
+    ``GROUP_PROC_STEPS`` rounds: no actor child holds a CUDA context.
+    Returns K2's launches."""
+    from repro_torch.launch import train as train_lib
+
+    with _ComputePids() as seen:
+        run = train_lib.train(GROUP_PROC_ARGV)
+    _no_actor_threads("learner group, process actors")
+    tel, subs, _k1, k2 = _check_group("learner group process", vk, run,
+                                      GROUP_PROC_STEPS)
+    if tel["actors"]["backend"] != "process" or \
+            not all(s["queue"]["wire_received"] for s in subs):
+        raise AssertionError(f"learner group process: {tel['actors']}")
+    if not seen.children or seen.on_card != seen.workers or \
+            len(seen.workers) != GROUP_LEARNERS or \
+            seen.most > 1 + GROUP_LEARNERS:
+        raise AssertionError(f"learner group process: nvidia-smi compute "
+                             f"pids {sorted(seen.pids)} (at most "
+                             f"{seen.most} at once); of the workers "
+                             f"{sorted(seen.workers)} and their children "
+                             f"{sorted(seen.children)}, "
+                             f"{sorted(seen.on_card)} had the card's "
+                             f"device node open, where only the workers "
+                             f"may")
+    _group_rates("learner group process", tel, subs)
+    print(f"learner group process: nvidia-smi compute pids "
+          f"{sorted(seen.pids)} (at most {seen.most} at once) while the "
+          f"workers' children {sorted(seen.children)} ran; of them and "
+          f"the workers {sorted(seen.workers)}, only "
+          f"{sorted(seen.on_card)} had the card's device node open: no "
+          f"actor child holds a CUDA context")
+    return sum(k2)
+
+
+def _group_bar_args(dev):
+    """tests/test_group.py::test_two_learner_group_learns_catch's
+    configuration: ``(config, keyword arguments)`` of
+    ``run_group_training`` on catch (32 envs)."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.envs import make_catch
+
+    env = make_catch()
+    arch = get_smoke_config("impala-shallow").replace(image_hw=env.image_hw)
+    cfg = ImpalaConfig(num_actions=env.num_actions, unroll_length=20,
+                       learning_rate=6e-4, entropy_cost=0.003,
+                       rmsprop_eps=0.01)
+    return cfg, dict(num_learners=2, num_actors=4, actor_backend="thread",
+                     queue_capacity=8, queue_policy="block",
+                     max_batch_trajs=4, seed=0, arch=arch, device=dev)
+
+
+def phase_group_bar(vk, dev, ckpt_dir: str) -> Tuple[int, int]:
+    """6u: tests/test_group.py::test_two_learner_group_learns_catch on the
+    card, held to its bar; its publisher saves fleet-v1 into ``ckpt_dir``
+    after the last round, for 6v. Returns K2's launches and the saved
+    replicas' digest."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import group, run_group_training
+
+    cfg, kw = _group_bar_args(dev)
+    counts = {}
+    tracker, metrics, tel = run_group_training(
+        "catch", cfg, 32, GROUP_BAR_STEPS, kernel_counts=counts,
+        ckpt_every=GROUP_BAR_STEPS, ckpt_dir=ckpt_dir, **kw)
+    _no_actor_threads("group learning run")
+    returns = tracker.completed
+    early = float(sum(returns[:500])) / len(returns[:500])
+    late = tracker.mean_return(100)
+    per = tel["actors"]["per_learner_trajectories"]
+    k2 = [c["launches"]["loss_vtrace"] for _k, c in sorted(counts.items())]
+    if not (tel["learner_updates"] == tel["param_version"] == GROUP_BAR_STEPS
+            and tel["group"]["param_versions"] == [GROUP_BAR_STEPS] * 2
+            and tel["group"]["replicas_identical"]
+            and all(n > 0 for n in per.values())
+            and math.isfinite(float(metrics["loss/total"]))
+            and tel["lag"]["max"] > 0 and k2 == [GROUP_BAR_STEPS] * 2):
+        raise AssertionError(f"group learning run: {tel['group']}, "
+                             f"{tel['learner_updates']} updates, lag "
+                             f"{tel['lag']}, trajectories {per}, K2 {k2}")
+    if not (late > early + CATCH_CLIMB and late > CATCH_LATE):
+        raise AssertionError(f"group catch: last 100 mean {late:.3f}, first "
+                             f"500 mean {early:.3f}; the bar is a climb of "
+                             f"more than {CATCH_CLIMB} to above {CATCH_LATE}")
+    tree, step, extra = ckpt.load_with_extra(ckpt_dir)
+    saved = group.params_digest(tree["params"])
+    if (step, extra) != (GROUP_BAR_STEPS, {"version": GROUP_BAR_STEPS,
+                                           "format": "fleet-v1"}) or \
+            set(tel["group"]["param_digests"].values()) != {saved}:
+        raise AssertionError(f"group checkpoint: step {step} {extra}, "
+                             f"digest {saved}, the group's "
+                             f"{tel['group']['param_digests']}")
+    print(f"group learning bar: catch (smoke impala-shallow, 2 learners, 4 "
+          f"actor threads, {GROUP_BAR_STEPS} rounds) last 100 mean "
+          f"{late:.3f} > first 500 mean {early:.3f} + {CATCH_CLIMB}, and > "
+          f"{CATCH_LATE}; {len(returns)} episodes, replicas identical, "
+          f"per-learner trajectories {per}, lag mean "
+          f"{tel['lag']['mean']:.3f} max {tel['lag']['max']}, K2 {k2}; "
+          f"fleet-v1 saved at round {step} (digest {saved}, both replicas)")
+    return sum(k2), saved
+
+
+def phase_group_resume(vk, dev, ckpt_dir: str, saved: int) -> int:
+    """6v: groups resumed from 6u's fleet-v1 checkpoint (``saved``, its
+    digest, at version ``GROUP_BAR_STEPS``) in 6u's configuration: one
+    with no round left publishes exactly the saved params (its digest is
+    theirs), and one resumed for ``GROUP_RESUMED`` more rounds continues
+    the version stream. Returns K2's launches."""
+    from repro_torch.distributed import run_group_training
+
+    cfg, kw = _group_bar_args(dev)
+    v0, more = GROUP_BAR_STEPS, GROUP_BAR_STEPS + GROUP_RESUMED
+    _, _, tel = run_group_training("catch", cfg, 32, v0,
+                                   resume_from=ckpt_dir, **kw)
+    first = tel["group"]["param_digests"]
+    if set(first.values()) != {saved} or \
+            tel["group"]["param_versions"] != [v0] * 2:
+        raise AssertionError(f"group resume: digests {first}, versions "
+                             f"{tel['group']['param_versions']}; saved "
+                             f"{saved} at {v0}")
+    counts = {}
+    _, metrics, tel = run_group_training(
+        "catch", cfg, 32, more, resume_from=ckpt_dir, kernel_counts=counts,
+        **kw)
+    _no_actor_threads("resumed learner group")
+    g = tel["group"]
+    k2 = [c["launches"]["loss_vtrace"] for _k, c in sorted(counts.items())]
+    rounds = [tel["learners"][f"learner_{k}"]["exchange"]["rounds"]
+              for k in range(2)]
+    if not (g["param_versions"] == [more] * 2 and g["replicas_identical"]
+            and rounds == [GROUP_RESUMED] * 2 and k2 == [GROUP_RESUMED] * 2
+            and math.isfinite(float(metrics["loss/total"]))):
+        raise AssertionError(f"resumed group: {g}, exchange rounds "
+                             f"{rounds}, K2 {k2}")
+    print(f"group resume: a group resumed from 6u's fleet-v1 with no round "
+          f"left published its digest {saved} at version {v0} in both "
+          f"workers; one resumed for {GROUP_RESUMED} rounds reached "
+          f"versions {g['param_versions']}, replicas identical, exchange "
+          f"rounds {rounds}, K2 {k2}")
+    return sum(k2)
+
+
 def phase_path_shapes(vk, dev):
     """Every shape at which phases 5-7 launched K1 or K2 and that
     ``K1_SHAPES``/``K2_SHAPES`` left out, held against the plain version
@@ -1415,14 +1852,21 @@ def phase_path_shapes(vk, dev):
     return phase_k1(vk, dev, k1), phase_k2(vk, dev, k2)
 
 
-def _device_busy(events):
+def _trace_pad() -> None:
+    """Idle host time at either end of a profiled window (``TRACE_PAD_S``).
+    """
+    time.sleep(TRACE_PAD_S)
+
+
+def _device_busy(events, skip_us: float = 0.0):
     """(busy us, device events, {name: (us, count)}) of the device-side
-    events of a profiler trace; busy is the union of their intervals."""
+    events of a profiler trace that start ``skip_us`` or more after it
+    does; busy is the union of their intervals."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
     for e in events:
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.time_range.start < skip_us:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -1470,25 +1914,13 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _trace_pad()
         for step in range(profiled):
             carry, batch = unroll(params, carry)
             params, opt_state, _ = train_step(params, opt_state, step, batch)
         torch.cuda.synchronize()
-    busy_us, count, by_name = _device_busy(prof.events())
-    if not count:
-        print("device busy share: not measured (the profiler trace holds "
-              "no device events)")
-        return
-    busy_ms = busy_us / profiled / 1e3
-    print(f"device: busy {busy_ms:.3f} ms per step over {profiled} "
-          f"profiled steps, {count / profiled:.0f} device events per step; "
-          f"{100 * busy_ms / (act + learn):.1f}% of the unprofiled "
-          f"{act + learn:.3f} ms step, so the card idles "
-          f"{100 - 100 * busy_ms / (act + learn):.1f}% of it")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (us, n) in top:
-        print(f"  device {us / profiled / 1e3:8.3f} ms/step "
-              f"{n / profiled:6.0f} calls/step  {name[:90]}")
+        _trace_pad()
+    _print_busy("sync step", prof, profiled, act + learn, "loss_vtrace")
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -1541,12 +1973,13 @@ def phase_times(vk, dev):
                  _k2_cost(t, b, a))):
             ms = _time_ms(lambda: kern(*args))
             plain_ms = _time_ms(lambda: plain(*args), 50)
-            dev_ms = _device_ms(lambda: kern(*args), 50)
-            bound_ms, bound_by = _bound(*cost)
             shape = (t, b) if name == "vtrace" else (t, b, a)
+            dev_ms, calls = DEVICE[(name, shape)]
+            bound_ms, bound_by = _bound(*cost)
             print(f"time {name} {shape}: call {ms:.5f} ms "
                   f"({100 * bound_ms / ms:.3f}% of the bound), device "
-                  f"{dev_ms:.5f} ms ({100 * bound_ms / dev_ms:.3f}%), plain "
+                  f"{dev_ms:.5f} ms ({100 * bound_ms / dev_ms:.3f}%; phase "
+                  f"2a, {calls} launches traced), plain "
                   f"{plain_ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}: "
                   f"{cost[0]} B, {cost[1]} ops), library: none (no single "
                   f"PyTorch call computes V-trace)")
@@ -1703,9 +2136,12 @@ def phase_serve_logits(run) -> float:
     return worst
 
 
-def phase_serve_split(run, profiled: int = 4) -> None:
+def phase_serve_split(run, kernel=None, per_step: int = 0,
+                      profiled: int = 4) -> None:
     """Device busy time of a few decode steps against the unprofiled
-    decode step, and the device kernels that take most of it."""
+    decode step, and the device kernels that take most of it; the trace
+    must hold ``per_step`` launches of ``kernel`` a step (``_print_busy``).
+    """
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import backbone as bb
@@ -1720,27 +2156,49 @@ def phase_serve_split(run, profiled: int = 4) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _trace_pad()
             for i in range(profiled):
                 out = bb.apply_decode(run.params, tok, cache, ctx + i,
                                       run.arch, run.num_actions)
                 cache = out.cache
                 tok = fb["actions"][i] % run.arch.vocab_size
             torch.cuda.synchronize()
+            _trace_pad()
     step = sorted(run.decode_ms)[len(run.decode_ms) // 2]
-    _print_busy(f"{run.arch.name} decode step", prof, profiled, step)
+    _print_busy(f"{run.arch.name} decode step", prof, profiled, step,
+                kernel, per_step)
 
 
-def _print_busy(what: str, prof, n: int, unprofiled_ms: float) -> None:
+def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
+                kernel=None, per_call: int = 1, skip_us: float = 0.0) -> None:
     """The card's busy time per call over ``n`` profiled calls against the
-    unprofiled time of one, and the device kernels that take most of it."""
-    busy_us, count, by_name = _device_busy(prof.events())
+    unprofiled time of one, and the device kernels that take most of it.
+    ``kernel``, a ``KERNEL_EVENTS`` key, launches ``per_call`` times a
+    call: a trace that holds another number of its launches has lost
+    device events, and its busy share would undercount, so that raises,
+    as a trace with no device events does. ``kernel=None`` where no
+    kernel of the port runs in a call: the trace is then not checked.
+    The busy time leaves out the events of the first ``skip_us``, a pad
+    in which only other threads launched."""
+    events = prof.events()
+    _, _, whole = _device_busy(events)
+    busy_us, count, by_name = _device_busy(events, skip_us)
     if not count:
-        print(f"{what} device busy share: not measured (the profiler trace "
-              f"holds no device events)")
-        return
+        raise AssertionError(f"{what}: the profiler trace of {n} calls "
+                             f"holds no device events")
+    note = "no kernel of the port in it to check the trace by"
+    if kernel is not None:
+        name = KERNEL_EVENTS[kernel][0]
+        got = sum(c for event, (_, c) in whole.items() if name in event)
+        if got != n * per_call:
+            raise AssertionError(
+                f"{what}: the profiler trace of {n} calls holds {got} "
+                f"{name} launches where {n * per_call} ran: it lost device "
+                f"events, so its busy share would undercount")
+        note = f"all {got} {kernel} launches in the trace"
     busy_ms = busy_us / n / 1e3
     print(f"{what} device: busy {busy_ms:.3f} ms per call over {n} profiled, "
-          f"{count / n:.0f} device events per call; "
+          f"{count / n:.0f} device events per call ({note}); "
           f"{100 * busy_ms / unprofiled_ms:.1f}% of the unprofiled "
           f"{unprofiled_ms:.3f} ms, so the card idles "
           f"{100 - 100 * busy_ms / unprofiled_ms:.1f}% of it")
@@ -1750,20 +2208,54 @@ def _print_busy(what: str, prof, n: int, unprofiled_ms: float) -> None:
               f"launches/call  {name[:90]}")
 
 
-def _device_ms(fn, n: int = 20) -> float:
-    """Device time per call of ``fn``: the busy time of its device events
-    in a ``torch.profiler`` trace of ``n`` calls, over ``n`` (no host
-    time; NaN where the trace holds no device events)."""
+def _device_ms(fn, events, n: int = 20) -> Tuple[float, int]:
+    """(device ms per call of ``fn``, calls seen) from a ``torch.profiler``
+    trace of ``n`` calls: the summed duration of the device events whose
+    names hold one of ``events`` (the kernel's own: the first names its
+    launch, the rest a pass it launches with it), over its ``n`` launches.
+    No host time and no other kernel's events. ``events=None`` (a library
+    call) takes the busy time of every device event of the trace, over
+    ``n``. A trace must hold the whole run: each of ``events`` a multiple
+    of ``n`` times and the launch exactly ``n``, or (a library call) each
+    event name a multiple of ``n`` times and none of the port's kernels.
+    One that does not has lost events; it is taken again, up to
+    ``DEVICE_TRIES`` traces, and then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
+    ours = [name for names in KERNEL_EVENTS.values() for name in names]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    busy_us, count, _ = _device_busy(prof.events())
-    return busy_us / n / 1e3 if count else math.nan
+    for attempt in range(1, DEVICE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _trace_pad()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            _trace_pad()
+        busy_us, _, by_name = _device_busy(prof.events())
+        if events is None:
+            calls, us = n, busy_us
+            mine = by_name
+            whole = bool(by_name) and not any(
+                e in name for name in by_name for e in ours)
+        else:
+            calls = sum(c for name, (_, c) in by_name.items()
+                        if events[0] in name)
+            mine = {name: uc for name, uc in by_name.items()
+                    if any(e in name for e in events)}
+            us = sum(u for u, _ in mine.values())
+            whole = calls == n
+        whole = whole and all(c % n == 0 for _, c in mine.values())
+        if whole:
+            return us / calls / 1e3, calls
+        held = {name[:60]: c for name, (_, c) in sorted(by_name.items())[:4]}
+        print(f"device time: trace {attempt} of {DEVICE_TRIES} of {n} calls "
+              f"lost events (it holds {held}); traced again")
+        TRACES_RETAKEN.append(held)
+    raise AssertionError(
+        f"device time: {DEVICE_TRIES} profiler traces of {n} calls each "
+        f"lost events: none holds {events[0] if events else 'a library'} "
+        f"call's events {n} times over")
 
 
 def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
@@ -1776,22 +2268,36 @@ def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
     return total
 
 
+def _k4_inputs(b, t, h, kh, d, dev):
+    """K4's bf16 (q, k, v) and SDPA's (B, heads, T, D) views of them."""
+    bf = torch.bfloat16
+    q = _rand((b, t, h, d), 7, bf, dev)
+    k = _rand((b, t, kh, d), 8, bf, dev)
+    v = _rand((b, t, kh, d), 9, bf, dev)
+    return (q, k, v) + tuple(x.transpose(1, 2) for x in (q, k, v))
+
+
+def _k5_inputs(b, h, kh, s, d, index, dev):
+    """K5's bf16 (q, k, v, bias) and SDPA's (q4, k, v, mask) for them."""
+    from repro_torch.models.attention import decode_bias
+
+    bf = torch.bfloat16
+    q = _rand((b, h, d), 17, bf, dev)
+    k = _rand((b, s, kh, d), 18, bf, dev)
+    v = _rand((b, s, kh, d), 19, bf, dev)
+    bias = decode_bias(index, s, 0, b, dev)
+    return (q, k, v, bias, q[:, :, None], k.transpose(1, 2),
+            v.transpose(1, 2), bias.to(bf)[:, None, None, :])
+
+
 def phase_attn_times(fk, dk, dev):
     """K4 and K5 at the serving path's shapes and one long shape each, in
     bf16, beside the plain version, the bound and one library call."""
     import torch.nn.functional as F
 
-    from repro_torch.models.attention import decode_bias
-
     rows = {}
-    bf = torch.bfloat16
-    for label, (b, t, h, kh, d), iters in (
-            ("main", (16, 128, 32, 8, 128), 200),
-            ("long", (1, 4096, 32, 8, 128), 10)):
-        q = _rand((b, t, h, d), 7, bf, dev)
-        k = _rand((b, t, kh, d), 8, bf, dev)
-        v = _rand((b, t, kh, d), 9, bf, dev)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    for label, (b, t, h, kh, d), iters in K4_TIMED:
+        q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
         ms = _time_ms(lambda: fk.flash_attention(q, k, v, True, 0), iters)
         plain_ms = _time_ms(lambda: fk.flash_attention_plain(q, k, v, True,
                                                              0), iters)
@@ -1800,9 +2306,9 @@ def phase_attn_times(fk, dk, dev):
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         ops = 4 * b * h * d * _attn_pairs(t, t, True, 0)
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
-        dev_ms = _device_ms(lambda: fk.flash_attention(q, k, v, True, 0))
-        lib_dev_ms = _device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+        (dev_ms, calls), (lib_dev_ms, _) = (
+            DEVICE[("flash_attention", label)],
+            DEVICE[("flash_attention library", label)])
         print(f"time flash_attention {label} (B,T,H,K,D)="
               f"{(b, t, h, kh, d)} causal bf16: kernel {ms:.5f} ms "
               f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s,"
@@ -1810,7 +2316,8 @@ def phase_attn_times(fk, dk, dev):
               f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
               f" {lib_ms:.5f} ms ({ops / lib_ms / 1e9:.1f} TFLOP/s), bound "
               f"{bound_ms:.7f} ms ({bound_by}: {nbytes} B, {ops} ops); "
-              f"device time a call (profiler): kernel {dev_ms:.5f} ms "
+              f"device time a call (profiler, phase 2a, {calls} launches "
+              f"traced): kernel {dev_ms:.5f} ms "
               f"({100 * bound_ms / dev_ms:.1f}% of the bound), library "
               f"{lib_dev_ms:.5f} ms")
         if label == "main":
@@ -1818,15 +2325,9 @@ def phase_attn_times(fk, dk, dev):
                                            bound_ms=bound_ms,
                                            bound_by=bound_by,
                                            library_ms=lib_ms)
-    for label, (b, h, kh, s, d), index, iters in (
-            ("main", (16, 32, 8, 128, 128), 160, 200),
-            ("long", (8, 32, 8, 32768, 128), 40000, 20)):
-        q = _rand((b, h, d), 17, bf, dev)
-        k = _rand((b, s, kh, d), 18, bf, dev)
-        v = _rand((b, s, kh, d), 19, bf, dev)
-        bias = decode_bias(index, s, 0, b, dev)
-        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        mask = bias.to(bf)[:, None, None, :]
+    for label, (b, h, kh, s, d), index, iters in K5_TIMED:
+        q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
+                                                     dev)
         ms = _time_ms(lambda: dk.decode_attention(q, k, v, bias), iters)
         plain_ms = _time_ms(lambda: dk.decode_attention_plain(q, k, v, bias),
                             iters)
@@ -1836,9 +2337,9 @@ def phase_attn_times(fk, dk, dev):
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s
         ops = 4 * h * d * valid
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
-        dev_ms = _device_ms(lambda: dk.decode_attention(q, k, v, bias))
-        lib_dev_ms = _device_ms(lambda: F.scaled_dot_product_attention(
-            q4, kt, vt, attn_mask=mask, enable_gqa=True))
+        (dev_ms, calls), (lib_dev_ms, _) = (
+            DEVICE[("decode_attention", label)],
+            DEVICE[("decode_attention library", label)])
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         nsplit, split_len = dk.plan_splits(b, kh, s, sms)
         print(f"time decode_attention {label} (B,H,K,S,D)="
@@ -1851,7 +2352,8 @@ def phase_attn_times(fk, dk, dev):
               f"split(s) of {split_len} keys: {b * kh * nsplit} blocks on "
               f"{sms} SMs"
               + (", plus the combine pass" if nsplit > 1 else "")
-              + f"; device time a call (profiler): kernel {dev_ms:.5f} ms "
+              + f"; device time a call (profiler, phase 2a, {calls} "
+              f"launches traced): kernel {dev_ms:.5f} ms "
               f"({nbytes / dev_ms / 1e9:.3f} TB/s, "
               f"{100 * bound_ms / dev_ms:.1f}% of the bound), library "
               f"{lib_dev_ms:.5f} ms")
@@ -1950,11 +2452,65 @@ def phase_prefill_split(run) -> None:
     with torch.no_grad():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _trace_pad()
             bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
                              run.num_actions)
             torch.cuda.synchronize()
+            _trace_pad()
     _print_busy(f"{run.arch.name} prefill", prof, 1,
-                sorted(run.prefill_ms)[len(run.prefill_ms) // 2])
+                sorted(run.prefill_ms)[len(run.prefill_ms) // 2],
+                "linear_scan", SSM_LAYERS)
+
+
+# (kernel, shape or label) -> (device ms a call, calls traced), phase 2a
+DEVICE = {}
+
+
+def phase_device_times(vk, fk, dk, lk, dev) -> None:
+    """2a: every kernel's device time at the shapes phases 8, 14 and 19
+    time, and the library call's beside K4 and K5, each from a
+    ``torch.profiler`` trace of ``DEVICE_CALLS`` calls (``_device_ms``),
+    taken first, in a process that has traced nothing yet, and kept in
+    ``DEVICE`` for those phases."""
+    import torch.nn.functional as F
+
+    def keep(key, fn, events):
+        DEVICE[key] = _device_ms(fn, events, DEVICE_CALLS)
+        ms, calls = DEVICE[key]
+        print(f"device time {key[0]} {key[1]}: {ms:.5f} ms a call, "
+              f"{calls} of {DEVICE_CALLS} calls traced")
+
+    for t, b, a in VTRACE_TIMED:
+        inp = _inputs(t, b, a, 5, dev)
+        rho, c = _weights(_log_rhos(inp), 1.0, 1.0, 1.0)
+        k1_args = (rho, c) + inp[3:]
+        keep(("vtrace", (t, b)), lambda: vk.vtrace(*k1_args),
+             KERNEL_EVENTS["vtrace"])
+        keep(("loss_vtrace", (t, b, a)), lambda: vk.loss_vtrace(*inp),
+             KERNEL_EVENTS["loss_vtrace"])
+    for label, (b, t, h, kh, d), _ in K4_TIMED:
+        q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
+        keep(("flash_attention", label),
+             lambda: fk.flash_attention(q, k, v, True, 0),
+             KERNEL_EVENTS["flash_attention"])
+        keep(("flash_attention library", label),
+             lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True), None)
+    for label, (b, h, kh, s, d), index, _ in K5_TIMED:
+        q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
+                                                     dev)
+        keep(("decode_attention", label),
+             lambda: dk.decode_attention(q, k, v, bias),
+             KERNEL_EVENTS["decode_attention"])
+        keep(("decode_attention library", label),
+             lambda: F.scaled_dot_product_attention(
+                 q4, kt, vt, attn_mask=mask, enable_gqa=True), None)
+    for label, (t, n) in (("main", K3_MAIN), ("long", K3_LONG)):
+        a, b, _ = _scan_inputs(t, n, 3, dev)
+        keep(("linear_scan", label), lambda: lk.linear_scan(a, b),
+             KERNEL_EVENTS["linear_scan"])
+        del a, b
+    torch.cuda.empty_cache()
 
 
 def phase_scan_times(lk, dev):
@@ -1969,8 +2525,11 @@ def phase_scan_times(lk, dev):
         # a and b read once, h written once; a multiply and an add each
         nbytes, ops = 3 * t * n * 4, 2 * t * n
         bound_ms, bound_by = _bound(nbytes, ops)
+        dev_ms, calls = DEVICE[("linear_scan", label)]
         print(f"time linear_scan {label} (T,N)={(t, n)} f32: kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.7f} ms "
+              f"{ms:.5f} ms, device {dev_ms:.5f} ms (phase 2a, {calls} "
+              f"launches traced), plain {plain_ms:.5f} ms, bound "
+              f"{bound_ms:.7f} ms "
               f"({bound_by}: {nbytes} B, {ops} ops), library: none (no "
               f"single PyTorch call computes the recurrence)")
         if label == "main":
@@ -1978,6 +2537,19 @@ def phase_scan_times(lk, dev):
                                        bound_ms=bound_ms, bound_by=bound_by)
         del a, b
     return rows
+
+
+class _Laps:
+    """Prints each group of phases' wall time and the run's so far."""
+
+    def __init__(self):
+        self.t0 = self.last = time.time()
+
+    def __call__(self, phases: str) -> None:
+        now = time.time()
+        print(f"[phases {phases}: {now - self.last:.1f} s; "
+              f"{now - self.t0:.1f} s since phase 2a]")
+        self.last = now
 
 
 def main() -> int:
@@ -2011,51 +2583,87 @@ def main() -> int:
                                      or "Performance Loss" in line):
             print(f"  {line.strip()}")
 
+    lap = _Laps()
+    phase_device_times(vk, fk, dk, lk, dev)
+    lap("2a")
     err_k1 = phase_k1(vk, dev)
     err_k2 = phase_k2(vk, dev)
     vk.vtrace.shapes.clear()
     vk.loss_vtrace.shapes.clear()
+    lap("3-4")
     launches, run = phase_main(vk, dev)
     phase_bandit()
+    lap("5-6")
     async_launches, async_before = phase_async(vk, dev)
+    lap("6a")
     replay_launches, _ = phase_async_replay(vk, dev)
+    lap("6c")
     # each kernel's launches over every path that runs it
     launches["loss_vtrace"] += async_launches["loss_vtrace"]
     launches["vtrace"] += replay_launches["vtrace"]
     phase_async_bar(dev)
+    lap("6b")
     phase_replay_bar(dev)
+    lap("6d")
     launches["loss_vtrace"] += phase_sync_replay(vk)
     phase_checkpoints(dev)
     phase_envs(dev)
+    lap("6e-6g")
     launches["loss_vtrace"] += phase_chase_sync(vk, run.fps)
     chase_launches, _ = phase_async_replay(
         vk, dev, CHASE_REPLAY_ARGV, CHASE_ASYNC_STEPS, "chase async replay")
     launches["vtrace"] += chase_launches["vtrace"]
+    lap("6h-6i")
     infer_launches, infer_fps = phase_inference(vk, dev, async_before)
     launches["loss_vtrace"] += infer_launches
+    lap("6j")
     phase_inference_bar(dev)
+    lap("6k")
     launches["loss_vtrace"] += phase_process(vk, dev, async_before)
     launches["loss_vtrace"] += phase_process_inference(vk, dev,
                                                        infer_fps)
+    lap("6n-6o")
     phase_process_bar(dev)
+    lap("6p")
     launches["loss_vtrace"] += phase_remote(vk, dev)
+    lap("6q")
     launches["loss_vtrace"] += phase_multitask(vk, dev)
     launches["loss_vtrace"] += phase_pbt(vk, dev)
+    lap("6l-6m")
+    launches["loss_vtrace"] += phase_group(vk, dev, async_before)
+    lap("6r")
+    launches["vtrace"] += phase_group_replay(vk, dev)
+    lap("6s")
+    launches["loss_vtrace"] += phase_group_process(vk, dev)
+    lap("6t")
+    group_ckpt = ROOT / "build" / "chip_smoke_group_ckpt"
+    shutil.rmtree(group_ckpt, ignore_errors=True)
+    try:
+        bar_launches, saved = phase_group_bar(vk, dev, str(group_ckpt))
+        launches["loss_vtrace"] += bar_launches
+        lap("6u")
+        launches["loss_vtrace"] += phase_group_resume(vk, dev,
+                                                      str(group_ckpt), saved)
+    finally:
+        shutil.rmtree(group_ckpt, ignore_errors=True)
+    lap("6v")
     phase_split(run, dev)
     k1_err, k2_err = phase_path_shapes(vk, dev)
     err_k1, err_k2 = max(err_k1, k1_err), max(err_k2, k2_err)
     rows = phase_times(vk, dev)
     del run
+    lap("7-8")
 
     err_k4 = phase_k4(fk, dev)
     err_k5 = phase_k5(dk, dev)
     serve_launches, serve_run = phase_serve(fk, dk)
     launches.update(serve_launches)
     phase_serve_logits(serve_run)
-    phase_serve_split(serve_run)
+    phase_serve_split(serve_run, "decode_attention", SERVE_LAYERS)
     del serve_run                     # the 46 GB of weights
     torch.cuda.empty_cache()
     rows.update(phase_attn_times(fk, dk, dev))
+    lap("9-14")
 
     err_k3 = phase_k3(lk, dev)
     ssm_launches, ssm_run = phase_serve_ssm(lk, fk, dk)
@@ -2066,6 +2674,7 @@ def main() -> int:
     del ssm_run
     torch.cuda.empty_cache()
     rows.update(phase_scan_times(lk, dev))
+    lap("15-19")
     print(f"times above: {card}")
 
     meta = {

@@ -4,9 +4,11 @@
 ``build_train_step`` returns ``train_step(params, opt_state, step, batch)``
 and ``build_replay_train_step`` its replay-path twin, which also takes the
 target network's params. Both run eagerly: PyTorch needs no ``jit``. The
-parameters are updated in place (``optim.apply_updates``); mixed
-precision and the grad/apply split of learner groups are not ported yet
-(ROADMAP.md, Queue 1 items 15 and 12).
+parameters are updated in place (``optim.apply_updates``).
+``build_grad_apply_steps`` and ``build_replay_grad_apply_steps`` split the
+same update at the gradient, for a learner group's exchange: the fused
+step is the two halves composed. Mixed precision is not ported yet
+(ROADMAP.md, Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -65,25 +67,49 @@ def _rmsprop(cfg: ImpalaConfig, optimizer):
                            momentum=cfg.rmsprop_momentum)
 
 
-def _step_fn(cfg: ImpalaConfig, optimizer, loss_fn):
-    """``step_fn(params, opt_state, step, *loss_args)``: the gradient of
-    ``loss_fn(params, *loss_args)`` through ``params`` only, clipped,
-    applied in place."""
+def _grad_fn(loss_fn):
+    """``grad_step(params, *loss_args) -> (grad leaves, metrics)``: the
+    gradient of ``loss_fn(params, *loss_args)`` through ``params`` only,
+    as a list in the tree's flatten order (``tree_leaves``)."""
+    def grad_step(params, *loss_args):
+        loss, metrics = loss_fn(params, *loss_args)
+        grads = list(torch.autograd.grad(loss, tree_leaves(params)))
+        return grads, {k: v.detach() for k, v in metrics.items()}
+
+    return grad_step
+
+
+def _apply_fn(cfg: ImpalaConfig, optimizer):
+    """``apply_step(params, opt_state, step, grads) -> (params, opt_state,
+    metrics)``: clip ``grads`` (leaves in flatten order, or a tree like
+    ``params``) by their global norm and apply the optimizer in place."""
     lr_fn = opt_lib.linear_schedule(cfg.learning_rate, 0.0,
                                     cfg.lr_anneal_steps)
 
-    def step_fn(params, opt_state, step, *loss_args):
-        loss, metrics = loss_fn(params, *loss_args)
-        grads = tree_unflatten_like(params, torch.autograd.grad(
-            loss, tree_leaves(params)))
+    def apply_step(params, opt_state, step, grads):
+        if isinstance(grads, (list, tuple)):
+            grads = tree_unflatten_like(params, grads)
         lr = lr_fn(step)
         grads, grad_norm = opt_lib.clip_by_global_norm(
             grads, cfg.grad_clip_norm)
         updates, opt_state = optimizer.update(grads, opt_state, params, lr)
         params = opt_lib.apply_updates(params, updates)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["opt/grad_norm"] = grad_norm
-        metrics["opt/lr"] = lr
+        return params, opt_state, {"opt/grad_norm": grad_norm, "opt/lr": lr}
+
+    return apply_step
+
+
+def _step_fn(cfg: ImpalaConfig, optimizer, loss_fn):
+    """``step_fn(params, opt_state, step, *loss_args)``: ``_grad_fn``'s
+    half, then ``_apply_fn``'s, on the same tensors."""
+    grad_step = _grad_fn(loss_fn)
+    apply_step = _apply_fn(cfg, optimizer)
+
+    def step_fn(params, opt_state, step, *loss_args):
+        grads, metrics = grad_step(params, *loss_args)
+        params, opt_state, ametrics = apply_step(params, opt_state, step,
+                                                 grads)
+        metrics.update(ametrics)
         return params, opt_state, metrics
 
     return step_fn
@@ -161,3 +187,35 @@ def build_replay_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
         return step_fn(params, opt_state, step, target_params, batch)
 
     return train_step, optimizer
+
+
+def build_grad_apply_steps(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                           num_actions: int,
+                           optimizer: opt_lib.Optimizer = None,
+                           vtrace_impl: str = "auto"):
+    """``train_step`` split at the gradient, for a learner group:
+    ``grad_step(params, batch) -> (grad leaves, metrics)`` and
+    ``apply_step(params, opt_state, step, grads) -> (params, opt_state,
+    metrics)``, with the group's mean between the two halves.
+
+    Clipping happens in ``apply_step``, on the exchanged mean, so every
+    replica clips the same broadcast values and applies the same update.
+    ``apply_step`` updates ``params`` and ``opt_state`` in place.
+    Composing the halves locally is ``build_train_step``'s step, bit for
+    bit: it is built from them."""
+    optimizer = _rmsprop(cfg, optimizer)
+    grad_step = _grad_fn(build_loss_fn(arch_cfg, cfg, num_actions,
+                                       vtrace_impl))
+    return grad_step, _apply_fn(cfg, optimizer), optimizer
+
+
+def build_replay_grad_apply_steps(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                                  num_actions: int,
+                                  optimizer: opt_lib.Optimizer = None,
+                                  vtrace_impl: str = "auto"):
+    """The replay path's split: ``grad_step(params, target_params, batch)``
+    and the same ``apply_step`` as ``build_grad_apply_steps``."""
+    optimizer = _rmsprop(cfg, optimizer)
+    grad_step = _grad_fn(build_replay_loss_fn(arch_cfg, cfg, num_actions,
+                                              vtrace_impl))
+    return grad_step, _apply_fn(cfg, optimizer), optimizer

@@ -1,7 +1,7 @@
 """The asynchronous actor-learner runtime (``repro.distributed``), as far
 as the port goes: thread, process and remote actors in unroll or
-inference mode, the in-process, shm and socket transports, and one
-learner (paper §3).
+inference mode, the in-process, shm and socket transports, one learner,
+and learner groups over the hub/spoke gradient exchange (paper §3).
 
   serde            ``TrajectoryItem`` and the wire format: codecs, frames
   tqueue           the bounded queue with three backpressure policies
@@ -23,10 +23,19 @@ learner (paper §3).
   supervise        restart seeds and the kill-safe stop flag
   learner          the ``Learner``: dynamic batch collection, train step,
                    versioned publish, telemetry
+  group            learner groups: N learner processes over disjoint
+                   actor-slot shards, gradients mean-reduced over the
+                   framed channel (``GradHub`` + ``SpokeExchange``, the
+                   stale-grad drop rule), one publisher numbering the
+                   versions
   runtime          composition root: build env/store/service/transport/
                    pool and run one ``Learner`` over them
 """
 from repro_torch.distributed.actor_pool import ActorPool
+from repro_torch.distributed.group import (GradHub, GradientExchange,
+                                           GroupTracker, NullExchange,
+                                           SpokeExchange, merge_telemetry,
+                                           run_group_training, shard_slots)
 from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.distributed.procpool import (ProcessActorPool,
@@ -34,16 +43,18 @@ from repro_torch.distributed.procpool import (ProcessActorPool,
 from repro_torch.distributed.runner import run_actor_loop
 from repro_torch.distributed.runtime import ACTOR_MODES, run_async_training
 from repro_torch.distributed.serde import TrajectoryItem
-from repro_torch.distributed.supervise import fold_restart_seed
+from repro_torch.distributed.supervise import (KillSafeEvent,
+                                               fold_restart_seed)
 from repro_torch.distributed.tqueue import POLICIES, TrajectoryQueue
 from repro_torch.distributed.transport import (TRANSPORTS, InprocTransport,
                                                ShmTransport, Transport,
                                                make_transport)
 
-__all__ = ["ACTOR_MODES", "ActorPool", "InprocTransport", "Learner",
-           "MultiTracker", "POLICIES", "ParameterStore",
+__all__ = ["ACTOR_MODES", "ActorPool", "GradHub", "GradientExchange",
+           "GroupTracker", "InprocTransport", "KillSafeEvent", "Learner",
+           "MultiTracker", "NullExchange", "POLICIES", "ParameterStore",
            "ProcessActorPool", "ShmTransport", "SocketActorPool",
-           "TRANSPORTS",
-           "TrajectoryItem", "TrajectoryQueue", "Transport",
-           "fold_restart_seed", "make_transport", "run_actor_loop",
-           "run_async_training"]
+           "SpokeExchange", "TRANSPORTS", "TrajectoryItem",
+           "TrajectoryQueue", "Transport", "fold_restart_seed",
+           "make_transport", "merge_telemetry", "run_actor_loop",
+           "run_async_training", "run_group_training", "shard_slots"]

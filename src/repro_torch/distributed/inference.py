@@ -213,15 +213,14 @@ class InferenceService:
                  num_clients: int, flush_timeout_s: float = 0.02,
                  max_batch_requests: Optional[int] = None, seed: int = 0,
                  rng_key=None, registry=None):
-        """``rng_key`` (a learner group's per-learner sampling stream)
-        comes with the learner groups (ROADMAP.md, Queue 1 item 12)."""
+        """``rng_key`` (an int) overrides ``seed`` as the sampling
+        stream's seed: a learner group passes each member's
+        ``fold_replay_seed(seed, learner_id)``, so no two learners'
+        services share an action-sampling stream. The JAX package passes
+        a folded PRNG key there; the port seeds a ``torch.Generator``."""
         require_cnn(arch_cfg)
         if num_clients < 1:
             raise ValueError("num_clients must be >= 1")
-        if rng_key is not None:
-            raise NotImplementedError(
-                "rng_key is not ported yet (ROADMAP.md, Queue 1 item 12: "
-                "learner groups)")
         del icfg
         self._arch = arch_cfg
         self._num_actions = env.num_actions
@@ -233,8 +232,9 @@ class InferenceService:
         self.device = tree_leaves(store.pull()[0])[0].device
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        base = seed if rng_key is None else int(rng_key)
         self._gen = torch.Generator(device=self.device).manual_seed(int(
-            np.random.SeedSequence((seed, 0x1f5)).generate_state(1)[0]))
+            np.random.SeedSequence((base, 0x1f5)).generate_state(1)[0]))
         self._gen_lock = threading.Lock()
 
         self._lock = threading.Lock()

@@ -11,6 +11,9 @@ batching, trains, publishes versioned params and reports telemetry.
                      backward, clip, RMSProp); with replay the replay
                      train step (the target network's values as the
                      V-trace baseline of replayed rows, K1 on the card);
+                     in a learner group the split: ``grad_step``, the
+                     leaves to the host, the exchange's mean, the mean
+                     back to the card, ``apply_step``;
   replay             fresh collection capped at ``_fresh_max``, the batch
                      topped up with replayed trajectories laid first,
                      priorities re-scored after the update, the fresh
@@ -18,11 +21,13 @@ batching, trains, publishes versioned params and reports telemetry.
                      ``replay_target_period`` updates;
   publish            every update lands in the learner's own
                      ``ParameterStore``, with the CUDA event that marks
-                     the published tree as written;
+                     the published tree as written; in a group at the
+                     version the exchange delegates (``publish_at``);
   telemetry          the JAX package's snapshot keys (updates, fps,
                      batch/lag histograms, queue, actors, ``inference``
-                     with an inference service, and ``replay`` with
-                     replay on).
+                     with an inference service, ``replay`` with replay
+                     on, and ``learner_id``/``slot_base``/``exchange``
+                     in a group).
 
 The optimizer updates the working parameters in place, so every update
 publishes a copy of them (``params.snapshot``): no actor ever reads a
@@ -47,8 +52,12 @@ magnitudes that re-score the replayed ones: one wait per update, as the
 reference's read-back of those magnitudes is. ``on_checkpoint`` receives
 host numpy trees in the JAX layout (the checkpoint format's).
 
-Learner groups (an exchange, SPMD) and the flight recorder are not
-ported yet (ROADMAP.md, Queue 1 items 12 and 13).
+In a group each round copies the gradient leaves to the host once (one
+device buffer, one copy into pinned memory, one wait) and uploads the
+mean once; every replica then runs the same ``apply_step`` launches on
+the same values, so the replicas stay bit identical. The SPMD learner (an
+in-XLA exchange) and the flight recorder are not ported yet (ROADMAP.md,
+Queue 1 items 15 and 13).
 """
 from __future__ import annotations
 
@@ -72,13 +81,16 @@ class MultiTracker:
     """Episode-return accounting across actor-local env batches.
 
     ``slot_base`` maps *global* actor slot ids onto this learner's local
-    tracker list."""
+    tracker list. Completion times are recorded (CLOCK_MONOTONIC,
+    comparable across the processes of one machine), so a learner group
+    can merge its learners' streams into one chronological history."""
 
     def __init__(self, num_actors: int, num_envs: int,
                  slot_base: int = 0):
         self.trackers = [EpisodeTracker(num_envs) for _ in range(num_actors)]
         self.slot_base = slot_base
         self._merged: List[float] = []
+        self._merged_at: List[float] = []
 
     def update(self, actor_id: int, rewards, dones) -> None:
         t = self.trackers[actor_id - self.slot_base]
@@ -86,11 +98,21 @@ class MultiTracker:
         t.update(np.asarray(rewards), np.asarray(dones))
         # merge in consumption order so mean_return's last-n window is
         # chronological, not actor-grouped
-        self._merged.extend(t.completed[before:])
+        fresh = t.completed[before:]
+        if fresh:
+            now = time.monotonic()
+            self._merged.extend(fresh)
+            self._merged_at.extend([now] * len(fresh))
 
     @property
     def completed(self) -> List[float]:
         return list(self._merged)
+
+    @property
+    def completed_timed(self) -> List[Tuple[float, float]]:
+        """(monotonic completion time, return) pairs, in consumption
+        order: what a group's merge sorts on."""
+        return list(zip(self._merged_at, self._merged))
 
     def mean_return(self, last_n: int = 100) -> float:
         if not self._merged:
@@ -267,6 +289,16 @@ class _HostStager:
         return _unflatten(structure, out)
 
 
+def _split(flat: np.ndarray, like) -> List[np.ndarray]:
+    """Views of ``flat`` shaped as the tensors ``like``, in order."""
+    out, at = [], 0
+    for x in like:
+        n = x.numel()
+        out.append(flat[at:at + n].reshape(tuple(x.shape)))
+        at += n
+    return out
+
+
 def _is_host(tree) -> bool:
     return isinstance(_flatten(tree)[0][0], np.ndarray)
 
@@ -371,10 +403,6 @@ class Learner:
         if max_batch_trajs < 1:
             raise ValueError(f"max_batch_trajs must be >= 1, got "
                              f"{max_batch_trajs}")
-        if exchange is not None:
-            raise NotImplementedError(
-                "a gradient exchange is not ported yet (ROADMAP.md, Queue 1 "
-                "item 12: learner groups)")
         if trace is not None or phase_timing or profile is not None:
             raise NotImplementedError(
                 "the flight recorder is not ported yet (ROADMAP.md, Queue 1 "
@@ -390,6 +418,7 @@ class Learner:
         self.queue = transport
         self.wire_codec = wire_codec
         self.vtrace_impl = vtrace_impl
+        self._exchange = exchange
         self.device = torch.device(device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -401,7 +430,16 @@ class Learner:
             params = params_lib.from_jax(common.init_params(specs, seed),
                                          self.device)
         replay_on = icfg.replay_fraction > 0.0
-        if replay_on:
+        self._grad_step = self._apply_step = None
+        if exchange is not None:
+            # grouped: the update is split at the gradient, with the
+            # exchange's mean between the halves
+            build = (learner_lib.build_replay_grad_apply_steps if replay_on
+                     else learner_lib.build_grad_apply_steps)
+            self._grad_step, self._apply_step, opt = build(
+                arch, icfg, num_actions, vtrace_impl=vtrace_impl)
+            self._train_step = None
+        elif replay_on:
             # train_step(params, target_params, opt_state, step, batch):
             # the target is read, never written
             replay_step, opt = learner_lib.build_replay_train_step(
@@ -414,6 +452,8 @@ class Learner:
         else:
             self._train_step, opt = learner_lib.build_train_step(
                 arch, icfg, num_actions, vtrace_impl=vtrace_impl)
+        # the group's pinned host buffers: gradient leaves down, mean up
+        self._grad_host = self._mean_host = None
         self._params = params
         self._opt_state = (initial_opt_state if initial_opt_state is not None
                            else opt.init(params))
@@ -481,6 +521,9 @@ class Learner:
             "inference", lambda: (self.service.snapshot()
                                   if self.service is not None else None))
         reg.register_producer("replay", self._replay_telemetry)
+        reg.register_producer(
+            "exchange", lambda: (self._exchange.snapshot()
+                                 if self._exchange is not None else None))
 
     # ------------------------------------------------------------------
 
@@ -596,6 +639,11 @@ class Learner:
             snap["inference"] = col["inference"]
         if "replay" in col:
             snap["replay"] = col["replay"]
+        if self._exchange is not None:
+            # grouped only: alone, the key set stays the single learner's
+            snap["learner_id"] = self.learner_id
+            snap["slot_base"] = self.slot_base
+            snap["exchange"] = col.get("exchange", self._exchange.snapshot())
         return snap
 
     # ------------------------------------------------------------------
@@ -617,19 +665,80 @@ class Learner:
                 warm = dict(warm)
                 warm["replay_mask"] = torch.zeros(b * self._num_envs,
                                                   device=self.device)
-            self._train_step(params_lib.copy(self._params),
-                             params_lib.copy(self._opt_state), 0, warm)
+            if self._exchange is None:
+                self._train_step(params_lib.copy(self._params),
+                                 params_lib.copy(self._opt_state), 0, warm)
+            else:
+                grads, _ = self._grad(warm)
+                self._apply_step(params_lib.copy(self._params),
+                                 params_lib.copy(self._opt_state), 0, grads)
         self._sync()
         self.queue.requeue_front(first)
 
-    def _update_once(self, batch) -> Tuple[PyTree, Dict]:
-        """One training update on ``batch``; returns (published params,
-        metrics)."""
-        self._params, self._opt_state, metrics = self._train_step(
-            self._params, self._opt_state, self.updates, batch)
+    def _grad(self, batch):
+        if self._replay is not None:
+            return self._grad_step(self._params, self._target_params, batch)
+        return self._grad_step(self._params, batch)
+
+    def _update_once(self, batch) -> Optional[Tuple[PyTree, Dict]]:
+        """One training update on ``batch``: fused when alone; grouped,
+        the gradient, the exchange's mean and the apply. Returns
+        (published params, metrics), or None when the exchange shut
+        down."""
+        if self._exchange is None:
+            self._params, self._opt_state, metrics = self._train_step(
+                self._params, self._opt_state, self.updates, batch)
+            published = params_lib.snapshot(self._params)
+            self.store.publish(published, self._mark())
+            return published, metrics
+        grads, metrics = self._grad(batch)
+        reduced = self._exchange.allreduce(self._leaves_to_host(grads),
+                                           round_idx=self.updates)
+        if reduced is None:
+            return None                     # the group is shutting down
+        mean_leaves, version = reduced
+        self._params, self._opt_state, ametrics = self._apply_step(
+            self._params, self._opt_state, self.updates,
+            self._leaves_to_device(mean_leaves, grads))
+        metrics = dict(metrics)
+        metrics.update(ametrics)
         published = params_lib.snapshot(self._params)
-        self.store.publish(published, self._mark())
+        # the hub numbers the rounds: every learner of the group publishes
+        # at its version, so all actors see one version stream
+        self.store.publish_at(published, version, self._mark())
         return published, metrics
+
+    def _leaves_to_host(self, leaves) -> List[np.ndarray]:
+        """The gradient leaves as numpy arrays. On the card: packed into
+        one device buffer, copied once into a pinned buffer (reused every
+        round: the exchange is done with it when ``allreduce`` returns)
+        and waited for once."""
+        if self.device.type != "cuda":
+            return [x.detach().numpy() for x in leaves]
+        flat = torch.cat([x.detach().reshape(-1) for x in leaves])
+        if self._grad_host is None:
+            self._grad_host = torch.empty(flat.shape, dtype=flat.dtype,
+                                          pin_memory=True)
+        self._grad_host.copy_(flat, non_blocking=True)
+        self._mark().synchronize()
+        return _split(self._grad_host.numpy(), leaves)
+
+    def _leaves_to_device(self, mean_leaves, like) -> List[torch.Tensor]:
+        """The exchanged mean as tensors shaped as ``like`` on the
+        learner's device: on the card one pinned buffer, one copy up."""
+        if self.device.type != "cuda":
+            return [torch.from_numpy(np.ascontiguousarray(m, np.float32))
+                    for m in mean_leaves]
+        if self._mean_host is None:
+            self._mean_host = torch.empty(self._grad_host.shape,
+                                          dtype=torch.float32,
+                                          pin_memory=True)
+        for dst, m in zip(_split(self._mean_host.numpy(), like),
+                          mean_leaves):
+            np.copyto(dst, m)
+        flat = self._mean_host.to(self.device, non_blocking=True)
+        return [x.view_as(g) for x, g in zip(
+            flat.split([g.numel() for g in like]), like)]
 
     def run(self, steps: int, *, warm_buckets: bool = False,
             on_update: Optional[Callable] = None,
@@ -664,6 +773,8 @@ class Learner:
             self.pool.stop()
             if self.service is not None:
                 self.service.stop()
+            if self._exchange is not None:
+                self._exchange.close()
             self.pool.join()
             self.queue.close()
         if self._stream is not None:
@@ -709,7 +820,10 @@ class Learner:
                 mask[:n_rep * self._num_envs] = 1.0
                 batch = dict(batch)
                 batch["replay_mask"] = mask
-            published, metrics = self._update_once(batch)
+            stepped = self._update_once(batch)
+            if stepped is None:
+                break                   # the exchange shut down under us
+            published, metrics = stepped
             if self._replay is not None:
                 metrics = self._replay_bookkeeping(metrics, samples, items)
             self.metrics = metrics

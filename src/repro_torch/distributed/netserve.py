@@ -9,7 +9,11 @@ Three pieces:
                         seed, actor id, mode) inside the CONFIG
                         handshake frame, in the JAX package's JSON
                         scheme — a remote actor dials in knowing only
-                        the learner's address.
+                        the learner's address. In a learner group the
+                        handshake also carries the ``shard_map`` (every
+                        learner's listen address), and a learner whose
+                        shard is full refuses with that map, so the
+                        client spills to a learner with a free slot.
   SocketInferenceFrontend / SocketInferenceClient
                         the ``InferenceService`` over TCP: observation
                         request frames ride the ctrl connection up,
@@ -28,9 +32,6 @@ echo it. If the ctrl link dies with a request in flight, the client
 resubmits on the fresh link and discards any reply whose seq is not the
 one awaited — at-most-once delivery per step, so a reconnect can never
 desynchronise the recurrent state an actor carries between steps.
-
-A learner group's shard map (ROADMAP.md, Queue 1 item 12) is not
-ported: a refused actor exits nonzero.
 """
 from __future__ import annotations
 
@@ -339,9 +340,11 @@ def remote_actor_main(address, stop_event: Optional[Any] = None,
 
     Everything else — actor id, env, arch, impala config, seed, actor
     mode — arrives in the CONFIG handshake, so a remote machine needs
-    only this function and a reachable address. Returns None on a clean
-    run, or the error traceback string (also reported to the learner
-    over the ctrl link) on failure."""
+    only this function and a reachable address. ``address`` may be any
+    learner of a group: a full learner refuses with the shard map and the
+    client spills to one with a free slot. Returns None on a clean run,
+    or the error traceback string (also reported to the learner over the
+    ctrl link) on failure."""
     from repro_torch.distributed import runner
 
     net = st.SocketActorClient(tuple(address), stop_event=stop_event,
@@ -352,12 +355,18 @@ def remote_actor_main(address, stop_event: Optional[Any] = None,
         net.close(bye=False)
         if net.refused:
             return (f"refused by learner at {address[0]}:{address[1]}: "
-                    "no free actor slot")
+                    "no free actor slot (every learner in the shard "
+                    "map has live actors on all its slots)")
         if net.dial_failed:
             return (f"could not reach learner at "
                     f"{address[0]}:{address[1]} (dial timeout)")
         return None if net.stopped else "connect failed"
     stop = _ComposedStop(net, stop_event)
+    if tuple(net.connected_addr) != tuple(address):
+        # the refusal's shard map landed us on another learner
+        h, p = net.connected_addr
+        print(f"actor {cfg.get('actor_id')}: spilled to learner "
+              f"{h}:{p}", flush=True)
     try:
         runner._tune_child_scheduling(int(cfg["actor_id"]))
         arch_cfg = cfg_from_jsonable(cfg["arch"])

@@ -33,11 +33,15 @@ machines dialing a TCP listen address, over the ``socket`` transport).
 The learner and the inference service stay on the card whichever
 backend acts.
 
+``_setup`` is also what each worker of a learner group
+(``distributed/group.py``) calls, with its shard of the actor slots
+(``slot_base``), its id and its gradient exchange.
+
 Ported: the three actor backends in unroll and inference mode, the
-three transports with their wire codecs, one learner, replay, periodic
-fleet-v1 checkpoints; no flight recorder and no supervision. Every other
-value of the JAX runtime's options raises, naming its ROADMAP.md Queue 1
-item.
+three transports with their wire codecs, one learner or a group's
+worker, replay, periodic fleet-v1 checkpoints; no SPMD learner, no flight
+recorder and no supervision. Every other value of the JAX runtime's
+options raises, naming its ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -62,8 +66,7 @@ def _unported(what: str, item: int, name: str) -> NotImplementedError:
 
 
 def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
-              transport, env_name, spmd_devices: int = 0,
-              exchange=None) -> None:
+              transport, env_name, spmd_devices: int = 0) -> None:
     if not (0.0 <= icfg.replay_fraction < 1.0):
         raise ValueError(f"replay_fraction must be in [0, 1), got "
                          f"{icfg.replay_fraction}")
@@ -104,9 +107,9 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
     if transport not in ("inproc", "shm", "socket"):
         raise ValueError(f"transport must be one of inproc/shm/socket, "
                          f"got {transport!r}")
-    if spmd_devices or exchange is not None:
-        raise _unported("an SPMD learner or a gradient exchange", 12,
-                        "learner groups")
+    if spmd_devices:
+        raise _unported("the SPMD learner (spmd_devices)", 15,
+                        "TPU-mesh tooling analogues")
 
 
 def _setup(
@@ -131,21 +134,31 @@ def _setup(
     wire_codec: str = "none",
     vtrace_impl: str = "auto",
     spmd_devices: int = 0,
-    exchange=None,
     infer_flush_timeout_s: float = 0.02,
     infer_max_batch_requests: Optional[int] = None,
     infer_streams: int = 1,
     listen_addr: Optional[Tuple[str, int]] = None,
     spawn_remote: bool = True,
+    slot_base: int = 0,
+    learner_id: int = 0,
+    num_learners: int = 1,
+    exchange=None,
+    peer_addrs=None,
     device="cuda",
 ) -> Learner:
     """Build one learner worker's dependency graph (env, params, train
     step, store, inference service, transport, actor pool) and return the
-    assembled ``Learner``. Actor slot ids are global (``slot_base + i``),
-    so an actor's RNG stream does not depend on how slots are sharded."""
+    assembled ``Learner``.
+
+    ``run_async_training`` calls this with the defaults; a learner
+    group's worker with its shard (``slot_base``/``num_actors``), its id,
+    the group's size, its ``GradientExchange`` and, for remote actors,
+    ``peer_addrs``: every learner's listen address, the shard map a full
+    learner's refusal carries. Actor slot ids are global (``slot_base +
+    i``), so an actor's RNG stream does not depend on how slots are
+    sharded."""
     _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
-              transport, env_name, spmd_devices=spmd_devices,
-              exchange=exchange)
+              transport, env_name, spmd_devices=spmd_devices)
     env = make_env(env_name) if isinstance(env_name, str) else env_name
     if arch is None:
         from repro_torch.core.driver import small_arch
@@ -155,13 +168,17 @@ def _setup(
     learner = Learner(
         arch=arch, icfg=icfg, num_actions=env.num_actions,
         num_envs=num_envs, num_actors=num_actors, transport=None,
-        seed=seed, actor_mode=actor_mode, max_batch_trajs=max_batch_trajs,
-        batch_linger_s=batch_linger_s, donate=donate,
-        start_step=start_step, initial_params=initial_params,
-        initial_opt_state=initial_opt_state, wire_codec=wire_codec,
-        vtrace_impl=vtrace_impl, device=device)
+        seed=seed, learner_id=learner_id, num_learners=num_learners,
+        slot_base=slot_base, actor_mode=actor_mode,
+        max_batch_trajs=max_batch_trajs, batch_linger_s=batch_linger_s,
+        donate=donate, start_step=start_step,
+        initial_params=initial_params,
+        initial_opt_state=initial_opt_state, exchange=exchange,
+        wire_codec=wire_codec, vtrace_impl=vtrace_impl, device=device)
     service = None
     if actor_mode == "inference":
+        from repro_torch.core.replay import fold_replay_seed
+
         if actor_backend == "thread" or infer_streams < 1 or \
                 num_envs % infer_streams:
             # one driver thread multiplexes thread actors; pipelining
@@ -176,7 +193,12 @@ def _setup(
             flush_timeout_s=infer_flush_timeout_s,
             max_batch_requests=(infer_max_batch_requests or
                                 _pow2_floor(num_actors)),
-            seed=seed, registry=learner.obs_registry)
+            seed=seed,
+            # grouped: each learner's service samples from its own stream,
+            # seeded by (seed, learner_id); alone: the plain seed
+            rng_key=(fold_replay_seed(seed, learner_id)
+                     if num_learners > 1 else None),
+            registry=learner.obs_registry)
     # the transport's counters land in the registry the snapshot reads
     transport_kw: Dict[str, Any] = {"registry": learner.obs_registry}
     if transport in ("shm", "socket"):
@@ -184,17 +206,20 @@ def _setup(
         transport_kw["wire_codec"] = wire_codec
     if transport == "socket":
         transport_kw.update({"listen": listen_addr or ("127.0.0.1", 0),
-                             "max_actors": num_actors})
+                             "max_actors": num_actors,
+                             "slot_base": slot_base})
     queue = make_transport(transport, queue_capacity, queue_policy,
                            **transport_kw)
     learner.queue = queue
     env_name = env_name if isinstance(env_name, str) else env.name
     if actor_backend == "remote":
         from repro_torch.distributed.procpool import SocketActorPool
+        if peer_addrs is not None:
+            queue.peer_addrs = [tuple(a) for a in peer_addrs]
         pool = SocketActorPool(
             env_name, arch, icfg, num_envs, num_actors, learner.store,
             queue, seed=seed, service=service, infer_streams=infer_streams,
-            spawn_local=spawn_remote)
+            spawn_local=spawn_remote, slot_base=slot_base)
         if not spawn_remote:
             host, port = queue.address
             print(f"learner listening on {host}:{port} — waiting for "
@@ -205,11 +230,12 @@ def _setup(
         from repro_torch.distributed.procpool import ProcessActorPool
         pool = ProcessActorPool(
             env_name, arch, icfg, num_envs, num_actors, learner.store,
-            queue, seed=seed, service=service, infer_streams=infer_streams)
+            queue, seed=seed, service=service, infer_streams=infer_streams,
+            slot_base=slot_base)
     else:
         pool = ActorPool(env, arch, icfg, num_envs, num_actors,
                          learner.store, queue, seed=seed, service=service,
-                         device=learner.device)
+                         slot_base=slot_base, device=learner.device)
     learner.attach(pool, service)
     return learner
 

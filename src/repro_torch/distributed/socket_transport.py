@@ -44,9 +44,11 @@ Failure discipline (what the chaos suite pins down):
     but keeps draining, sends a ``stop`` control frame, and each actor
     answers ``bye`` before closing — so no shutdown ever tears a frame.
 
-Not ported yet: the heartbeat lease reaper and elastic membership
-(ROADMAP.md, Queue 1 item 13), and a learner group's shard map with its
-refusal spill (item 12). Asking for them raises, naming the item.
+A learner group's shard map (``peer_addrs``: every learner's listen
+address) rides the CONFIG handshake and a full learner's refusal, and a
+refused client spills to a learner it has not tried. Not ported yet: the
+heartbeat lease reaper and elastic membership (ROADMAP.md, Queue 1 item
+13). Asking for them raises, naming the item.
 """
 from __future__ import annotations
 
@@ -325,9 +327,14 @@ class SocketTransport:
             data_buf_bytes = max(data_buf_bytes // self.QUANT_BUF_DIV,
                                  self.MIN_DATA_BUF)
         self.data_buf_bytes = data_buf_bytes
-        # this learner hands out global actor ids in [slot_base,
-        # slot_base + max_actors)
+        # shard-aware slot assignment: this learner hands out global
+        # actor ids in [slot_base, slot_base + max_actors). peer_addrs
+        # (set by the pool/group before actors connect) is the shard
+        # map: every learner's listen address, shipped in the CONFIG
+        # handshake and in refusals, so an external actor that dialed a
+        # full learner spills to one with a free slot instead of dying
         self.slot_base = slot_base
+        self.peer_addrs: Optional[List[Address]] = None
         self._inner = TrajectoryQueue(capacity, policy, registry=registry)
         self.registry = self._inner.registry
         self.on_item: Optional[Callable[[TrajectoryItem], None]] = None
@@ -390,17 +397,6 @@ class SocketTransport:
                                           name="socket-accept",
                                           daemon=True)
         self._acceptor.start()
-
-    @property
-    def peer_addrs(self) -> None:
-        return None
-
-    @peer_addrs.setter
-    def peer_addrs(self, addrs) -> None:
-        if addrs is not None:
-            raise NotImplementedError(
-                "a learner group's shard map is not ported yet (ROADMAP.md,"
-                " Queue 1 item 12: learner groups)")
 
     # ------------------------------------------------------------------
     # eviction attribution passes straight through to the local queue
@@ -480,8 +476,15 @@ class SocketTransport:
                           nonce=hello.get("nonce"))
         if slot is None:
             # full house: refuse, distinctly from a run-end stop, so the
-            # surplus actor exits NONZERO and an operator notices
-            chan.send(KIND_CTRL, 0, CTRL_REFUSED)
+            # surplus actor exits NONZERO and an operator notices. With a
+            # shard map bound, the refusal carries the OTHER learners'
+            # addresses so the actor spills to one with a free slot
+            payload = CTRL_REFUSED
+            spill = [list(a) for a in (self.peer_addrs or [])
+                     if tuple(a) != tuple(self.address)]
+            if spill:
+                payload += b" " + json.dumps(spill).encode("utf-8")
+            chan.send(KIND_CTRL, 0, payload)
             chan.close()
             return
         try:
@@ -495,6 +498,10 @@ class SocketTransport:
                 cfg = {"actor_id": slot.actor_id,
                        "data_buf": self.data_buf_bytes,
                        "wire_codec": self.wire_codec}
+                if self.peer_addrs is not None:
+                    # the group's shard map: every learner's listen
+                    # address, the whole topology in one handshake
+                    cfg["shard_map"] = [list(a) for a in self.peer_addrs]
                 if extra is not None:
                     cfg.update(extra(slot.actor_id))
                 if slot.epoch and "seed" in cfg:
@@ -912,6 +919,7 @@ class SocketActorClient:
                  dial_timeout: float = 60.0):
         import uuid
         self._addr = tuple(address)
+        self._tried_addrs: set = set()  # learners that refused us
         self._backoff = backoff
         self._dial_timeout = dial_timeout
         self._ext_stop = stop_event
@@ -945,6 +953,12 @@ class SocketActorClient:
         return self._stopped.is_set() or (
             self._ext_stop is not None and self._ext_stop.is_set())
 
+    @property
+    def connected_addr(self) -> Address:
+        """The learner this client actually ended up on: differs from
+        the dialed address after a refused-with-shard-map spill."""
+        return tuple(self._addr)
+
     def _stop_check(self) -> bool:
         return self.stopped
 
@@ -962,12 +976,12 @@ class SocketActorClient:
             return None
         if self._channel("data") is None:
             return None
-        if self.config.get("heartbeat_s") or self.config.get("shard_map"):
-            # a supervised learner or a learner group: not ported yet
+        if self.config.get("heartbeat_s"):
+            # a supervised learner: not ported yet
             self.close(bye=True)
             raise NotImplementedError(
-                "heartbeats and shard maps are not ported yet (ROADMAP.md,"
-                " Queue 1 items 12 and 13)")
+                "heartbeats are not ported yet (ROADMAP.md, Queue 1 item "
+                "13: observability and supervision)")
         return self.config
 
     # ------------------------------------------------------------------
@@ -1047,7 +1061,26 @@ class SocketActorClient:
                     payload == CTRL_STOP or
                     payload.startswith(CTRL_REFUSED)):
                 chan.close()
-                self.refused = payload.startswith(CTRL_REFUSED)
+                if payload.startswith(CTRL_REFUSED):
+                    # refused with a shard map: this learner's shard is
+                    # full, but the refusal names its peers, so spill to
+                    # the first one not tried yet. A wildcard bind host
+                    # in the map is not dialable from here: the group's
+                    # learners share one machine (port+k), so take the
+                    # host this learner was reached on
+                    spill = [((self._addr[0], p)
+                              if h in ("0.0.0.0", "::", "") else (h, p))
+                             for h, p in self._spill_addrs(payload)]
+                    self._tried_addrs.add(tuple(self._addr))
+                    nxt = next((a for a in spill
+                                if a not in self._tried_addrs), None)
+                    if nxt is not None:
+                        self._addr = nxt
+                        delay = self._backoff[0]
+                        continue
+                    self.refused = True
+                else:
+                    self.refused = False
                 self._stopped.set()             # run closing / no slot
                 return None
             if kind != KIND_CONFIG:
@@ -1079,6 +1112,19 @@ class SocketActorClient:
             self.dial_failed = True
             self._stopped.set()
         return None
+
+    @staticmethod
+    def _spill_addrs(payload: bytes) -> List[Tuple[str, int]]:
+        """The optional shard-map suffix of a refusal payload
+        (``b"refused [[host, port], ...]"``); [] when absent or garbled."""
+        rest = payload[len(CTRL_REFUSED):].strip()
+        if not rest:
+            return []
+        try:
+            addrs = json.loads(rest.decode("utf-8"))
+            return [(str(h), int(p)) for h, p in addrs]
+        except (ValueError, TypeError):
+            return []
 
     def _ctrl_reader(self, chan: FrameChannel) -> None:
         while not self.stopped:

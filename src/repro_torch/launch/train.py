@@ -18,6 +18,11 @@
                     and ``--connect HOST:PORT`` runs this machine's
                     actors against a learner listening there. The learner
                     and the inference service stay on the card.
+                    ``--learners N`` spawns N learner processes, each
+                    owning a shard of the actor slots, that mean-reduce
+                    their gradients over a CRC-framed TCP channel every
+                    round (on the card every learner opens its own
+                    context on the one device).
 
 It runs on the card unless the caller asks for the CPU; asked for
 ``cuda`` where no card is found, it raises and does not fall back. On the
@@ -45,17 +50,22 @@ compute in full float32, as every check of the port does.
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
       --runtime async --actor-backend remote --listen 0.0.0.0:7000
   PYTHONPATH=src python -m repro_torch.launch.train --connect HOST:7000
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --learners 2 --smoke --steps 30
 
 Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
 both runtimes, in the JAX package's format: a checkpoint either package
 wrote restores in the other. The sync runtime saves and restores params
 only (its optimizer state starts afresh on resume, as the JAX CLI's
 does); the async runtime saves params only and restores those or a
-fleet-v1 checkpoint with its optimizer state and version.
+fleet-v1 checkpoint with its optimizer state and version. A learner
+group saves params only too, refuses to run over an existing checkpoint
+without ``--resume``, and with it resumes from a fleet-v1 checkpoint
+only, as the JAX CLI does.
 
-Values of the JAX CLI's flags whose paths are not ported yet (learner
-groups and SPMD, supervision and elastic membership, token training) end
-the run with a ``SystemExit`` that names the ROADMAP.md Queue 1 item.
+Values of the JAX CLI's flags whose paths are not ported yet (the SPMD
+learner, supervision and elastic membership, token training) end the run
+with a ``SystemExit`` that names the ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -121,11 +131,30 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--actor-threads", type=int, default=2,
                    help="actor worker count (async runtime)")
     p.add_argument("--learners", type=int, default=1,
-                   help="learner worker count (async runtime); only 1 is "
-                        "ported")
+                   help="learner worker count (async runtime). 1 (the "
+                        "default) runs the single-learner loop in this "
+                        "process. N>1 spawns N learner processes, each "
+                        "owning a disjoint shard of the actor slots "
+                        "(--actor-threads is then the TOTAL slot count) "
+                        "and its own transport; gradients are "
+                        "mean-reduced over a CRC-framed TCP channel every "
+                        "round and learner 0 (the designated publisher) "
+                        "numbers the param versions. With --listen "
+                        "HOST:PORT, learner k binds PORT+k and external "
+                        "actors may dial any of them (a full learner "
+                        "refuses with the shard map; the actor spills)")
     p.add_argument("--learner-mode", default="process",
                    choices=["process", "spmd"],
-                   help="only process (with --learners 1) is ported")
+                   help="how data-parallel learning scales: 'process' is "
+                        "the hub/spoke learner group of --learners N; "
+                        "'spmd' (one learner process, the train step "
+                        "over a mesh of local devices) is not ported yet")
+    p.add_argument("--grad-stale-s", type=float, default=180.0,
+                   help="learner-group stale-grad deadline: the hub "
+                        "reduces a round without a learner that missed "
+                        "this window (the dropped gradient is counted; "
+                        "the laggard still applies the broadcast mean, "
+                        "so replicas stay identical)")
     p.add_argument("--actor-backend", default="thread",
                    choices=["thread", "process", "remote"],
                    help="where actors live: threads of this interpreter "
@@ -201,8 +230,12 @@ def _parser() -> argparse.ArgumentParser:
                         "(updates) and at the end")
     p.add_argument("--ckpt-every", type=int, default=200)
     p.add_argument("--resume", action="store_true",
-                   help="learner groups only: not ported yet; "
-                        "single-learner runs resume from --ckpt-dir "
+                   help="let a --learners N group resume from the latest "
+                        "fleet-v1 checkpoint in --ckpt-dir (params + "
+                        "optimizer state + version, continuing the "
+                        "monotonic version stream); without it a group "
+                        "refuses to run over an existing checkpoint. "
+                        "Single-learner runs resume from --ckpt-dir "
                         "automatically")
     p.add_argument("--supervise", action="store_true",
                    help="self-healing fleet mode: not ported yet")
@@ -233,20 +266,21 @@ def _unported(flag: str, item: int, name: str) -> SystemExit:
 
 
 def _refuse_unported(args) -> None:
-    if args.learner_mode == "spmd" and args.runtime != "async":
-        raise SystemExit("--learner-mode spmd requires --runtime async")
+    if args.learner_mode == "spmd":
+        if args.runtime != "async":
+            raise SystemExit("--learner-mode spmd requires "
+                             "--runtime async")
+        if args.learners > 1:
+            raise SystemExit("--learner-mode spmd keeps ONE learner "
+                             "process; drop --learners (device "
+                             "parallelism comes from --spmd-devices)")
     if args.supervise:
         raise _unported("--supervise", 13, "observability and supervision")
-    if args.resume:
-        raise _unported("--resume", 12, "learner groups")
     if args.elastic:
         raise _unported("--elastic", 13, "observability and supervision")
-    if args.runtime != "async":
-        return
-    if args.learners > 1:
-        raise _unported("--learners > 1", 12, "learner groups")
     if args.learner_mode == "spmd":
-        raise _unported("--learner-mode spmd", 12, "learner groups")
+        raise _unported("--learner-mode spmd", 15,
+                        "TPU-mesh tooling analogues")
 
 
 @dataclasses.dataclass
@@ -275,22 +309,38 @@ class AsyncRun:
     tracker: Any                 # distributed.MultiTracker
 
 
+@dataclasses.dataclass
+class GroupRun:
+    """What a learner group's run leaves behind for its caller."""
+    params: Dict                 # the publisher's final params, host numpy
+    #                              trees in the JAX layout
+    metrics: Dict[str, float]
+    telemetry: Dict[str, Any]    # merged: per-learner under "learners"
+    arch: ArchConfig
+    icfg: ImpalaConfig
+    env: Env
+    tracker: Any                 # distributed.group.GroupTracker
+    kernel_counts: Dict[int, Dict]   # K1/K2 launches and shapes a learner
+
+
 def train(argv: Optional[List[str]] = None,
           on_update: Optional[Callable] = None
-          ) -> Union[SyncRun, AsyncRun, int]:
+          ) -> Union[SyncRun, AsyncRun, GroupRun, int]:
     """Parse the CLI flags and run the trainer. ``on_update(update_index,
     published params, metrics, snapshot_fn)``, for ``--runtime async``
-    only, runs after each update's log line, on the learner's thread.
-    With ``--connect`` this process runs remote actors instead and the
-    result is their exit code."""
+    with one learner only, runs after each update's log line, on the
+    learner's thread. With ``--connect`` this process runs remote actors
+    instead and the result is their exit code."""
     args = _parser().parse_args(argv)
     if args.connect:
         # remote actor mode: every run parameter arrives in the
         # connection handshake, so none of the learner flags apply here
         return _run_remote_actors(args)
     _refuse_unported(args)
-    if on_update is not None and args.runtime != "async":
-        raise ValueError("on_update is a hook of --runtime async")
+    if on_update is not None and (args.runtime != "async" or
+                                  args.learners > 1):
+        raise ValueError("on_update is a hook of --runtime async with one "
+                         "learner (a group's updates run in its workers)")
     device = resolve_device(args.device)
 
     from repro_torch.configs.registry import get_config, get_smoke_config
@@ -400,6 +450,8 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     if transport == "socket" and args.actor_backend != "remote":
         raise SystemExit("--transport socket requires --actor-backend "
                          "remote")
+    if args.learners > 1:
+        return _run_group(args, env, arch, icfg, transport, device)
     listen_addr = (_parse_hostport(args.listen, default_host="0.0.0.0")
                    if args.listen else None)
     specs = bb.backbone_specs(arch, env.num_actions)
@@ -475,6 +527,102 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     print("telemetry:", json.dumps({k: tel[k] for k in keys},
                                    default=float))
     return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)
+
+
+def _run_group(args, env, arch, icfg, transport, device) -> GroupRun:
+    """N>1 learner processes: sharded actors, the gradient exchange over
+    the framed channel, one designated publisher. Over an existing
+    checkpoint it refuses unless ``--resume`` is given, and resumes only
+    from a fleet-v1 one (params + optimizer state + version), continuing
+    the version stream. ``transport`` arrives resolved and checked."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import run_group_training
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    resume_from = None
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        step0 = ckpt.latest_step(args.ckpt_dir)
+        man = ckpt.read_manifest(args.ckpt_dir)
+        fleet = man.get("extra", {}).get("format") == "fleet-v1"
+        if not args.resume:
+            # refusing beats restarting from scratch AND overwriting the
+            # existing checkpoint at the end
+            hint = ("pass --resume to continue it"
+                    if fleet else "move it aside or pick a fresh "
+                                  "--ckpt-dir")
+            raise SystemExit(
+                f"{args.ckpt_dir!r} already holds a checkpoint "
+                f"(step {step0}); {hint}.")
+        if not fleet:
+            # a params-only checkpoint has no optimizer state to hand the
+            # workers
+            raise SystemExit(
+                f"{args.ckpt_dir!r} holds a params-only checkpoint "
+                f"(step {step0}); a learner group resumes only from "
+                f"fleet-v1 checkpoints (params + optimizer state — "
+                f"written by --supervise runs). Move it aside or pick "
+                f"a fresh --ckpt-dir.")
+        resume_from = args.ckpt_dir
+        print(f"resuming learner group from fleet checkpoint "
+              f"(step {step0})")
+    listen_addr = (_parse_hostport(args.listen, default_host="0.0.0.0")
+                   if args.listen else None)
+    specs = bb.backbone_specs(arch, env.num_actions)
+    print(f"arch={arch.name} params={common.param_count(specs):,} "
+          f"env={env.name} actions={env.num_actions} runtime=async "
+          f"learners={args.learners} "
+          f"actors={args.actor_threads}({args.actor_backend}/"
+          f"{args.actor_mode}) transport={transport} "
+          f"queue={args.queue_capacity}/{args.queue_policy} "
+          f"max_batch_trajs={args.max_batch_trajs} "
+          f"donate={not args.no_donate}")
+    print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                if device.type == "cuda" else ""))
+
+    def on_progress(learner_id, snap):
+        lag, q = snap["lag"], snap["queue"]
+        ex = snap.get("exchange", {})
+        print(f"learner {learner_id} update {snap['learner_updates']:6d} "
+              f"lag(mean/max)={lag['mean']:.2f}/{lag['max']} "
+              f"queue(occ/stall)={q.get('mean_occupancy', 0.0):.1f}/"
+              f"{q.get('put_stalls', 0)} "
+              f"fps={snap['frames_per_sec']:7.0f} "
+              f"reduce_ms={ex.get('reduce_wait_ms_mean', 0.0):.1f} "
+              f"stale={ex.get('stale_dropped', 0)}", flush=True)
+
+    kernel_counts: Dict[int, Dict] = {}
+    tracker, metrics, tel, params = run_group_training(
+        args.env, icfg, args.num_envs, args.steps,
+        num_learners=args.learners, num_actors=args.actor_threads,
+        actor_backend=args.actor_backend, actor_mode=args.actor_mode,
+        transport=transport, listen_addr=listen_addr,
+        spawn_remote=not args.listen,
+        queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
+        max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
+        stale_after_s=args.grad_stale_s,
+        infer_flush_timeout_s=args.infer_flush_ms / 1e3,
+        wire_codec=args.wire_codec, vtrace_impl=args.vtrace_impl,
+        seed=args.seed, arch=arch,
+        telemetry_every=args.log_every, on_progress=on_progress,
+        ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
+        # params-only saves, as the JAX CLI's without --supervise
+        on_checkpoint=((lambda step, p: ckpt.save(args.ckpt_dir, step, p))
+                       if args.ckpt_dir else None),
+        resume_from=resume_from, return_final_params=True,
+        kernel_counts=kernel_counts, device=device)
+    if args.ckpt_dir:
+        ckpt.save(args.ckpt_dir, args.steps, params)
+    print(f"final return(100) = {tracker.mean_return():.3f}")
+    keys = ["group", "learner_updates", "frames_consumed",
+            "updates_per_sec", "frames_per_sec", "lag", "actors",
+            "param_version"] + [k for k in ("replay",) if k in tel]
+    print("telemetry:", json.dumps({k: tel[k] for k in keys},
+                                   default=float))
+    per = tel["actors"]["per_learner_trajectories"]
+    print("per-learner trajectories:", json.dumps(per))
+    return GroupRun(params, metrics, tel, arch, icfg, env, tracker,
+                    kernel_counts)
 
 
 def _parse_hostport(spec: str, default_host: str = "127.0.0.1"):

@@ -46,6 +46,7 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.distributed.procpool', "
         "'repro_torch.distributed.socket_transport', "
         "'repro_torch.distributed.netserve', "
+        "'repro_torch.distributed.group', "
         "'repro_torch.distributed.transport'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
@@ -81,25 +82,26 @@ _ASYNC = ["--runtime", "async"]
 
 
 @pytest.mark.parametrize("argv,match", [
-    (_ASYNC + ["--actor-backend", "process", "--learners", "2"],
-     "item 12"),
+    (_ASYNC + ["--actor-backend", "process", "--learners", "2",
+               "--supervise"], "item 13"),
     (["--supervise"], "item 13"),
-    (["--resume"], "item 12"),
+    (["--learner-mode", "spmd"], "requires --runtime async"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
     (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference",
                "--supervise"], "item 13"),
     (_ASYNC + ["--actor-backend", "remote", "--elastic"], "item 13"),
-    (_ASYNC + ["--transport", "shm", "--resume"], "item 12"),
+    (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
+     "keeps ONE learner process"),
     (_ASYNC + ["--actor-backend", "remote", "--transport", "socket",
-               "--learner-mode", "spmd"], "item 12"),
+               "--learner-mode", "spmd"], "item 15"),
     (_ASYNC + ["--transport", "shm", "--actor-mode", "inference",
-               "--learners", "2"], "item 12"),
-    (_ASYNC + ["--learners", "2"], "item 12"),
-    (_ASYNC + ["--learner-mode", "spmd"], "item 12"),
+               "--learners", "2", "--elastic"], "item 13"),
+    (_ASYNC + ["--learners", "2", "--supervise"], "item 13"),
+    (_ASYNC + ["--learner-mode", "spmd"], "item 15"),
     (_ASYNC + ["--supervise"], "item 13"),
-    (_ASYNC + ["--resume"], "item 12"),
+    (_ASYNC + ["--learners", "2", "--resume", "--supervise"], "item 13"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):

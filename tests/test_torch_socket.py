@@ -224,12 +224,9 @@ def test_supervision_and_groups_name_their_roadmap_items():
         SocketTransport(heartbeat_timeout_s=5.0)
     with pytest.raises(NotImplementedError, match="item 13"):
         SocketTransport(elastic=True)
-    t = SocketTransport()
-    try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            t.peer_addrs = [("127.0.0.1", 1)]
-    finally:
-        t.close()
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run_async_training("bandit", _icfg(), num_envs=4, steps=1,
+                           spmd_devices=2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         run_async_training("bandit", _icfg(), num_envs=4, steps=1,
                            actor_backend="remote", transport="socket",
