@@ -135,7 +135,10 @@ exception and a nonzero exit:
    never, identical replicas.
 6t. 6r with ``--actor-backend process --transport shm`` for
    ``GROUP_PROC_STEPS`` rounds: none of the workers' children (the
-   actors) holds a CUDA context.
+   actors) holds a CUDA context. With ``--metrics-port``: a thread polls
+   the group's one port while it runs and must see
+   ``repro_learner_updates`` for ``learner="0"`` and ``learner="1"`` and
+   a /healthz of 200.
 6u. The JAX group learning bar (tests/test_group.py::
    test_two_learner_group_learns_catch: smoke impala-shallow, 2 learners,
    4 actor threads, ``GROUP_BAR_STEPS`` rounds): last 100 above the first
@@ -146,6 +149,26 @@ exception and a nonzero exit:
    checkpoint with no round left publishes the saved params (the same
    digest) in both workers, and one resumed for ``GROUP_RESUMED`` more
    rounds continues the version stream with identical replicas.
+6w. The flight recorder on the async path: 6a's settings for
+   ``OBS_STEPS`` updates with ``--metrics-port`` (a free port),
+   ``--trace`` (one trajectory in ``OBS_TRACE_EVERY`` an actor),
+   ``--telemetry-sink``, ``--profile-steps 30:34``, ``--profile-dir``
+   and ``--telemetry-json``. After update 20 /metrics must return
+   Prometheus samples only, the update count, frames/s and the queue's
+   among them, /healthz 200 and ``ok``, /telemetry at least 20 updates.
+   Then: ``phases`` over every update with its five keys (their mean ms
+   printed, and over the updates after the scrape and before the profile
+   window from the hook's snapshots); K2 once an update; every traced trajectory with all seven
+   spans and its stamps in order (u0 <= u1 <= r <= dequeue <= collect <=
+   step0 <= step1 <= publish), none dropped; the profile window's Chrome
+   trace holding exactly its 5 K2 launches, and its busy share beside
+   6a's; the sink's last line at the last update; the telemetry file
+   equal to the final telemetry. Learner frames/s beside 6a's.
+6x. Traces across the process boundary: 6n's process actors for
+   ``OBS_PROC_STEPS`` updates with every trajectory traced: e0 <= e1 <= r
+   and encoding time above 0 for each, rows ``actor-0`` and ``actor-1``,
+   one trace per trajectory consumed, K2 once an update, and no child
+   with the card's device node open.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
@@ -326,6 +349,18 @@ GROUP_PROC_ARGV = _async_argv("catch", GROUP_PROC_STEPS, "--learners", "2",
 GROUP_BAR_STEPS = 240
 # the rounds a group resumed from the bar run's checkpoint takes (6v)
 GROUP_RESUMED = 10
+# slice 11: the flight recorder. 6w: 6a's settings for OBS_STEPS updates,
+# one trajectory in OBS_TRACE_EVERY an actor traced, /metrics read after
+# update OBS_SCRAPE_AT, torch.profiler over updates OBS_PROFILE (both
+# ends), the learner's rate and the phases of the updates after
+# OBS_SCRAPE_AT + 1 read after OBS_RATE_AT (before the profile)
+OBS_STEPS, OBS_TRACE_EVERY, OBS_SCRAPE_AT, OBS_RATE_AT = 40, 4, 20, 29
+OBS_PROFILE = (30, 34)
+# 6x: process actors, every trajectory traced
+OBS_PROC_STEPS = 20
+# the trace recorder's default bound: below it nothing is dropped
+TRACE_BOUND = 2048
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
     ("catch", "bandit", "tmaze"), 60, 8)
 PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
@@ -636,7 +671,7 @@ def phase_bandit() -> float:
 
 _WORKER_THREADS = ("actor-", "inference-driver", "inference-service",
                    "inference-frontend", "param-server", "shm-drain",
-                   "socket-")
+                   "socket-", "metrics-http", "telemetry-sink")
 
 
 def _no_actor_threads(what: str) -> None:
@@ -750,9 +785,9 @@ def phase_async(vk, dev):
           f"{early:.3f}, last 100 mean {late:.3f}: "
           + ("clears" if cleared else "misses")
           + " phase 6b's bar (this full-width run is not held to it)")
-    _print_busy("async update", prof, ASYNC_PROFILED, update_ms,
-                "loss_vtrace", skip_us=ASYNC_SKIP_US)
-    return launches, before
+    busy = _print_busy("async update", prof, ASYNC_PROFILED, update_ms,
+                       "loss_vtrace", skip_us=ASYNC_SKIP_US)
+    return launches, before, busy
 
 
 def phase_async_replay(vk, dev, argv=REPLAY_ARGV, steps: int = ASYNC_STEPS,
@@ -1699,15 +1734,29 @@ def phase_group_replay(vk, dev) -> int:
 
 def phase_group_process(vk, dev) -> int:
     """6t: 6r with ``--actor-backend process --transport shm`` for
-    ``GROUP_PROC_STEPS`` rounds: no actor child holds a CUDA context.
-    Returns K2's launches."""
+    ``GROUP_PROC_STEPS`` rounds: no actor child holds a CUDA context. Its
+    ``--metrics-port``, polled while it runs, shows both learners'
+    ``repro_learner_updates`` and a /healthz of 200. Returns K2's
+    launches."""
     from repro_torch.launch import train as train_lib
 
-    with _ComputePids() as seen:
-        run = train_lib.train(GROUP_PROC_ARGV)
+    port = _free_port()
+    with _ComputePids() as seen, _GroupScrape(port) as scrape:
+        run = train_lib.train(GROUP_PROC_ARGV + ["--metrics-port",
+                                                 str(port)])
     _no_actor_threads("learner group, process actors")
     tel, subs, _k1, k2 = _check_group("learner group process", vk, run,
                                       GROUP_PROC_STEPS)
+    if scrape.labels != {"0", "1"} or 200 not in scrape.health:
+        raise AssertionError(f"learner group process: the group's /metrics "
+                             f"showed repro_learner_updates for learners "
+                             f"{sorted(scrape.labels)} over "
+                             f"{scrape.scrapes} scrapes, /healthz "
+                             f"{sorted(scrape.health)}")
+    print(f"learner group process: the group's /metrics showed "
+          f"repro_learner_updates for learners {sorted(scrape.labels)} "
+          f"while it ran ({scrape.scrapes} scrapes), /healthz "
+          f"{sorted(scrape.health)}")
     if tel["actors"]["backend"] != "process" or \
             not all(s["queue"]["wire_received"] for s in subs):
         raise AssertionError(f"learner group process: {tel['actors']}")
@@ -1840,6 +1889,352 @@ def phase_group_resume(vk, dev, ckpt_dir: str, saved: int) -> int:
     return sum(k2)
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the flight recorder
+
+
+def _free_port() -> int:
+    """A TCP port on the loopback that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _get(port: int, route: str):
+    """(status, body) of ``GET http://127.0.0.1:<port><route>``; an HTTP
+    error's status and body too."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=10) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+# a Prometheus text-format sample line
+_PROM_LINE = (r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+              r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"(,[a-zA-Z_][a-zA-Z0-9_]*='
+              r'"[^"]*")*\})? -?[0-9]+(\.[0-9]+)?([eE][+-]?[0-9]+)?$')
+
+
+def _check_routes(what: str, port: int, updates: int) -> None:
+    """The three routes of a single learner's metrics server: every
+    /metrics line a Prometheus sample, with the update count, frames/s
+    and the queue's; /healthz 200 and ``ok``; /telemetry's updates."""
+    import re
+
+    code, text = _get(port, "/metrics")
+    lines = [ln for ln in text.splitlines() if ln]
+    bad = [ln for ln in lines if not re.match(_PROM_LINE, ln)]
+    names = {ln.split("{")[0].split(" ")[0] for ln in lines}
+    need = {"repro_learner_updates", "repro_frames_per_sec"}
+    queue = sorted(n for n in names if n.startswith("repro_queue_"))
+    if code != 200 or bad or not need <= names or not queue:
+        raise AssertionError(f"{what}: /metrics {code}, lines not samples "
+                             f"{bad[:3]}, missing {need - names}, queue "
+                             f"samples {queue}")
+    code, text = _get(port, "/healthz")
+    body = json.loads(text)
+    if code != 200 or body["status"] != "ok":
+        raise AssertionError(f"{what}: /healthz {code} {body}")
+    code, text = _get(port, "/telemetry")
+    got = json.loads(text)["learner_updates"]
+    if code != 200 or got < updates:
+        raise AssertionError(f"{what}: /telemetry {code}, learner_updates "
+                             f"{got} < {updates}")
+    print(f"{what}: after update {updates} /metrics 200 with {len(lines)} "
+          f"samples ({len(queue)} repro_queue_*), /healthz 200 "
+          f"{body['status']}, /telemetry learner_updates {got}")
+
+
+def _spans(path: Path):
+    """Each traced trajectory's seven spans, {name: event}, in the order
+    the recorder wrote them, and the row names by pid."""
+    events = json.loads(path.read_text())["traceEvents"]
+    rows = {e["pid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    xs = [e for e in events if e["ph"] == "X"]
+    from repro_torch.obs.trace import SPAN_NAMES
+
+    if len(xs) % len(SPAN_NAMES):
+        raise AssertionError(f"{path}: {len(xs)} spans, not whole "
+                             f"trajectories of {len(SPAN_NAMES)}")
+    out = []
+    for i in range(0, len(xs), len(SPAN_NAMES)):
+        chunk = xs[i:i + len(SPAN_NAMES)]
+        if tuple(e["name"] for e in chunk) != SPAN_NAMES:
+            raise AssertionError(f"{path}: spans "
+                                 f"{[e['name'] for e in chunk]}")
+        out.append({e["name"]: e for e in chunk})
+    return out, rows
+
+
+def _chrome_device(path: Path, skip_us: float):
+    """(busy us, device events, K2 launches) of a Chrome trace that
+    ``torch.profiler`` wrote: busy is the union of the kernel, memcpy and
+    memset events that start ``skip_us`` or more after its first event;
+    K2's launches are counted over the whole trace."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "ts" in e]
+    t0 = min(float(e["ts"]) for e in events)
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    k2 = sum(1 for e in dev if e["cat"] == "kernel" and
+             KERNEL_EVENTS["loss_vtrace"][0] in e["name"])
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in dev if float(e["ts"]) - t0 >= skip_us]
+    return _union_us(spans), len(spans), k2
+
+
+def phase_flight_recorder(vk, single_before, single_busy) -> int:
+    """6w: the async path at 6a's settings for ``OBS_STEPS`` updates with
+    every observability flag: the live routes read mid-run, the
+    ``phases`` section, the lifecycle trace in order, the
+    ``--profile-steps`` window's Chrome trace with exactly its K2
+    launches, the sink and the telemetry file. Learner frames/s and the
+    window's busy share beside 6a's. Returns K2's launches."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.obs.trace import SPAN_NAMES
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    port = _free_port()
+    files = {k: OBS_DIR / k for k in ("trace.json", "sink.jsonl",
+                                      "telemetry.json")}
+    lo, hi = OBS_PROFILE
+    argv = _async_argv(
+        "catch", OBS_STEPS, "--metrics-port", str(port), "--trace",
+        str(files["trace.json"]), "--trace-every", str(OBS_TRACE_EVERY),
+        "--telemetry-sink", str(files["sink.jsonl"]), "--sink-interval-s",
+        "0.5", "--profile-steps", f"{lo}:{hi}", "--profile-dir",
+        str(OBS_DIR / "profile"), "--telemetry-json",
+        str(files["telemetry.json"]))
+    marks, snaps = {}, {}
+
+    def hook(step, params, metrics, snapshot_fn):
+        if step == OBS_SCRAPE_AT:
+            _check_routes("flight recorder", port, OBS_SCRAPE_AT)
+        if step in (OBS_SCRAPE_AT + 1, OBS_RATE_AT):
+            # the unprofiled updates between, each ended on the card
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+            snaps[step] = snapshot_fn()
+
+    vk.reset_launch_counts()
+    run = train_lib.train(argv, on_update=hook)
+    torch.cuda.synchronize()
+    k2, k1 = vk.loss_vtrace.launches, vk.vtrace.launches
+    _no_actor_threads("flight recorder")
+    tel = run.telemetry
+    if (tel["learner_updates"], k2, k1) != (OBS_STEPS, OBS_STEPS, 0):
+        raise AssertionError(f"flight recorder: (updates, K2, K1) "
+                             f"{(tel['learner_updates'], k2, k1)}, expected "
+                             f"{(OBS_STEPS, OBS_STEPS, 0)}")
+    ph = tel["phases"]
+    keys = {"collect", "host_stage", "device_put", "step", "publish"}
+    if ph["updates_timed"] != OBS_STEPS or set(ph["total_s"]) != keys or \
+            min(ph["total_s"].values()) < 0:
+        raise AssertionError(f"flight recorder: phases {ph}")
+    # the updates between the two marks: after the scrape, before the
+    # profile window, nothing of the hook in them but its snapshot
+    a, b = (snaps[s]["phases"] for s in (OBS_SCRAPE_AT + 1, OBS_RATE_AT))
+    clean = {k: (b["total_s"][k] - a["total_s"][k]) * 1e3
+             / (b["updates_timed"] - a["updates_timed"]) for k in keys}
+    print(f"flight recorder: {OBS_STEPS} updates, K2 launches {k2} K1 {k1}; "
+          f"phases, mean ms an update (host clock; step is the update's "
+          f"dispatch), over updates {a['updates_timed'] + 1}-"
+          f"{b['updates_timed']} (no scrape, no profiler): "
+          + ", ".join(f"{k} {clean[k]:.4f}" for k in ph["mean_ms"])
+          + f"; over all {ph['updates_timed']} (the scrape, the hook's "
+          f"synchronises, the profile window and its pad included): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ph["mean_ms"].items()))
+
+    # the lifecycle trace: seven spans a trajectory, stamps in order
+    trajs, rows = _spans(files["trace.json"])
+    measured = tel["lag"]["measured"]
+    n = len(trajs)
+    if not (measured // OBS_TRACE_EVERY - 2 <= n <=
+            measured // OBS_TRACE_EVERY) or n >= TRACE_BOUND:
+        raise AssertionError(f"flight recorder: {n} traced trajectories of "
+                             f"{measured} consumed at one in "
+                             f"{OBS_TRACE_EVERY} an actor")
+    eps = 0.01                      # microseconds of float rounding
+    for t in trajs:
+        # u0, u1 (= e0 = e1 in process), r, dequeue, step0, step1; collect
+        # is batch_collect's end
+        chain = [t[name]["ts"] for name in SPAN_NAMES]
+        collect = t["batch_collect"]["ts"] + t["batch_collect"]["dur"]
+        if any(b < a - eps for a, b in zip(chain, chain[1:])) or \
+                not (chain[4] - eps <= collect <= chain[5] + eps) or \
+                t["env_unroll"]["ts"] + t["env_unroll"]["dur"] > \
+                chain[1] + eps:
+            stamps = {k: (e["ts"], e["dur"]) for k, e in t.items()}
+            raise AssertionError(f"flight recorder: stamps out of order "
+                                 f"{stamps}")
+    means = {name: sum(t[name]["dur"] for t in trajs) / n / 1e3
+             for name in SPAN_NAMES}
+    print(f"flight recorder: trace of {n} trajectories ({measured} "
+          f"consumed, one in {OBS_TRACE_EVERY} an actor traced; none "
+          f"dropped: {n} < the bound {TRACE_BOUND}), rows "
+          f"{sorted(rows.values())}, all seven spans, every trajectory's "
+          f"stamps in order; mean span ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in means.items()))
+
+    # the profile window: one Chrome trace, exactly its K2 launches
+    prof = OBS_DIR / "profile" / f"updates_{lo}_{hi}.pt.trace.json"
+    if not prof.is_file():
+        raise AssertionError(f"flight recorder: no profile at {prof}")
+    busy_us, count, k2_traced = _chrome_device(prof, ASYNC_SKIP_US)
+    window = hi - lo + 1
+    if k2_traced != window or not count:
+        raise AssertionError(f"flight recorder: {prof.name} holds "
+                             f"{k2_traced} K2 launches (and {count} device "
+                             f"events after its pad); updates {lo}-{hi} "
+                             f"launched {window}")
+    update_ms = ((marks[OBS_RATE_AT] - marks[OBS_SCRAPE_AT + 1]) * 1e3
+                 / (OBS_RATE_AT - OBS_SCRAPE_AT - 1))
+    busy = busy_us / window / 1e3 / update_ms
+    print(f"flight recorder: {prof.name} ({prof.stat().st_size} bytes) "
+          f"holds all {k2_traced} K2 launches of updates {lo}-{hi}; busy "
+          f"{busy_us / window / 1e3:.3f} ms an update in {count} device "
+          f"events, {100 * busy:.1f}% of the unprofiled {update_ms:.3f} ms "
+          f"(updates {OBS_SCRAPE_AT + 2}-{OBS_RATE_AT}): the card idles "
+          f"{100 - 100 * busy:.1f}%; 6a (same run) idles "
+          f"{100 - 100 * single_busy:.1f}% (its trace has device activity "
+          f"only, this window host and device: not directly comparable)")
+
+    # the sink and the telemetry file
+    sink = [json.loads(ln) for ln in
+            files["sink.jsonl"].read_text().splitlines()]
+    dumped = json.loads(files["telemetry.json"].read_text())
+    if len(sink) < 2 or \
+            sink[-1]["telemetry"]["learner_updates"] != OBS_STEPS or \
+            dumped != json.loads(json.dumps(tel, default=float)):
+        raise AssertionError(f"flight recorder: sink {len(sink)} lines, "
+                             f"last {sink[-1] if sink else None}; the "
+                             f"telemetry file {dumped}")
+    rate = snaps[OBS_RATE_AT]
+    print(f"flight recorder: sink {len(sink)} lines, the last at "
+          f"{OBS_STEPS} updates; the telemetry file holds the final "
+          f"telemetry; learner frames/s {rate['frames_per_sec']:.0f} (after "
+          f"update {OBS_RATE_AT}), 6a (same run, no recorder) "
+          f"{single_before['frames_per_sec']:.0f}: "
+          f"{rate['frames_per_sec'] / single_before['frames_per_sec']:.2f}x")
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return k2
+
+
+def phase_traced_process(vk) -> int:
+    """6x: process actors (6n's settings) for ``OBS_PROC_STEPS`` updates,
+    every trajectory traced: the children's encode stamps cross the
+    process boundary (e0 <= e1 <= r, encode time above 0) on a row per
+    actor; K2 once an update; no child with the card's device node open.
+    Returns K2's launches."""
+    import multiprocessing as mp
+    import os
+
+    from repro_torch.launch import train as train_lib
+
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    path = OBS_DIR / "process_trace.json"
+    argv = _async_argv("catch", OBS_PROC_STEPS, "--actor-backend",
+                       "process", "--transport", "shm", "--trace",
+                       str(path), "--trace-every", "1")
+    seen = {}
+
+    def hook(step, params, metrics, snapshot_fn):
+        if step == OBS_PROC_STEPS // 2:
+            seen["children"] = [p.pid for p in mp.active_children()]
+            seen["on_card"] = [p for p in [os.getpid()] + seen["children"]
+                               if _holds_card(p)]
+
+    vk.reset_launch_counts()
+    run = train_lib.train(argv, on_update=hook)
+    torch.cuda.synchronize()
+    k2 = vk.loss_vtrace.launches
+    _no_actor_threads("traced process actors")
+    if "REPRO_TRACE_EVERY" in os.environ:
+        raise AssertionError("traced process actors: REPRO_TRACE_EVERY "
+                             "outlives the run")
+    trajs, rows = _spans(path)
+    if run.telemetry["learner_updates"] != OBS_PROC_STEPS or \
+            k2 != OBS_PROC_STEPS or vk.vtrace.launches:
+        raise AssertionError(f"traced process actors: updates "
+                             f"{run.telemetry['learner_updates']}, K2 {k2}, "
+                             f"K1 {vk.vtrace.launches}")
+    eps = 0.01
+    for t in trajs:
+        e0, e1 = t["serde_encode"]["ts"], t["transport"]["ts"]
+        r = t["queue_wait"]["ts"]
+        if not (e0 - eps <= e1 <= r + eps) or \
+                not t["serde_encode"]["dur"] > 0 or \
+                t["serde_encode"]["pid"] < 1000:
+            raise AssertionError(f"traced process actors: e0 {e0} e1 {e1} "
+                                 f"r {r}, encode "
+                                 f"{t['serde_encode']['dur']} us")
+    names = set(rows.values())
+    if not {"actor-0", "actor-1", "learner"} <= names or \
+            len(trajs) != run.telemetry["lag"]["measured"] or \
+            len(seen.get("children", ())) != 2 or \
+            seen["on_card"] != [os.getpid()]:
+        raise AssertionError(f"traced process actors: rows {names}, "
+                             f"{len(trajs)} traced of "
+                             f"{run.telemetry['lag']['measured']}, children "
+                             f"{seen.get('children')}, with the card's "
+                             f"device node open {seen.get('on_card')}")
+    ms = {name: sum(t[name]["dur"] for t in trajs) / len(trajs) / 1e3
+          for name in ("env_unroll", "serde_encode", "transport",
+                       "queue_wait")}
+    print(f"traced process actors: {OBS_PROC_STEPS} updates, K2 launches "
+          f"{k2}; {len(trajs)} trajectories traced, every one with e0 <= e1 "
+          f"<= r and encoding above 0, rows {sorted(names)}; children "
+          f"{seen['children']} without the card's device node; mean span "
+          f"ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    return k2
+
+
+class _GroupScrape:
+    """Polls a learner group's metrics port while it runs: the learner
+    labels seen on ``repro_learner_updates`` and the /healthz statuses."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self.labels, self.health, self.scrapes = set(), set(), 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="group-scrape", daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+    def _loop(self) -> None:
+        import re
+
+        while not self._stop.wait(0.2):
+            try:
+                code, text = _get(self.port, "/metrics")
+                health, _ = _get(self.port, "/healthz")
+            except OSError:
+                continue                # not listening yet, or stopped
+            self.scrapes += 1
+            if code == 200:
+                self.labels.update(re.findall(
+                    r'^repro_learner_updates\{learner="(\d+)"\}', text,
+                    re.M))
+            self.health.add(health)
+
+
 def phase_path_shapes(vk, dev):
     """Every shape at which phases 5-7 launched K1 or K2 and that
     ``K1_SHAPES``/``K2_SHAPES`` left out, held against the plain version
@@ -1872,11 +2267,16 @@ def _device_busy(events, skip_us: float = 0.0):
         spans.append((start, end))
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + end - start, n + 1)
+    return _union_us(spans), len(spans), by_name
+
+
+def _union_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
     busy, reach = 0.0, -math.inf
     for start, end in sorted(spans):
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    return busy, len(spans), by_name
+    return busy
 
 
 def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
@@ -2170,7 +2570,8 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
 
 
 def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
-                kernel=None, per_call: int = 1, skip_us: float = 0.0) -> None:
+                kernel=None, per_call: int = 1,
+                skip_us: float = 0.0) -> float:
     """The card's busy time per call over ``n`` profiled calls against the
     unprofiled time of one, and the device kernels that take most of it.
     ``kernel``, a ``KERNEL_EVENTS`` key, launches ``per_call`` times a
@@ -2179,7 +2580,7 @@ def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
     as a trace with no device events does. ``kernel=None`` where no
     kernel of the port runs in a call: the trace is then not checked.
     The busy time leaves out the events of the first ``skip_us``, a pad
-    in which only other threads launched."""
+    in which only other threads launched. Returns the busy share."""
     events = prof.events()
     _, _, whole = _device_busy(events)
     busy_us, count, by_name = _device_busy(events, skip_us)
@@ -2206,6 +2607,7 @@ def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
     for name, (us, calls) in top:
         print(f"  device {us / n / 1e3:8.3f} ms/call {calls / n:6.0f} "
               f"launches/call  {name[:90]}")
+    return busy_ms / unprofiled_ms
 
 
 def _device_ms(fn, events, n: int = 20) -> Tuple[float, int]:
@@ -2594,8 +2996,12 @@ def main() -> int:
     launches, run = phase_main(vk, dev)
     phase_bandit()
     lap("5-6")
-    async_launches, async_before = phase_async(vk, dev)
+    async_launches, async_before, async_busy = phase_async(vk, dev)
     lap("6a")
+    launches["loss_vtrace"] += phase_flight_recorder(vk, async_before,
+                                                     async_busy)
+    launches["loss_vtrace"] += phase_traced_process(vk)
+    lap("6w-6x")
     replay_launches, _ = phase_async_replay(vk, dev)
     lap("6c")
     # each kernel's launches over every path that runs it

@@ -40,7 +40,8 @@ from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.distributed.procpool import (ProcessActorPool,
                                               SocketActorPool)
-from repro_torch.distributed.runner import run_actor_loop
+from repro_torch.distributed.runner import (run_actor_loop,
+                                            run_inference_actor_loop)
 from repro_torch.distributed.runtime import ACTOR_MODES, run_async_training
 from repro_torch.distributed.serde import TrajectoryItem
 from repro_torch.distributed.supervise import (KillSafeEvent,
@@ -57,4 +58,5 @@ __all__ = ["ACTOR_MODES", "ActorPool", "GradHub", "GradientExchange",
            "SpokeExchange", "TRANSPORTS", "TrajectoryItem",
            "TrajectoryQueue", "Transport", "fold_restart_seed",
            "make_transport", "merge_telemetry", "run_actor_loop",
-           "run_async_training", "run_group_training", "shard_slots"]
+           "run_async_training", "run_group_training",
+           "run_inference_actor_loop", "shard_slots"]

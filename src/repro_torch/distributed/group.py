@@ -41,10 +41,14 @@ loads the built library. A worker's kernel launch counters come back with
 its result (``run_group_training(kernel_counts=...)``), not in the
 telemetry, whose key set is the JAX package's.
 
+With ``obs.metrics_port`` the parent serves one ``/metrics`` for the whole
+group: the ``merge_telemetry`` of the snapshots the workers ship up their
+pipes, each learner's under a ``learner="k"`` label.
+
 Not ported yet: the SPMD learner (``CollectiveExchange``, ROADMAP.md Queue
 1 item 15), and supervision (``ResilientExchange``, respawn, hub
-failover, ``restart_epochs``) and the group's metrics endpoint (item 13).
-Asking for them raises, naming the item.
+failover, ``restart_epochs``; item 13: supervision). Asking for them
+raises, naming the item.
 """
 from __future__ import annotations
 
@@ -990,8 +994,14 @@ def run_group_training(
     launch counts and shapes: ``{k: {"launches": {...}, "shapes":
     {...}}}``.
 
-    ``obs``, ``supervise`` and ``restart_policy`` raise (ROADMAP.md,
-    Queue 1 item 13).
+    ``obs`` (an ``ObsConfig``) with ``metrics_port`` set runs one
+    metrics endpoint for the whole group in this process: the workers
+    also ship their snapshots every ``telemetry_interval_s`` (default
+    ``obs.telemetry_interval_s``), and ``/metrics`` serves the
+    ``merge_telemetry`` of the latest ones (a stub before the first),
+    each learner's under a ``learner="k"`` label. The bound address lands
+    in ``obs.bound_address``. ``supervise`` and ``restart_policy`` raise
+    (ROADMAP.md, Queue 1 item 13: supervision).
 
     Returns ``(tracker, last_metrics, merged_telemetry)``, shaped like
     ``run_async_training``'s triple with the telemetry merged by
@@ -999,11 +1009,10 @@ def run_group_training(
     (host numpy tree, JAX layout) appended when
     ``return_final_params=True``.
     """
-    if obs is not None or supervise or restart_policy is not None:
+    if supervise or restart_policy is not None:
         raise NotImplementedError(
-            "a supervised learner group and its metrics endpoint are not "
-            "ported yet (ROADMAP.md, Queue 1 item 13: observability and "
-            "supervision)")
+            "a supervised learner group is not ported yet (ROADMAP.md, "
+            "Queue 1 item 13: supervision)")
     if not isinstance(env_name, str):
         raise ValueError("learner-group workers rebuild the env by "
                          "name; pass an env name, not an Env object")
@@ -1059,7 +1068,11 @@ def run_group_training(
         "wire_codec": serde.check_codec(wire_codec),
         "vtrace_impl": vtrace_impl,
         "telemetry_every": telemetry_every,
-        "telemetry_interval_s": telemetry_interval_s,
+        "telemetry_interval_s": (
+            telemetry_interval_s or
+            (obs.telemetry_interval_s
+             if obs is not None and obs.metrics_port is not None
+             else 0.0)),
         "resume": resume_spec,
         # full checkpoints (params + opt state) when they are saved to a
         # directory a group can resume from
@@ -1091,8 +1104,27 @@ def run_group_training(
 
     results: Dict[int, Dict] = {}
     errors: List[str] = []
+    latest_tel: Dict[int, Dict] = {}
     hub_sent = False
     live = set(range(num_learners))
+
+    server = None
+    if obs is not None and obs.metrics_port is not None:
+        from repro_torch.obs.http import MetricsServer
+
+        def group_snapshot() -> Dict[str, Any]:
+            tels = dict(latest_tel)
+            if not tels:        # nothing shipped yet: a stub, not a 500
+                return {"group": {"num_learners": num_learners,
+                                  "publisher": 0, "stale_dropped": 0,
+                                  "awaiting_first_telemetry": True}}
+            return merge_telemetry(tels, publisher=0)
+
+        server = MetricsServer(group_snapshot, host=obs.metrics_host,
+                               port=obs.metrics_port).start()
+        obs.bound_address = server.address
+        print(f"[obs] group metrics at http://{server.address[0]}:"
+              f"{server.address[1]}/metrics", flush=True)
 
     def _relay_hub(addr, exclude=frozenset((0,))) -> None:
         for j in range(num_learners):
@@ -1146,8 +1178,10 @@ def run_group_training(
                     hub_sent = True
                     _relay_hub(msg[1], exclude={k})
                 elif tag == "telemetry":
+                    # the latest snapshot feeds the group's /metrics;
                     # on_progress(learner_id, snapshot) is the live-logging
                     # hook (the CLI prints from it)
+                    latest_tel[k] = msg[1]
                     if on_progress is not None:
                         on_progress(k, msg[1])
                 elif tag == "params":
@@ -1172,6 +1206,8 @@ def run_group_training(
                     results[k] = msg[1]
                     live.discard(k)
     finally:
+        if server is not None:
+            server.stop()
         if errors:
             stop.set()
         deadline = time.monotonic() + _JOIN_TIMEOUT_S

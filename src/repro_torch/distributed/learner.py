@@ -56,8 +56,18 @@ In a group each round copies the gradient leaves to the host once (one
 device buffer, one copy into pinned memory, one wait) and uploads the
 mean once; every replica then runs the same ``apply_step`` launches on
 the same values, so the replicas stay bit identical. The SPMD learner (an
-in-XLA exchange) and the flight recorder are not ported yet (ROADMAP.md,
-Queue 1 items 15 and 13).
+in-XLA exchange) is not ported yet (ROADMAP.md, Queue 1 item 15).
+
+The flight recorder's hooks (``trace``, ``phase_timing``, ``profile``)
+are all optional; without them the loop takes no stamps, and with them
+it issues exactly the launches it issues without. With them every update's host
+time is split into collect, host stage, device put, step and publish
+(the ``phases`` telemetry section), sampled trajectories are folded into
+the trace recorder, and the profile hook is called before each update.
+The stamps are host time: on the fused path ``step`` brackets the
+*dispatch* of the update, since waiting for the card would stall the
+pipeline the recorder observes; the split path's copy of the gradient to
+the host makes its stamps the real time.
 """
 from __future__ import annotations
 
@@ -235,6 +245,7 @@ class _HostStager:
         self.device = torch.device(device)
         self._slots: Dict[Any, list] = {}
         self._reuse = self.device.type == "cuda"
+        self.last_device_put_s = 0.0    # phase-timing probe, per stack
 
     def stack(self, items: List[TrajectoryItem]) -> Optional[PyTree]:
         """Staged stack of same-shaped numpy trajectories; None if the
@@ -279,6 +290,7 @@ class _HostStager:
             for buf, leaf in zip(bufs, ls):
                 b = leaf.shape[0]
                 np.copyto(buf.numpy()[i * b:(i + 1) * b], leaf)
+        t0 = time.monotonic()
         if self._reuse:
             out = [buf.to(self.device, non_blocking=True) for buf in bufs]
             copied = torch.cuda.Event()
@@ -286,6 +298,7 @@ class _HostStager:
             slot[2][idx] = copied
         else:
             out = bufs
+        self.last_device_put_s = time.monotonic() - t0
         return _unflatten(structure, out)
 
 
@@ -403,10 +416,6 @@ class Learner:
         if max_batch_trajs < 1:
             raise ValueError(f"max_batch_trajs must be >= 1, got "
                              f"{max_batch_trajs}")
-        if trace is not None or phase_timing or profile is not None:
-            raise NotImplementedError(
-                "the flight recorder is not ported yet (ROADMAP.md, Queue 1 "
-                "item 13: observability)")
         self.arch = arch
         self.icfg = icfg
         self.learner_id = learner_id
@@ -509,6 +518,13 @@ class Learner:
         self._steady_trained0 = 0
         self._first_trained0 = 0
         self.metrics: Dict = {}
+        # flight recorder hooks (all optional, see repro_torch.obs)
+        self.trace = trace                  # TraceRecorder or None
+        self._phase_timing = bool(phase_timing)
+        self._profile = profile             # ProfileHook or None
+        self._phase_acc = {"collect": 0.0, "host_stage": 0.0,
+                           "device_put": 0.0, "step": 0.0, "publish": 0.0}
+        self._phase_n = 0
         reg = self.obs_registry
         reg.register_producer("learner", self._core_telemetry)
         reg.register_producer(
@@ -644,6 +660,16 @@ class Learner:
             snap["learner_id"] = self.learner_id
             snap["slot_base"] = self.slot_base
             snap["exchange"] = col.get("exchange", self._exchange.snapshot())
+        if self._phase_timing:
+            # only with the flight recorder on: without it the key set
+            # stays the JAX package's pinned one
+            n = self._phase_n
+            snap["phases"] = {
+                "updates_timed": n,
+                "total_s": dict(self._phase_acc),
+                "mean_ms": {k: (1e3 * v / n if n else 0.0)
+                            for k, v in self._phase_acc.items()},
+            }
         return snap
 
     # ------------------------------------------------------------------
@@ -680,16 +706,28 @@ class Learner:
             return self._grad_step(self._params, self._target_params, batch)
         return self._grad_step(self._params, batch)
 
-    def _update_once(self, batch) -> Optional[Tuple[PyTree, Dict]]:
+    def _update_once(self, batch, timings: Optional[Dict[str, float]] = None
+                     ) -> Optional[Tuple[PyTree, Dict]]:
         """One training update on ``batch``: fused when alone; grouped,
         the gradient, the exchange's mean and the apply. Returns
         (published params, metrics), or None when the exchange shut
-        down."""
+        down.
+
+        ``timings`` (flight-recorder runs only) receives the host stamps
+        step0/step1/published. On the fused path they bracket the
+        update's dispatch; the split path waits for the gradient's copy
+        to the host, so its stamps are real."""
+        if timings is not None:
+            timings["step0"] = time.monotonic()
         if self._exchange is None:
             self._params, self._opt_state, metrics = self._train_step(
                 self._params, self._opt_state, self.updates, batch)
             published = params_lib.snapshot(self._params)
+            if timings is not None:
+                timings["step1"] = time.monotonic()
             self.store.publish(published, self._mark())
+            if timings is not None:
+                timings["published"] = time.monotonic()
             return published, metrics
         grads, metrics = self._grad(batch)
         reduced = self._exchange.allreduce(self._leaves_to_host(grads),
@@ -703,9 +741,13 @@ class Learner:
         metrics = dict(metrics)
         metrics.update(ametrics)
         published = params_lib.snapshot(self._params)
+        if timings is not None:
+            timings["step1"] = time.monotonic()
         # the hub numbers the rounds: every learner of the group publishes
         # at its version, so all actors see one version stream
         self.store.publish_at(published, version, self._mark())
+        if timings is not None:
+            timings["published"] = time.monotonic()
         return published, metrics
 
     def _leaves_to_host(self, leaves) -> List[np.ndarray]:
@@ -767,6 +809,11 @@ class Learner:
                                              should_stop, on_checkpoint,
                                              ckpt_every)
         finally:
+            if self._profile is not None:
+                # a window still open (the run ended inside it) closes on
+                # the learner's stream
+                with torch.cuda.stream(self._stream):
+                    self._profile.stop()
             # stop the workers (the service wakes every client blocked on
             # it with a None reply), join them, and only then close the
             # transport
@@ -783,10 +830,37 @@ class Learner:
         self._raise_worker_errors()
         return self.metrics, final_telemetry
 
+    def _record_obs(self, items, version_now: int, t_deq: float,
+                    t_col: float, t_stk: float,
+                    timings: Dict[str, float]) -> None:
+        """Fold one update's stamps into the phase accumulators and the
+        trace recorder (sampled items only)."""
+        step0 = timings.get("step0", t_stk)
+        step1 = timings.get("step1", step0)
+        pub = timings.get("published", step1)
+        if self._phase_timing:
+            acc = self._phase_acc
+            acc["collect"] += t_col - t_deq
+            acc["host_stage"] += t_stk - t_col
+            acc["device_put"] += self._stager.last_device_put_s
+            acc["step"] += step1 - step0
+            acc["publish"] += pub - step1
+            self._phase_n += 1
+        if self.trace is not None:
+            for it in items:
+                if it.trace is not None:
+                    self.trace.record_item(
+                        it, dequeued=t_deq, collected=t_col,
+                        step0=step0, step1=step1, published=pub,
+                        lag=version_now - it.param_version)
+
     def _loop(self, steps, warm_buckets, on_update, should_stop,
               on_checkpoint, ckpt_every) -> Dict:
         if warm_buckets:
             self._warm()
+        # flight-recorder stamps only when something reads them: the
+        # plain loop reads no clock per update
+        want_t = self._phase_timing or self.trace is not None
         while self.updates < steps:
             if should_stop is not None and should_stop():
                 break
@@ -794,6 +868,7 @@ class Learner:
             item = self.queue.get(timeout=0.5)
             if item is None:
                 continue
+            t_deq = time.monotonic() if want_t else 0.0
             # replay caps fresh collection below the top bucket and tops
             # the batch back up with replayed rows: that is where the
             # env-frame saving comes from
@@ -801,6 +876,7 @@ class Learner:
                                    self.batch_linger_s,
                                    max_items=self._fresh_max)
             k = len(items)
+            t_col = time.monotonic() if want_t else 0.0
             version_now = self.store.version
             for it in items:
                 self.lag_hist[version_now - it.param_version] += 1
@@ -811,6 +887,8 @@ class Learner:
             samples = self._sample_replay(k, version_now)
             train_items = ([s.item for s in samples] + items
                            if samples else items)
+            if want_t:
+                self._stager.last_device_put_s = 0.0
             batch = _stack(train_items, self._stager)
             if self._replay is not None:
                 # replayed rows sit first in the stacked batch
@@ -820,7 +898,11 @@ class Learner:
                 mask[:n_rep * self._num_envs] = 1.0
                 batch = dict(batch)
                 batch["replay_mask"] = mask
-            stepped = self._update_once(batch)
+            t_stk = time.monotonic() if want_t else 0.0
+            if self._profile is not None:
+                self._profile.on_step(self.updates)
+            timings = {} if want_t else None
+            stepped = self._update_once(batch, timings)
             if stepped is None:
                 break                   # the exchange shut down under us
             published, metrics = stepped
@@ -837,6 +919,9 @@ class Learner:
             self.frames_consumed += k * self._frames_per_traj
             self.frames_trained += len(train_items) * self._frames_per_traj
             self.batch_hist[len(train_items)] += 1
+            if want_t:
+                self._record_obs(items, version_now, t_deq, t_col, t_stk,
+                                 timings)
             if self._steady_t0 is None:
                 self._sync()
                 if self._first_t0 is None:

@@ -32,7 +32,8 @@ Shutdown: set the shared stop flag; children leave their loops (wire
 puts and param pulls poll it); join with a deadline; ``terminate()``
 stragglers, so no child outlives the run. A child that fails reports its
 traceback and fails the run: there is no fallback to thread actors, and
-supervised respawns are not ported yet (ROADMAP.md, Queue 1 item 13).
+supervised respawns are not ported yet (ROADMAP.md, Queue 1 item 13:
+supervision).
 """
 from __future__ import annotations
 

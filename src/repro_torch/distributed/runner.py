@@ -56,6 +56,7 @@ randomness.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import threading
 import time
@@ -97,7 +98,13 @@ def run_actor_loop(
     ``pull_params`` returns (params, version, ready event or None), or
     None on shutdown. ``emit`` owns backpressure/retry/accounting and
     returns False only when the worker should exit. ``on_unroll`` fires
-    after each finished unroll: the hook for frame counters."""
+    after each finished unroll: the hook for frame counters.
+
+    ``REPRO_TRACE_EVERY`` > 0 samples every Nth unroll for the flight
+    recorder: the item carries a stamp dict (``u0``/``u1`` here; the serde
+    and transport layers add theirs downstream). The rate travels in the
+    environment so that spawned actor children inherit it; 0 disables."""
+    trace_every = _trace_every()
     device = torch.device(device)
     init_fn, unroll = builder
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -106,21 +113,36 @@ def run_actor_loop(
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
         carry = init_fn(actor_seed(seed, actor_id))
+        idx = 0
         while not should_stop():
             pulled = pull_params()
             if pulled is None:
                 break
             params, version, ready = pulled
+            idx += 1
+            sampled = bool(trace_every) and idx % trace_every == 0
+            u0 = time.monotonic() if sampled else 0.0
             if ready is not None:
                 stream.wait_event(ready)
             carry, traj = unroll(params, carry)
             host = _finish(traj, stream)
             if on_unroll is not None:
                 on_unroll()
-            item = TrajectoryItem(traj, version, actor_id, time.monotonic(),
+            now = time.monotonic()
+            tr = {"u0": u0, "u1": now} if sampled else None
+            item = TrajectoryItem(traj, version, actor_id, now, tr,
                                   host=host)
             if not emit(item):
                 break
+
+
+def _trace_every() -> int:
+    """The flight recorder's sampling rate, from the ``REPRO_TRACE_EVERY``
+    environment variable (0 when unset or not an integer)."""
+    try:
+        return int(os.environ.get("REPRO_TRACE_EVERY", "0"))
+    except ValueError:
+        return 0
 
 
 def _finish(traj: Dict, stream) -> Dict[str, np.ndarray]:
@@ -283,12 +305,20 @@ def run_inference_driver_loop(
     layout: its own env batch, its own generator (seeded from (seed,
     actor id)), its own trajectory stream stamped with its id and with
     the param version of its unroll's first step. Emits block on
-    transport backpressure, which stalls all acting."""
+    transport backpressure, which stalls all acting.
+
+    ``REPRO_TRACE_EVERY`` samples every Nth unroll (per logical actor) for
+    the flight recorder, as in ``run_actor_loop``."""
+    trace_every = _trace_every()
     t_len = icfg.unroll_length
     reset_batch, step_batch = _make_inference_env_fns(env, num_envs)
     actors = [_init_acting_state(aid, actor_seed(seed, aid), reset_batch,
                                  arch_cfg, num_envs) for aid in actor_ids]
+    unroll_idx = 0
     while not should_stop():
+        unroll_idx += 1
+        sampled = bool(trace_every) and unroll_idx % trace_every == 0
+        u0 = time.monotonic() if sampled else 0.0
         init_lstm = {a.uid: (a.h, a.c) for a in actors}
         for a in actors:
             a.steps = []
@@ -310,8 +340,10 @@ def run_inference_driver_loop(
                                            init_lstm[a.uid], icfg)
             if on_unroll is not None:
                 on_unroll(a.uid)
+            now = time.monotonic()
+            tr = {"u0": u0, "u1": now} if sampled else None
             if not emit(a.uid, TrajectoryItem(traj, a.version, a.uid,
-                                              time.monotonic())):
+                                              now, tr)):
                 return
 
 
@@ -366,7 +398,12 @@ def run_inference_actor_loop(
     The emitted trajectory recombines the streams along the batch axis in
     the unroll actor's layout (``assemble_inference_traj``), numpy
     throughout, and is stamped with the oldest first-step param version
-    across streams, so measured lag stays conservative."""
+    across streams, so measured lag stays conservative.
+
+    ``REPRO_TRACE_EVERY`` samples every Nth unroll for the flight
+    recorder, as in ``run_actor_loop``: ``u0``/``u1`` bracket the whole
+    acting round (env steps and inference round trips)."""
+    trace_every = _trace_every()
     t_len = icfg.unroll_length
     n_streams = len(clients)
     if num_envs % n_streams:
@@ -379,7 +416,11 @@ def run_inference_actor_loop(
                            reset_batch, arch_cfg, n_sub, client=client)
         for s, client in enumerate(clients)]
 
+    unroll_idx = 0
     while not should_stop():
+        unroll_idx += 1
+        sampled = bool(trace_every) and unroll_idx % trace_every == 0
+        u0 = time.monotonic() if sampled else 0.0
         init_lstm = [(st.h, st.c) for st in streams]
         for st in streams:
             st.steps = []
@@ -407,8 +448,9 @@ def run_inference_actor_loop(
         version = min(st.version for st in streams)
         if on_unroll is not None:
             on_unroll()
-        if not emit(TrajectoryItem(traj, version, actor_id,
-                                   time.monotonic())):
+        now = time.monotonic()
+        tr = {"u0": u0, "u1": now} if sampled else None
+        if not emit(TrajectoryItem(traj, version, actor_id, now, tr)):
             break
 
 
@@ -468,6 +510,16 @@ def _tensor_tree(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     return torch.from_numpy(np.array(tree))
+
+
+def _encode_stamped(item: TrajectoryItem, wire_codec: str) -> bytes:
+    """``serde.encode_item``, with a sampled item's encode start stamped
+    (``e0``) on a copy of its trace; serde stamps ``e1`` itself once the
+    payload bytes are built."""
+    if item.trace is not None:
+        item = dataclasses.replace(item, trace=dict(item.trace,
+                                                    e0=time.monotonic()))
+    return serde.encode_item(item, codec=wire_codec)
 
 
 def _run_sender(stop, encode: Callable[[Any], bytes],
@@ -585,7 +637,7 @@ def run_serialized_unroll_actor(*, actor_id: int, env_name: str,
         return got[0], got[1], None
 
     def encode(item):
-        return serde.encode_item(item, codec=wire_codec)
+        return _encode_stamped(item, wire_codec)
 
     emit, close = _run_sender(stop, encode, send_buf)
     sub = threading.Thread(target=subscribe, daemon=True,
@@ -619,7 +671,7 @@ def run_serialized_inference_actor(*, actor_id: int, env_name: str,
     env = make_env(env_name)
 
     def encode(item):
-        return serde.encode_item(item, codec=wire_codec)
+        return _encode_stamped(item, wire_codec)
 
     def on_block(blocked: bool) -> None:
         for cl in infer_clients:

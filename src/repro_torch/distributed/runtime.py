@@ -37,13 +37,19 @@ backend acts.
 (``distributed/group.py``) calls, with its shard of the actor slots
 (``slot_base``), its id and its gradient exchange.
 
+``obs`` (an ``ObsConfig``) runs the flight recorder around the loop: phase
+timing, sampled trajectory traces, the ``torch.profiler`` window, the
+``/metrics`` endpoint and the JSONL sink (``repro_torch.obs``).
+
 Ported: the three actor backends in unroll and inference mode, the
 three transports with their wire codecs, one learner or a group's
-worker, replay, periodic fleet-v1 checkpoints; no SPMD learner, no flight
-recorder and no supervision. Every other value of the JAX runtime's
-options raises, naming its ROADMAP.md Queue 1 item.
+worker, replay, periodic fleet-v1 checkpoints and the flight recorder;
+no SPMD learner and no supervision. Every other value of the JAX
+runtime's options raises, naming its ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
+
+import os
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -144,6 +150,7 @@ def _setup(
     num_learners: int = 1,
     exchange=None,
     peer_addrs=None,
+    obs=None,
     device="cuda",
 ) -> Learner:
     """Build one learner worker's dependency graph (env, params, train
@@ -156,7 +163,11 @@ def _setup(
     ``peer_addrs``: every learner's listen address, the shard map a full
     learner's refusal carries. Actor slot ids are global (``slot_base +
     i``), so an actor's RNG stream does not depend on how slots are
-    sharded."""
+    sharded.
+
+    ``obs`` (an ``ObsConfig``) turns on the learner's side of the flight
+    recorder: phase timing, the trace recorder (with ``trace_path``) and
+    the ``torch.profiler`` window (with ``profile_steps``)."""
     _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
               transport, env_name, spmd_devices=spmd_devices)
     env = make_env(env_name) if isinstance(env_name, str) else env_name
@@ -165,6 +176,16 @@ def _setup(
         arch = small_arch(env)
     if actor_mode == "inference":
         require_cnn(arch)
+    trace = profile = None
+    phase_timing = False
+    if obs is not None:
+        phase_timing = True
+        if obs.trace_path:
+            from repro_torch.obs.trace import TraceRecorder
+            trace = TraceRecorder()
+        if obs.profile_steps:
+            from repro_torch.obs.sink import ProfileHook
+            profile = ProfileHook(obs.profile_steps, obs.profile_dir)
     learner = Learner(
         arch=arch, icfg=icfg, num_actions=env.num_actions,
         num_envs=num_envs, num_actors=num_actors, transport=None,
@@ -174,7 +195,8 @@ def _setup(
         donate=donate, start_step=start_step,
         initial_params=initial_params,
         initial_opt_state=initial_opt_state, exchange=exchange,
-        wire_codec=wire_codec, vtrace_impl=vtrace_impl, device=device)
+        wire_codec=wire_codec, vtrace_impl=vtrace_impl, trace=trace,
+        phase_timing=phase_timing, profile=profile, device=device)
     service = None
     if actor_mode == "inference":
         from repro_torch.core.replay import fold_replay_seed
@@ -296,9 +318,9 @@ def run_async_training(
 
     The signature and defaults are the JAX runtime's, plus ``device``.
     ``heartbeat_timeout_s`` and ``elastic`` belong to supervision
-    (ROADMAP.md, Queue 1 item 13): the first is accepted and unused, as
-    on the reference's unsupervised path, and ``elastic=True`` raises;
-    ``obs`` and ``supervise`` raise, naming their ROADMAP.md item.
+    (ROADMAP.md, Queue 1 item 13: supervision): the first is accepted
+    and unused, as on the reference's unsupervised path, and
+    ``elastic=True`` raises; so does ``supervise``, naming the item.
 
     ``actor_backend`` picks where actors live and ``transport`` how
     trajectories travel: ``thread`` actors over ``inproc`` (live trees)
@@ -336,11 +358,23 @@ def run_async_training(
     ``ckpt_dir`` with ``ckpt_every > 0`` saves the combined tree
     ``{"params", "opt"}`` (JAX layout) every ``ckpt_every`` updates, with
     ``extra={"version", "format": "fleet-v1"}``. The restart epochs of a
-    supervised run join with supervision (ROADMAP.md, Queue 1 item 13).
+    supervised run join with supervision (ROADMAP.md, Queue 1 item 13:
+    supervision).
 
     ``warm_buckets=True`` runs one throwaway update per batch bucket
     before the timed region. ``batch_linger_s`` is the learner's flush
     deadline for a partial bucket (default 0: take what is queued).
+
+    ``obs`` (an ``ObsConfig``) runs the whole flight recorder around the
+    loop: a ``/metrics`` + ``/healthz`` + ``/telemetry`` HTTP endpoint
+    (``metrics_port``; the bound address, useful with port 0, lands in
+    ``obs.bound_address``), a periodic JSONL telemetry sink
+    (``sink_path``), sampled per-trajectory lifecycle traces exported as
+    Chrome trace-event JSON (``trace_path``/``trace_every``; the sampling
+    rate reaches spawned actor children through the ``REPRO_TRACE_EVERY``
+    environment variable, restored afterwards), phase timing (the
+    telemetry's ``phases``) and a ``torch.profiler`` window over chosen
+    updates (``profile_steps``, written into ``profile_dir``).
 
     Returns (tracker, last-update metrics, telemetry). ``on_update`` (if
     given) runs after every learner update with ``(update_index, params,
@@ -349,12 +383,9 @@ def run_async_training(
     """
     del heartbeat_timeout_s
     if elastic:
-        raise _unported("elastic membership", 13,
-                        "observability and supervision")
-    if obs is not None:
-        raise _unported("obs", 13, "observability")
+        raise _unported("elastic membership", 13, "supervision")
     if supervise:
-        raise _unported("supervise", 13, "observability and supervision")
+        raise _unported("supervise", 13, "supervision")
     learner = _setup(
         env_name, icfg, num_envs,
         num_actors=num_actors, actor_backend=actor_backend,
@@ -368,10 +399,48 @@ def run_async_training(
         infer_flush_timeout_s=infer_flush_timeout_s,
         infer_max_batch_requests=infer_max_batch_requests,
         infer_streams=infer_streams, listen_addr=listen_addr,
-        spawn_remote=spawn_remote, device=device)
+        spawn_remote=spawn_remote, obs=obs, device=device)
+    server = sink = None
+    prev_trace_env = None
+    trace_env_set = False
+    if obs is not None:
+        if obs.metrics_port is not None:
+            from repro_torch.obs.http import MetricsServer
+            server = MetricsServer(learner.telemetry_snapshot,
+                                   host=obs.metrics_host,
+                                   port=obs.metrics_port).start()
+            obs.bound_address = server.address
+            print(f"[obs] metrics at http://{server.address[0]}:"
+                  f"{server.address[1]}/metrics", flush=True)
+        if obs.sink_path:
+            from repro_torch.obs.sink import JsonlSink
+            sink = JsonlSink(obs.sink_path, learner.telemetry_snapshot,
+                             obs.sink_interval_s).start()
+        if obs.trace_path:
+            # actor threads and spawned children (which inherit the
+            # environment) read the sampling rate from here
+            prev_trace_env = os.environ.get("REPRO_TRACE_EVERY")
+            os.environ["REPRO_TRACE_EVERY"] = str(max(1, obs.trace_every))
+            trace_env_set = True
     on_ckpt = (fleet_checkpointer(ckpt_dir)
                if ckpt_dir and ckpt_every > 0 else None)
-    metrics, final_telemetry = learner.run(
-        steps, warm_buckets=warm_buckets, on_update=on_update,
-        on_checkpoint=on_ckpt, ckpt_every=ckpt_every)
+    try:
+        metrics, final_telemetry = learner.run(
+            steps, warm_buckets=warm_buckets, on_update=on_update,
+            on_checkpoint=on_ckpt, ckpt_every=ckpt_every)
+    finally:
+        if trace_env_set:
+            if prev_trace_env is None:
+                os.environ.pop("REPRO_TRACE_EVERY", None)
+            else:
+                os.environ["REPRO_TRACE_EVERY"] = prev_trace_env
+        if obs is not None and obs.trace_path and \
+                learner.trace is not None:
+            n = learner.trace.export(obs.trace_path)
+            print(f"[obs] wrote {n} sampled trajectories -> "
+                  f"{obs.trace_path}", flush=True)
+        if sink is not None:
+            sink.stop()
+        if server is not None:
+            server.stop()
     return learner.tracker, metrics, final_telemetry

@@ -42,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import struct
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -430,16 +431,22 @@ def _traj_select(path: str, arr: np.ndarray) -> bool:
 
 def encode_item(item: TrajectoryItem, codec: str = DEFAULT_CODEC) -> bytes:
     """``item.data`` and its provenance. ``host`` is not encoded (decoded
-    data is on the host already), nor is ``trace``: the flight recorder
-    that stamps it joins with observability (ROADMAP.md, Queue 1 item
-    13)."""
+    data is on the host already). A sampled item's ``trace`` rides in the
+    meta, stamped with ``e1`` once the payload bytes are built: the stamp
+    still fits in the header that closes over those bytes, so the
+    receiver sees when encoding finished. The sender's dict is left as
+    it was."""
     meta = {
         "param_version": int(item.param_version),
         "actor_id": int(item.actor_id),
         "produced_at": float(item.produced_at),
     }
-    return encode_tree(item.data, meta=meta, codec=codec,
-                       select=_traj_select)
+    check_codec(codec)
+    chunks: List[bytes] = []
+    spec, _ = _encode_node(item.data, chunks, 0, "$", codec, _traj_select)
+    if item.trace is not None:
+        meta["trace"] = dict(item.trace, e1=time.monotonic())
+    return _pack(spec, meta, chunks)
 
 
 def decode_item(buf: bytes, copy: bool = False) -> TrajectoryItem:

@@ -313,8 +313,7 @@ class SocketTransport:
         if heartbeat_timeout_s is not None or elastic:
             raise NotImplementedError(
                 "the heartbeat lease reaper and elastic membership are not "
-                "ported yet (ROADMAP.md, Queue 1 item 13: observability "
-                "and supervision)")
+                "ported yet (ROADMAP.md, Queue 1 item 13: supervision)")
         self.capacity = capacity
         self.policy = policy
         self.elastic = False
@@ -981,7 +980,7 @@ class SocketActorClient:
             self.close(bye=True)
             raise NotImplementedError(
                 "heartbeats are not ported yet (ROADMAP.md, Queue 1 item "
-                "13: observability and supervision)")
+                "13: supervision)")
         return self.config
 
     # ------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Restart seeding and the kill-safe stop flag
 (``repro.distributed.supervise``). The ``Supervisor`` itself is not
-ported yet (ROADMAP.md, Queue 1 item 13)."""
+ported yet (ROADMAP.md, Queue 1 item 13: supervision)."""
 from __future__ import annotations
 
 import time

@@ -63,6 +63,15 @@ group saves params only too, refuses to run over an existing checkpoint
 without ``--resume``, and with it resumes from a fleet-v1 checkpoint
 only, as the JAX CLI does.
 
+The observability flags (``--metrics-port``, ``--trace``,
+``--profile-steps``, ``--telemetry-sink``, ``--telemetry-json`` and
+their companions) run the flight recorder (``repro_torch.obs``) in the
+async runtime, one learner or a group:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --smoke --metrics-port 0 --trace /tmp/t.json \
+      --trace-every 1
+
 Values of the JAX CLI's flags whose paths are not ported yet (the SPMD
 learner, supervision and elastic membership, token training) end the run
 with a ``SystemExit`` that names the ROADMAP.md Queue 1 item.
@@ -241,6 +250,40 @@ def _parser() -> argparse.ArgumentParser:
                    help="self-healing fleet mode: not ported yet")
     p.add_argument("--log-every", type=int, default=25)
     p.add_argument("--seed", type=int, default=0)
+    obs = p.add_argument_group("observability (async runtime)")
+    obs.add_argument("--metrics-port", type=int, default=None,
+                     help="serve /metrics (Prometheus), /healthz and "
+                          "/telemetry (JSON) from a background HTTP "
+                          "server on the learner (0 = ephemeral port; "
+                          "with --learners N the parent aggregates the "
+                          "whole group behind this one port)")
+    obs.add_argument("--metrics-host", default="127.0.0.1",
+                     help="bind address for --metrics-port")
+    obs.add_argument("--telemetry-json", default="",
+                     help="write the complete final telemetry snapshot "
+                          "(merged across learners for --learners N) to "
+                          "this path as JSON")
+    obs.add_argument("--trace", default="", dest="trace_path",
+                     help="record sampled per-trajectory lifecycle spans "
+                          "(env unroll -> encode -> transport -> queue "
+                          "wait -> collect -> step -> publish) and write "
+                          "Chrome trace-event JSON here (load in "
+                          "Perfetto). Single-learner async runs")
+    obs.add_argument("--trace-every", type=int, default=64,
+                     help="sample every Nth trajectory per actor for "
+                          "--trace")
+    obs.add_argument("--profile-steps", default="",
+                     help="A:B: run torch.profiler (host and device "
+                          "activity) over learner updates A to B, both "
+                          "included, and write its Chrome trace into "
+                          "--profile-dir")
+    obs.add_argument("--profile-dir", default="/tmp/repro-profile",
+                     help="output directory for --profile-steps traces")
+    obs.add_argument("--telemetry-sink", default="",
+                     help="append periodic JSONL telemetry snapshots to "
+                          "this path while training")
+    obs.add_argument("--sink-interval-s", type=float, default=5.0,
+                     help="seconds between --telemetry-sink lines")
     return p
 
 
@@ -275,12 +318,38 @@ def _refuse_unported(args) -> None:
                              "process; drop --learners (device "
                              "parallelism comes from --spmd-devices)")
     if args.supervise:
-        raise _unported("--supervise", 13, "observability and supervision")
+        raise _unported("--supervise", 13, "supervision")
     if args.elastic:
-        raise _unported("--elastic", 13, "observability and supervision")
+        raise _unported("--elastic", 13, "supervision")
     if args.learner_mode == "spmd":
         raise _unported("--learner-mode spmd", 15,
                         "TPU-mesh tooling analogues")
+
+
+def _build_obs(args):
+    """ObsConfig from the CLI flags, or None when no obs flag is set
+    (the runtime then skips all instrumentation glue)."""
+    wants = (args.metrics_port is not None or args.trace_path
+             or args.profile_steps or args.telemetry_sink)
+    if not wants:
+        return None
+    from repro_torch.obs import ObsConfig
+    return ObsConfig(
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+        trace_path=args.trace_path or None,
+        trace_every=max(1, args.trace_every),
+        profile_steps=args.profile_steps or None,
+        profile_dir=args.profile_dir,
+        sink_path=args.telemetry_sink or None,
+        sink_interval_s=args.sink_interval_s)
+
+
+def _dump_telemetry(path: str, tel) -> None:
+    with open(path, "w") as f:
+        json.dump(tel, f, default=float, indent=2)
+        f.write("\n")
+    print(f"telemetry snapshot written to {path}")
 
 
 @dataclasses.dataclass
@@ -518,7 +587,8 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         infer_flush_timeout_s=args.infer_flush_ms / 1e3,
         vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
         initial_params=initial_params, initial_opt_state=initial_opt,
-        start_step=start_step, on_update=on_update, device=device)
+        start_step=start_step, on_update=on_update, obs=_build_obs(args),
+        device=device)
     if args.ckpt_dir and last_params[0]:
         ckpt.save(args.ckpt_dir, args.steps, last_params[0])
     print(f"final return(100) = {tracker.mean_return():.3f}")
@@ -526,6 +596,8 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
                                   if k in tel)
     print("telemetry:", json.dumps({k: tel[k] for k in keys},
                                    default=float))
+    if args.telemetry_json:
+        _dump_telemetry(args.telemetry_json, tel)
     return AsyncRun(last_params[0], metrics, tel, arch, icfg, env, tracker)
 
 
@@ -610,7 +682,7 @@ def _run_group(args, env, arch, icfg, transport, device) -> GroupRun:
         on_checkpoint=((lambda step, p: ckpt.save(args.ckpt_dir, step, p))
                        if args.ckpt_dir else None),
         resume_from=resume_from, return_final_params=True,
-        kernel_counts=kernel_counts, device=device)
+        kernel_counts=kernel_counts, obs=_build_obs(args), device=device)
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, params)
     print(f"final return(100) = {tracker.mean_return():.3f}")
@@ -621,6 +693,8 @@ def _run_group(args, env, arch, icfg, transport, device) -> GroupRun:
                                    default=float))
     per = tel["actors"]["per_learner_trajectories"]
     print("per-learner trajectories:", json.dumps(per))
+    if args.telemetry_json:
+        _dump_telemetry(args.telemetry_json, tel)
     return GroupRun(params, metrics, tel, arch, icfg, env, tracker,
                     kernel_counts)
 

@@ -304,9 +304,6 @@ def test_group_api_refuses_supervision_and_hooks():
     with pytest.raises(NotImplementedError, match="item 13"):
         run_group_training("bandit", _icfg(), 4, 1, supervise=True,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_group_training("bandit", _icfg(), 4, 1, obs=object(),
-                           device="cpu")
     with pytest.raises(ValueError, match="env name"):
         run_group_training(object(), _icfg(), 4, 1, device="cpu")
     with pytest.raises(ValueError, match="one learner"):

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.distributed.socket_transport', "
         "'repro_torch.distributed.netserve', "
         "'repro_torch.distributed.group', "
-        "'repro_torch.distributed.transport'}\n"
+        "'repro_torch.distributed.transport', 'repro_torch.obs.http', "
+        "'repro_torch.obs.trace', 'repro_torch.obs.sink'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
