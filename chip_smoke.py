@@ -169,6 +169,32 @@ exception and a nonzero exit:
    and encoding time above 0 for each, rows ``actor-0`` and ``actor-1``,
    one trace per trajectory consumed, K2 once an update, and no child
    with the card's device node open.
+6y. Supervision of actors, each at full width with ``--supervise`` and
+   checked afterwards for leftovers (no child left, no process of the
+   run with the card's device node open, one compute context, no new
+   listening socket or /dev/shm entry): (a) 6a's thread actors for
+   ``SUP_STEPS`` updates, actor 0's thread shot at update
+   ``SUP_KILL_AT`` (it raises from its emit, so the trajectory it held
+   never reaches the queue): restarts 1, epoch 1, updates keep coming,
+   the reborn thread's trajectories arrive; learner frames/s up to the
+   death beside 6a's; (b) 6n's process actors and (c) remote loopback
+   actors (heartbeat deadline ``SUP_HEARTBEAT_S``), ``SUP_PROC_STEPS``
+   and ``SUP_REMOTE_STEPS`` updates, a child SIGKILLed at
+   ``SUP_KILL_AT`` and respawned; process: a trajectory of its slot
+   produced after the death arrives (updates are paced by
+   ``SUP_PACE_S`` until it does); remote: the dead child's lease is
+   reaped; no child holds the card. K2 once an update.
+6z. Supervised learner groups of two at full width (6r's configuration)
+   for ``SUP_GROUP_STEPS`` rounds: (d) full checkpoints every
+   ``SUP_GROUP_CKPT`` rounds and the spoke SIGKILLed once it has
+   ``SUP_GROUP_KILL_AT`` updates: respawned from the latest checkpoint,
+   it catches up on the hub's replayed means: restarts 1, epoch 1,
+   replicas bit identical, versions ``[steps, steps]``, K2 launched in the
+   reborn worker; (e) the hub SIGKILLed instead: learner 1 promoted,
+   failovers 1, abandoned learners [0], publisher 1, version ``steps``, K2
+   once a round in the promoted worker. Each prints how long the respawn
+   or failover took from the death to the first update; the workers' K2
+   counts and shapes join the kernels line and phase 7a.
 7. Split: where a main-path step's time goes, actor unroll against
    learner step, each timed on the host clock up to a synchronise; then
    the card's busy time over a few steps from a ``torch.profiler`` trace,
@@ -243,6 +269,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 from typing import Tuple
 
@@ -361,6 +388,24 @@ OBS_PROC_STEPS = 20
 # the trace recorder's default bound: below it nothing is dropped
 TRACE_BOUND = 2048
 OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+# slice 12: supervision. 6y: 6a's settings with --supervise, actor 0's
+# thread shot at update SUP_THREAD_KILL_AT of SUP_STEPS; process and
+# remote children SIGKILLed at SUP_KILL_AT of SUP_PROC_STEPS and
+# SUP_REMOTE_STEPS, the process run's updates paced by SUP_PACE_S from
+# the respawn until the
+# reborn child delivers (the remote run does not wait for it); the remote
+# slots' heartbeat deadline SUP_HEARTBEAT_S. 6z: supervised groups of
+# two, full checkpoints every SUP_GROUP_CKPT rounds, a worker SIGKILLed
+# once learner 1 has SUP_GROUP_KILL_AT updates, SUP_GROUP_STEPS rounds
+SUP_STEPS, SUP_THREAD_KILL_AT = 24, 14
+SUP_PROC_STEPS, SUP_REMOTE_STEPS, SUP_KILL_AT, SUP_PACE_S = 30, 14, 6, 0.5
+SUP_HEARTBEAT_S = 1.0
+SUP_GROUP_STEPS, SUP_GROUP_CKPT, SUP_GROUP_KILL_AT = 12, 3, 5
+SUP_PROC_ARGV = _async_argv("catch", SUP_PROC_STEPS, "--actor-backend",
+                            "process", "--transport", "shm")
+SUP_REMOTE_ARGV = _async_argv("catch", SUP_REMOTE_STEPS, "--actor-backend",
+                              "remote", "--transport", "socket",
+                              "--heartbeat-timeout-s", str(SUP_HEARTBEAT_S))
 MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
     ("catch", "bandit", "tmaze"), 60, 8)
 PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
@@ -1890,6 +1935,444 @@ def phase_group_resume(vk, dev, ckpt_dir: str, saved: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# slice 12: supervision
+
+
+def _listening() -> set:
+    """The TCP sockets in LISTEN state on this machine (every process of
+    the container), as (local address, inode) from /proc/net/tcp{,6}."""
+    out = set()
+    for name in ("tcp", "tcp6"):
+        try:
+            with open(f"/proc/net/{name}") as f:
+                rows = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for row in rows:
+            cols = row.split()
+            if len(cols) > 9 and cols[3] == "0A":
+                out.add((cols[1], cols[9]))
+    return out
+
+
+def _shm() -> set:
+    import os
+
+    try:
+        return set(os.listdir("/dev/shm"))
+    except OSError:
+        return set()
+
+
+class _Leftovers:
+    """What a supervised phase must leave behind: nothing. Entered before
+    the run; on exit (``check``) every child has exited, no process the
+    run started (the ``_ComputePids`` sample, the dead ones included)
+    has the card's device node open, ``nvidia-smi`` counts only this
+    process's context, and no listening socket or /dev/shm entry is new."""
+
+    def __init__(self, what: str):
+        self.what = what
+        self.sockets, self.shm = _listening(), _shm()
+
+    def check(self, seen) -> None:
+        _no_actor_threads(self.what)
+        deadline = time.monotonic() + 20.0
+        while True:
+            pids = seen.workers | seen.children
+            held = sorted(p for p in pids if _holds_card(p))
+            contexts = _compute_pids()
+            new_sockets = _listening() - self.sockets
+            new_shm = _shm() - self.shm
+            if not (held or len(contexts) > 1 or new_sockets or new_shm):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{self.what}: after the run, processes {held} still "
+                    f"have the card's device node open, nvidia-smi lists "
+                    f"compute pids {contexts}, new listening sockets "
+                    f"{sorted(new_sockets)}, new /dev/shm entries "
+                    f"{sorted(new_shm)}")
+            time.sleep(0.5)
+        print(f"{self.what}: after the run no process of it holds the card "
+              f"(of {len(pids)} seen), nvidia-smi lists {len(contexts)} "
+              f"compute context(s) (this process), no new listening "
+              f"socket or /dev/shm entry")
+
+
+def _supervisor_line(what: str, sup) -> None:
+    print(f"{what}: supervisor restarts {sup['restarts']}, failovers "
+          f"{sup['failovers']}, lease reaps {sup['lease_reaps']}, epochs "
+          f"{sup['epochs']}, exhausted {sup['restarts_exhausted']}")
+
+
+def phase_supervised_thread(vk, single_before) -> int:
+    """6y (a): 6a's settings with ``--supervise`` for ``SUP_STEPS``
+    updates; actor 0's thread raises from its emit at update
+    ``SUP_THREAD_KILL_AT`` and dies (the trajectory it held never reaches the
+    queue). It is respawned: restarts 1, epoch 1, updates keep coming,
+    the reborn thread's trajectories arrive. Learner frames/s up to the
+    death (a supervised run with no death) beside 6a's. Returns K2's
+    launches."""
+    from repro_torch.distributed import actor_pool
+    from repro_torch.launch import train as train_lib
+
+    state = {"armed": False, "death": None, "reborn": None, "first": None,
+             "after": 0}
+    real = actor_pool.run_actor_loop
+
+    def loop(**kw):
+        emit, epoch0 = kw["emit"], state["death"] is None
+
+        def chaos_emit(item):
+            if kw["actor_id"] == 0:
+                if epoch0 and state["armed"] and state["death"] is None:
+                    state["death"] = time.monotonic()
+                    raise RuntimeError("chip_smoke: actor thread shot")
+                if not epoch0 and state["reborn"] is None:
+                    state["reborn"] = time.monotonic()
+            return emit(item)
+
+        kw["emit"] = chaos_emit
+        return real(**kw)
+
+    def hook(step, params, metrics, snapshot_fn):
+        if step == SUP_THREAD_KILL_AT:
+            state["before"] = snapshot_fn()
+            state["armed"] = True
+        elif state["death"] is not None:
+            state["after"] += 1
+            if state["reborn"] is not None and state["first"] is None:
+                state["first"] = time.monotonic()
+
+    vk.reset_launch_counts()
+    leftovers = _Leftovers("supervised thread actors")
+    actor_pool.run_actor_loop = loop
+    try:
+        with _ComputePids() as seen:
+            run = train_lib.train(_async_argv("catch", SUP_STEPS,
+                                              "--supervise"),
+                                  on_update=hook)
+    finally:
+        actor_pool.run_actor_loop = real
+    torch.cuda.synchronize()
+    k2 = vk.loss_vtrace.launches
+    leftovers.check(seen)
+    tel, sup = run.telemetry, run.telemetry["supervisor"]
+    got = (tel["learner_updates"], sup["restarts"], sup["epochs"],
+           sup["restarts_exhausted"], k2)
+    want = (SUP_STEPS, 1, {"actor-0": 1}, [], SUP_STEPS)
+    if got != want or state["reborn"] is None or state["first"] is None \
+            or not math.isfinite(float(run.metrics["loss/total"])):
+        raise AssertionError(f"supervised thread actors: (updates, "
+                             f"restarts, epochs, exhausted, K2) {got}, "
+                             f"expected {want}; death {state['death']}, "
+                             f"reborn {state['reborn']}, first update "
+                             f"after {state['first']}")
+    before = state["before"]
+    _supervisor_line("supervised thread actors", sup)
+    print(f"supervised thread actors: {SUP_STEPS} updates, K2 {k2}; actor 0 "
+          f"died at update {SUP_THREAD_KILL_AT}, {state['after']} updates "
+          f"after "
+          f"it; the reborn thread's first trajectory "
+          f"{(state['reborn'] - state['death']) * 1e3:.1f} ms after the "
+          f"death, the first update after it "
+          f"{(state['first'] - state['death']) * 1e3:.1f} ms after; "
+          f"learner frames/s up to the death {before['frames_per_sec']:.0f}"
+          f" (supervised, no death), 6a's (unsupervised, same process) "
+          f"{single_before['frames_per_sec']:.0f}: "
+          f"{before['frames_per_sec'] / single_before['frames_per_sec']:.3f}"
+          f"x")
+    return k2
+
+
+def phase_supervised_child(vk, what: str, argv, victim: str,
+                           wait: bool) -> int:
+    """6y (b) and (c): ``argv`` (6n's process actors, or remote loopback
+    actors) with ``--supervise`` for its ``--steps`` updates; the
+    child named ``victim`` is SIGKILLed at update ``SUP_KILL_AT`` and
+    respawned. A trajectory of its slot produced after the death (its
+    ``produced_at``, the host's monotonic clock in every process) is the
+    reborn child's; with ``wait``, from the respawn until one has arrived
+    from each slot, each update is paced by ``SUP_PACE_S`` so the run
+    outlives the child's start-up. No child holds the card. Remote: the
+    dead child's lease is reaped under the heartbeat deadline (the updates
+    paced by a quarter of it until it is). Returns K2's launches."""
+    import multiprocessing as mp
+    import os
+    import signal
+
+    from repro_torch.distributed import procpool
+    from repro_torch.launch import train as train_lib
+
+    steps = int(argv[argv.index("--steps") + 1])
+    state = {"death": None, "reap": None, "arrived": {}, "first": {},
+             "spawned": None}
+    real = procpool._SpawnedPool._note_arrival
+
+    def arrival(pool, item):
+        death = state["death"]
+        if death is not None and item.produced_at > death:
+            state["arrived"].setdefault(item.actor_id, time.monotonic())
+        return real(pool, item)
+
+    def hook(step, params, metrics, snapshot_fn):
+        now = time.monotonic()
+        if step == SUP_KILL_AT:
+            kids = [p for p in mp.active_children() if p.name == victim]
+            if not kids:
+                raise AssertionError(f"{what}: no child {victim} to kill "
+                                     f"among {mp.active_children()}")
+            os.kill(kids[0].pid, signal.SIGKILL)
+            state["death"], state["pid"] = time.monotonic(), kids[0].pid
+            return
+        if state["death"] is None:
+            return
+        if state["spawned"] is None and any(
+                p.name == victim and p.pid != state["pid"]
+                for p in mp.active_children()):
+            state["spawned"] = now
+        for slot in list(state["arrived"]):
+            state["first"].setdefault(slot, now)
+        if state["reap"] is None and \
+                snapshot_fn()["supervisor"]["lease_reaps"]:
+            state["reap"] = now
+        # the live child's slot arrives at once; once the reborn child
+        # runs (the pool respawns it between updates), pace the updates
+        # until its slot has arrived too. Remote: until the dead lease is
+        # reaped, pace them lightly so the run outlives the deadline
+        if wait and state["spawned"] is not None and \
+                len(state["first"]) < 2:
+            time.sleep(SUP_PACE_S)
+        elif "heartbeat" in " ".join(argv) and state["reap"] is None:
+            time.sleep(SUP_HEARTBEAT_S / 4)
+
+    vk.reset_launch_counts()
+    leftovers = _Leftovers(what)
+    procpool._SpawnedPool._note_arrival = arrival
+    try:
+        with _ComputePids() as seen:
+            run = train_lib.train(argv + ["--supervise"], on_update=hook)
+    finally:
+        procpool._SpawnedPool._note_arrival = real
+    torch.cuda.synchronize()
+    k2 = vk.loss_vtrace.launches
+    leftovers.check(seen)
+    tel, sup = run.telemetry, run.telemetry["supervisor"]
+    remote = "per_actor" in tel["queue"]
+    if remote:
+        # the reborn child reclaimed the dead slot
+        slots = [int(k) for k, v in tel["queue"]["per_actor"].items()
+                 if v["reconnects"]]
+    else:
+        slots = [int(victim.rsplit("-", 1)[1])]
+    slot = slots[0] if len(slots) == 1 else None
+    got = (tel["learner_updates"], sup["restarts"] >= 1,
+           sup["restarts_exhausted"], k2, sorted(seen.on_card),
+           state["spawned"] is not None,
+           tel["queue"].get("decode_errors", 0),
+           not wait or slot in state["first"],
+           not remote or sup["lease_reaps"] >= 1)
+    want = (steps, True, [], steps, [], True, 0, True,
+            True)
+    if got != want or not math.isfinite(float(run.metrics["loss/total"])):
+        raise AssertionError(f"{what}: (updates, restarted, exhausted, K2, "
+                             f"children with the card's device node open, "
+                             f"the reborn child seen, decode errors, its "
+                             f"child's trajectory arrived, a lease reap if "
+                             f"remote) {got}, expected {want}; children "
+                             f"seen {sorted(seen.workers)}; victim's slots "
+                             f"{slots}, arrivals after the death "
+                             f"{state['arrived']}, the reborn child seen "
+                             f"{state['spawned']} (death {state['death']}); "
+                             f"frames per actor "
+                             f"{tel['actors']['frames_per_actor']}, "
+                             f"supervisor {sup}")
+    death = state["death"]
+    _supervisor_line(what, sup)
+    reborn = (f", its first trajectory arrived "
+              f"{state['arrived'][slot] - death:.2f} s after the death, the "
+              f"first update after it {state['first'][slot] - death:.2f} s"
+              if slot in state["first"] else "")
+    reap = ("" if state["reap"] is None else
+            f"; the lease seen reaped by the update "
+            f"{state['reap'] - death:.2f} s after the death")
+    print(f"{what}: {steps} updates, K2 {k2}; {victim} (slot "
+          f"{slot}) SIGKILLed at update {SUP_KILL_AT}; the reborn child "
+          f"seen by the update {state['spawned'] - death:.2f} s after the "
+          f"death{reborn}{reap}; of the children {sorted(seen.workers)} "
+          f"none had the card's device node open; learner frames/s "
+          f"{tel['frames_per_sec']:.0f}")
+    return k2
+
+
+def _full_width_group(dev):
+    """``run_group_training``'s arguments for 6r's configuration (catch,
+    impala-shallow at full width, 32 envs, unroll 20, one actor thread a
+    learner, batches of up to 4) at the CLI's defaults: (config, keyword
+    arguments)."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.envs import make_catch
+    from repro_torch.launch import train as train_lib
+
+    a = train_lib._parser().parse_args([])
+    env = make_catch()
+    arch = get_config("impala-shallow").replace(image_hw=env.image_hw)
+    cfg = ImpalaConfig(num_actions=env.num_actions,
+                       unroll_length=a.unroll, learning_rate=a.lr,
+                       entropy_cost=a.entropy_cost,
+                       rmsprop_eps=a.rmsprop_eps)
+    return cfg, dict(num_learners=GROUP_LEARNERS,
+                     num_actors=GROUP_LEARNERS, actor_backend="thread",
+                     queue_capacity=a.queue_capacity,
+                     queue_policy=a.queue_policy, max_batch_trajs=4,
+                     seed=0, arch=arch, device=dev, supervise=True,
+                     telemetry_every=1)
+
+
+def _kill_learner(name: str) -> None:
+    import multiprocessing as mp
+    import os
+    import signal
+
+    for p in mp.active_children():
+        if p.name == name and p.pid:
+            os.kill(p.pid, signal.SIGKILL)
+            return
+    raise AssertionError(f"no learner worker {name} to kill among "
+                         f"{mp.active_children()}")
+
+
+def phase_supervised_spoke(vk, dev) -> int:
+    """6z (d): a supervised group of two at full width for
+    ``SUP_GROUP_STEPS`` rounds, full checkpoints every ``SUP_GROUP_CKPT``;
+    the spoke (learner 1) is SIGKILLed once it has ``SUP_GROUP_KILL_AT``
+    updates and respawned from the latest checkpoint, catching up on the
+    hub's replayed means: restarts 1, epoch 1, replicas bit identical,
+    versions ``[steps, steps]``, K2 in the reborn worker. Returns K2's
+    launches."""
+    from repro_torch.distributed import RestartPolicy, run_group_training
+
+    cfg, kw = _full_width_group(dev)
+    steps = SUP_GROUP_STEPS
+    state = {"death": None, "first": None, "last": 0}
+
+    def on_progress(k, snap):
+        if k != 1:
+            return
+        n = snap["learner_updates"]
+        if state["death"] is None and n >= SUP_GROUP_KILL_AT:
+            _kill_learner("learner-1")
+            state["death"], state["last"] = time.monotonic(), n
+        elif state["death"] is not None and state["first"] is None and \
+                n < state["last"]:
+            # resumed from an older checkpoint: the reborn worker
+            state["first"] = time.monotonic()
+            state["resumed_at"] = n
+
+    counts = {}
+    leftovers = _Leftovers("supervised group, spoke killed")
+    with _ComputePids() as seen:
+        _, metrics, tel = run_group_training(
+            "catch", cfg, 32, steps, kernel_counts=counts,
+            on_progress=on_progress, ckpt_every=SUP_GROUP_CKPT,
+            restart_policy=RestartPolicy(backoff_base_s=0.0, jitter=0.0),
+            **kw)
+    leftovers.check(seen)
+    sup, g = tel["supervisor"], tel["group"]
+    k1, k2 = _group_counts(vk, types.SimpleNamespace(kernel_counts=counts))
+    got = (sup["restarts"], sup["epochs"], sup["failovers"],
+           g["replicas_identical"], g["param_versions"],
+           tel["param_version"], "abandoned_learners" in g, k2[0],
+           k2[1] > 0, k1, seen.on_card <= seen.workers,
+           len(seen.workers))
+    want = (1, {"learner-1": 1}, 0, True, [steps, steps], steps, False,
+            steps, True, [0, 0], True, GROUP_LEARNERS + 1)
+    if got != want or state["first"] is None or \
+            not math.isfinite(float(metrics["loss/total"])):
+        raise AssertionError(f"supervised group, spoke killed: (restarts, "
+                             f"epochs, failovers, replicas identical, "
+                             f"versions, version, abandoned, hub K2, "
+                             f"reborn K2 > 0, K1, only workers on the card, "
+                             f"workers) {got}, expected {want}; digests "
+                             f"{g['param_digests']}; death "
+                             f"{state['death']}, reborn's first update "
+                             f"{state['first']}")
+    _supervisor_line("supervised group, spoke killed", sup)
+    print(f"supervised group, spoke killed: {steps} rounds; learner 1 "
+          f"SIGKILLed at its update {state['last']}, respawned from the "
+          f"fleet-v1 checkpoint at version {state['resumed_at'] - 1} "
+          f"(one every {SUP_GROUP_CKPT}); its first update "
+          f"{state['first'] - state['death']:.2f} s after the death; "
+          f"replicas identical (digests {g['param_digests']}), versions "
+          f"{g['param_versions']}; K2 {k2} (the hub, the reborn worker), "
+          f"K1 {k1}; workers {sorted(seen.workers)}, those with the card's "
+          f"device node open {sorted(seen.on_card)}")
+    return sum(k2)
+
+
+def phase_supervised_hub(vk, dev) -> int:
+    """6z (e): 6z (d)'s group with its hub (learner 0) SIGKILLed once
+    learner 1 has ``SUP_GROUP_KILL_AT`` updates: learner 1 is promoted,
+    publishes alone on the card and finishes the run: failovers 1,
+    abandoned learners [0], publisher 1, version ``steps``, K2 in the
+    promoted worker once a round. Returns K2's launches."""
+    from repro_torch.distributed import run_group_training
+
+    cfg, kw = _full_width_group(dev)
+    steps = SUP_GROUP_STEPS
+    state = {"death": None, "first": None}
+
+    def on_progress(k, snap):
+        if k != 1:
+            return
+        if state["death"] is None and \
+                snap["learner_updates"] >= SUP_GROUP_KILL_AT:
+            _kill_learner("learner-0")
+            state["death"] = time.monotonic()
+            state["at"] = snap["learner_updates"]
+        elif state["death"] is not None and state["first"] is None and \
+                snap["exchange"].get("failovers", 0) >= 1:
+            state["first"] = time.monotonic()
+
+    counts = {}
+    leftovers = _Leftovers("supervised group, hub killed")
+    with _ComputePids() as seen:
+        _, metrics, tel, params = run_group_training(
+            "catch", cfg, 32, steps, kernel_counts=counts,
+            on_progress=on_progress, return_final_params=True, **kw)
+    leftovers.check(seen)
+    sup, g = tel["supervisor"], tel["group"]
+    ex = tel["learners"]["learner_1"]["exchange"]
+    k1, k2 = _group_counts(vk, types.SimpleNamespace(kernel_counts=counts))
+    got = (sup["failovers"], sup["failover_in_flight"], sup["restarts"],
+           g.get("abandoned_learners"), g["publisher"],
+           tel["param_version"], ex["resilient"], ex["failovers"],
+           ex["hub_id"], ex["degraded_solo"], sorted(counts), k2, k1,
+           bool(params))
+    want = (1, 0, 0, [0], 1, steps, True, 1, 1, False, [1], [steps], [0],
+            True)
+    if got != want or state["first"] is None or \
+            not math.isfinite(float(metrics["loss/total"])):
+        raise AssertionError(f"supervised group, hub killed: (failovers, "
+                             f"in flight, restarts, abandoned, publisher, "
+                             f"version, resilient, exchange failovers, hub "
+                             f"id, solo, results from, K2, K1, final params) "
+                             f"{got}, expected {want}")
+    _supervisor_line("supervised group, hub killed", sup)
+    print(f"supervised group, hub killed: {steps} rounds; learner 0 (the "
+          f"hub) SIGKILLed when learner 1 had {state['at']} updates; "
+          f"learner 1 promoted (hub id {ex['hub_id']}, publisher "
+          f"{g['publisher']}), its first update as the hub "
+          f"{state['first'] - state['death']:.2f} s after the death; "
+          f"version {tel['param_version']}, abandoned "
+          f"{g['abandoned_learners']}; K2 {k2} in the promoted worker, K1 "
+          f"{k1}; workers {sorted(seen.workers)}")
+    return sum(k2)
+
+
+# ---------------------------------------------------------------------------
 # slice 11: the flight recorder
 
 
@@ -2312,14 +2795,20 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
           f"to a synchronise, mean of {steps} steps, {MAIN_B} envs x "
           f"unroll {MAIN_T})")
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _trace_pad()
-        for step in range(profiled):
-            carry, batch = unroll(params, carry)
-            params, opt_state, _ = train_step(params, opt_state, step, batch)
-        torch.cuda.synchronize()
-        _trace_pad()
+    def take():
+        nonlocal carry, params, opt_state
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _trace_pad()
+            for step in range(profiled):
+                carry, batch = unroll(params, carry)
+                params, opt_state, _ = train_step(params, opt_state, step,
+                                                  batch)
+            torch.cuda.synchronize()
+            _trace_pad()
+        return prof
+
+    prof = _traced("sync step", take, "loss_vtrace", profiled)
     _print_busy("sync step", prof, profiled, act + learn, "loss_vtrace")
 
 
@@ -2541,7 +3030,8 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
     """Device busy time of a few decode steps against the unprofiled
     decode step, and the device kernels that take most of it; the trace
     must hold ``per_step`` launches of ``kernel`` a step (``_print_busy``).
-    """
+    A trace that lost some of them is taken again from a new prefill
+    (``_traced``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import backbone as bb
@@ -2549,24 +3039,49 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
     fb = run.first_batch
     toks = fb["tokens"]
     ctx = toks.shape[1]
-    with torch.no_grad():
-        out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
-                               run.num_actions)
-        cache, tok = out.cache, toks[:, -1:]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _trace_pad()
-            for i in range(profiled):
-                out = bb.apply_decode(run.params, tok, cache, ctx + i,
-                                      run.arch, run.num_actions)
-                cache = out.cache
-                tok = fb["actions"][i] % run.arch.vocab_size
+
+    def take():
+        with torch.no_grad():
+            out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+                                   run.num_actions)
+            cache, tok = out.cache, toks[:, -1:]
             torch.cuda.synchronize()
-            _trace_pad()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _trace_pad()
+                for i in range(profiled):
+                    out = bb.apply_decode(run.params, tok, cache, ctx + i,
+                                          run.arch, run.num_actions)
+                    cache = out.cache
+                    tok = fb["actions"][i] % run.arch.vocab_size
+                torch.cuda.synchronize()
+                _trace_pad()
+        return prof
+
+    prof = _traced(f"{run.arch.name} decode step", take, kernel,
+                   profiled * per_step)
     step = sorted(run.decode_ms)[len(run.decode_ms) // 2]
     _print_busy(f"{run.arch.name} decode step", prof, profiled, step,
                 kernel, per_step)
+
+
+def _traced(what: str, take, kernel=None, launches: int = 0):
+    """``take()``'s profiler trace, taken again (up to ``DEVICE_TRIES``
+    traces, as phase 2a's are) while it holds another number than
+    ``launches`` of ``kernel``'s launches: such a trace lost device
+    events. ``_print_busy`` then holds the last one to the same count."""
+    for attempt in range(1, DEVICE_TRIES + 1):
+        prof = take()
+        if kernel is None or attempt == DEVICE_TRIES:
+            return prof
+        name = KERNEL_EVENTS[kernel][0]
+        _, _, whole = _device_busy(prof.events())
+        got = sum(c for event, (_, c) in whole.items() if name in event)
+        if got == launches:
+            return prof
+        print(f"{what}: trace {attempt} of {DEVICE_TRIES} holds {got} "
+              f"{name} launches where {launches} ran; traced again")
+        TRACES_RETAKEN.append({name: got})
 
 
 def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
@@ -2845,20 +3360,27 @@ def phase_serve_ssm(lk, fk, dk):
 
 def phase_prefill_split(run) -> None:
     """Device busy time of one profiled prefill against the unprofiled
-    median, and the device kernels that take most of it."""
+    median, and the device kernels that take most of it; a trace that
+    lost some of K3's launches is taken again (``_traced``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import backbone as bb
 
     toks = run.first_batch["tokens"]
-    with torch.no_grad():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _trace_pad()
-            bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
-                             run.num_actions)
-            torch.cuda.synchronize()
-            _trace_pad()
+
+    def take():
+        with torch.no_grad():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _trace_pad()
+                bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+                                 run.num_actions)
+                torch.cuda.synchronize()
+                _trace_pad()
+        return prof
+
+    prof = _traced(f"{run.arch.name} prefill", take, "linear_scan",
+                   SSM_LAYERS)
     _print_busy(f"{run.arch.name} prefill", prof, 1,
                 sorted(run.prefill_ms)[len(run.prefill_ms) // 2],
                 "linear_scan", SSM_LAYERS)
@@ -3053,6 +3575,20 @@ def main() -> int:
     finally:
         shutil.rmtree(group_ckpt, ignore_errors=True)
     lap("6v")
+    launches["loss_vtrace"] += phase_supervised_thread(vk, async_before)
+    lap("6y (a)")
+    launches["loss_vtrace"] += phase_supervised_child(
+        vk, "supervised process actors", SUP_PROC_ARGV, "actor-proc-0",
+        wait=True)
+    lap("6y (b)")
+    launches["loss_vtrace"] += phase_supervised_child(
+        vk, "supervised remote actors", SUP_REMOTE_ARGV, "actor-remote-0",
+        wait=False)
+    lap("6y (c)")
+    launches["loss_vtrace"] += phase_supervised_spoke(vk, dev)
+    lap("6z (d)")
+    launches["loss_vtrace"] += phase_supervised_hub(vk, dev)
+    lap("6z (e)")
     phase_split(run, dev)
     k1_err, k2_err = phase_path_shapes(vk, dev)
     err_k1, err_k2 = max(err_k1, k1_err), max(err_k2, k2_err)

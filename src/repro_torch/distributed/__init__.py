@@ -20,21 +20,24 @@ and learner groups over the hub/spoke gradient exchange (paper §3).
                    forward, with thread and process frontends
   paramstore       versioned publish/pull (live, or serialized once a
                    version), with the event a reader waits for
-  supervise        restart seeds and the kill-safe stop flag
+  supervise        the ``Supervisor`` restart ledger, ``RestartPolicy``,
+                   restart seeds and the kill-safe stop flag
   learner          the ``Learner``: dynamic batch collection, train step,
                    versioned publish, telemetry
   group            learner groups: N learner processes over disjoint
                    actor-slot shards, gradients mean-reduced over the
                    framed channel (``GradHub`` + ``SpokeExchange``, the
                    stale-grad drop rule), one publisher numbering the
-                   versions
+                   versions; supervised, ``ResilientExchange`` fails a
+                   dead hub over to a survivor
   runtime          composition root: build env/store/service/transport/
                    pool and run one ``Learner`` over them
 """
 from repro_torch.distributed.actor_pool import ActorPool
 from repro_torch.distributed.group import (GradHub, GradientExchange,
                                            GroupTracker, NullExchange,
-                                           SpokeExchange, merge_telemetry,
+                                           ResilientExchange, SpokeExchange,
+                                           merge_telemetry,
                                            run_group_training, shard_slots)
 from repro_torch.distributed.learner import Learner, MultiTracker
 from repro_torch.distributed.paramstore import ParameterStore
@@ -44,7 +47,8 @@ from repro_torch.distributed.runner import (run_actor_loop,
                                             run_inference_actor_loop)
 from repro_torch.distributed.runtime import ACTOR_MODES, run_async_training
 from repro_torch.distributed.serde import TrajectoryItem
-from repro_torch.distributed.supervise import (KillSafeEvent,
+from repro_torch.distributed.supervise import (KillSafeEvent, RestartPolicy,
+                                               Supervisor,
                                                fold_restart_seed)
 from repro_torch.distributed.tqueue import POLICIES, TrajectoryQueue
 from repro_torch.distributed.transport import (TRANSPORTS, InprocTransport,
@@ -54,9 +58,9 @@ from repro_torch.distributed.transport import (TRANSPORTS, InprocTransport,
 __all__ = ["ACTOR_MODES", "ActorPool", "GradHub", "GradientExchange",
            "GroupTracker", "InprocTransport", "KillSafeEvent", "Learner",
            "MultiTracker", "NullExchange", "POLICIES", "ParameterStore",
-           "ProcessActorPool", "ShmTransport", "SocketActorPool",
-           "SpokeExchange", "TRANSPORTS", "TrajectoryItem",
-           "TrajectoryQueue", "Transport", "fold_restart_seed",
+           "ProcessActorPool", "ResilientExchange", "RestartPolicy",
+           "ShmTransport", "SocketActorPool", "SpokeExchange", "Supervisor",
+           "TRANSPORTS", "TrajectoryItem", "TrajectoryQueue", "Transport", "fold_restart_seed",
            "make_transport", "merge_telemetry", "run_actor_loop",
            "run_async_training", "run_group_training",
            "run_inference_actor_loop", "shard_slots"]

@@ -15,8 +15,14 @@ multiplexes every logical actor against the shared ``InferenceService``
 The pool is written against the ``Transport`` interface, and
 ``stats()["rejected"]`` charges every lost trajectory (drop_newest
 rejections *and* drop_oldest evictions) back to the actor that made it.
-The supervisor's respawns are not ported yet (ROADMAP.md, Queue 1 item
-13).
+
+Supervised (``attach_supervisor``), a worker thread that dies is parked
+and respawned on the learner's next ``raise_errors`` call, on the same
+global slot with the restart epoch folded into its seed. The new thread
+runs ``run_actor_loop`` from the start: a new CUDA stream, a new
+``torch.Generator``, a new env batch. Nothing of the dead thread is read
+again: a trajectory reaches the transport only after its unroll finished
+(``runner._finish``), so one it left half-written is never enqueued.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.distributed.runner import (run_actor_loop,
                                             run_inference_driver_loop)
 from repro_torch.distributed.serde import TrajectoryItem
-from repro_torch.distributed.supervise import fold_restart_seed
+from repro_torch.distributed.supervise import Supervisor, fold_restart_seed
 from repro_torch.distributed.transport import Transport
 
 
@@ -118,6 +124,11 @@ class ActorPool(PoolAccounting):
                                                  num_envs, device)
                            for _ in range(num_actors)])
         self.errors: List[BaseException] = []
+        # supervised respawn (attach_supervisor): a dead worker thread
+        # waits here for a restart grant instead of failing the run
+        self._supervisor: Optional[Supervisor] = None
+        self._dead: List[tuple] = []            # (idx, exc)
+        self._respawns: Dict[str, tuple] = {}   # key -> (idx, decision)
         self._init_accounting(num_actors, num_envs * icfg.unroll_length,
                               slot_base)
         if hasattr(queue, "on_drop"):
@@ -157,7 +168,7 @@ class ActorPool(PoolAccounting):
         except BaseException as e:  # surface in the learner thread
             self._note_death(idx, e)
 
-    def _run_driver(self) -> None:
+    def _run_driver(self, epoch: int = 0) -> None:
         """Inference mode: ONE thread multiplexes every logical actor,
         each with its own env batch, generator and trajectory stream."""
         try:
@@ -165,7 +176,8 @@ class ActorPool(PoolAccounting):
                 actor_ids=list(range(self.slot_base,
                                      self.slot_base + self.num_actors)),
                 env=self.env, arch_cfg=self._arch_cfg, icfg=self._icfg,
-                num_envs=self.num_envs, seed=self.seed,
+                num_envs=self.num_envs,
+                seed=fold_restart_seed(self.seed, epoch),
                 service=self.service,
                 emit=lambda aid, item: self._emit(aid - self.slot_base,
                                                   item),
@@ -176,24 +188,42 @@ class ActorPool(PoolAccounting):
             self._note_death(-1, e)
 
     def _note_death(self, idx: int, exc: BaseException) -> None:
-        """A worker death fails the run: close the queue so the learner
-        wakes and ``raise_errors`` fires."""
-        self.errors.append(exc)
-        self.queue.close()
+        """Unsupervised, a worker death fails the run (close the queue so
+        the learner wakes and ``raise_errors`` fires). Supervised, it is
+        parked for ``raise_errors`` to respawn: the queue stays open, the
+        remaining workers keep producing."""
+        if self._supervisor is not None and not self._stop.is_set():
+            with self._acct_lock:
+                self._dead.append((idx, exc))
+        else:
+            self.errors.append(exc)
+            self.queue.close()
 
     # ------------------------------------------------------------------
 
+    def attach_supervisor(self, supervisor: Supervisor) -> None:
+        """Opt into supervised respawn: a worker thread that dies is
+        respawned on the next ``raise_errors`` call instead of failing
+        the run, until the restart policy is exhausted; then
+        ``raise_errors`` raises as the unsupervised pool does."""
+        self._supervisor = supervisor
+
+    def _spawn(self, idx: int, epoch: int = 0) -> None:
+        if idx < 0:
+            t = threading.Thread(target=self._run_driver, args=(epoch,),
+                                 name="inference-driver", daemon=True)
+        else:
+            t = threading.Thread(target=self._run, args=(idx, epoch),
+                                 name=f"actor-{idx}", daemon=True)
+        self._threads.append(t)
+        t.start()
+
     def start(self) -> None:
         if self.service is not None:
-            workers = [("inference-driver", self._run_driver, ())]
-        else:
-            workers = [(f"actor-{i}", self._run, (i,))
-                       for i in range(self.num_actors)]
-        for name, target, args in workers:
-            t = threading.Thread(target=target, args=args, name=name,
-                                 daemon=True)
-            self._threads.append(t)
-            t.start()
+            self._spawn(-1)
+            return
+        for i in range(self.num_actors):
+            self._spawn(i)
 
     def stop(self) -> None:
         self._stop.set()
@@ -211,5 +241,32 @@ class ActorPool(PoolAccounting):
                                f"{timeout} s after stop")
 
     def raise_errors(self) -> None:
+        if self._supervisor is not None:
+            self._heal()
         if self.errors:
             raise RuntimeError("actor thread died") from self.errors[0]
+
+    def _heal(self) -> None:
+        """Ask the supervisor for restart grants for parked deaths and
+        launch every respawn whose backoff has elapsed. Non-blocking:
+        called from the learner loop every iteration, so backoff waits
+        ride the loop instead of stalling training."""
+        sup = self._supervisor
+        with self._acct_lock:
+            dead, self._dead = self._dead, []
+        for idx, exc in dead:
+            key = (f"actor-{self.slot_base + idx}" if idx >= 0
+                   else f"driver-{self.slot_base}")
+            decision = sup.record_death(key)
+            if decision is None:    # budget exhausted: fail loudly
+                self.errors.append(exc)
+                self.queue.close()
+                continue
+            self._respawns[key] = (idx, decision)
+        now = time.monotonic()
+        due = [k for k, (_i, d) in self._respawns.items()
+               if d.not_before <= now]
+        for key in due:
+            idx, decision = self._respawns.pop(key)
+            self._spawn(idx, decision.epoch)
+            sup.note_restarted(key)

@@ -45,10 +45,11 @@ With ``obs.metrics_port`` the parent serves one ``/metrics`` for the whole
 group: the ``merge_telemetry`` of the snapshots the workers ship up their
 pipes, each learner's under a ``learner="k"`` label.
 
-Not ported yet: the SPMD learner (``CollectiveExchange``, ROADMAP.md Queue
-1 item 15), and supervision (``ResilientExchange``, respawn, hub
-failover, ``restart_epochs``; item 13: supervision). Asking for them
-raises, naming the item.
+Supervised (``run_group_training(supervise=True)``), a dead spoke is
+respawned and catches up from the hub's replayed means, and a dead hub
+fails over to the lowest live learner (``ResilientExchange``). Not
+ported yet: the SPMD learner (``CollectiveExchange``, ROADMAP.md Queue 1
+item 15), which raises, naming the item.
 """
 from __future__ import annotations
 
@@ -75,7 +76,9 @@ from repro_torch.distributed.socket_transport import (CTRL_BYE,
                                                       KIND_CTRL, KIND_GRAD,
                                                       KIND_GRAD_MEAN,
                                                       KIND_HELLO)
-from repro_torch.distributed.supervise import KillSafeEvent
+from repro_torch.distributed.supervise import (KillSafeEvent, RestartPolicy,
+                                               Supervisor,
+                                               fold_restart_seed)
 
 PyTree = Any
 Address = Tuple[str, int]
@@ -185,19 +188,33 @@ class GradHub(GradientExchange):
     publish version). A flipped bit in a gradient frame is a loud
     ``SerdeError``, never a silently corrupted update.
 
-    ``start_round`` seeds the stale-round watermark: a resumed group at
-    version v passes ``v - 1``, so round v is reducible and nothing
-    older."""
+    ``hub_id`` is this hub's own learner id (nonzero after a failover
+    promotes a former spoke). ``start_round`` seeds the stale-round
+    watermark: a resumed group at version v, or a hub taking over at
+    round v, passes ``v - 1``, so round v is reducible and nothing older.
+    ``dead`` pre-marks learner ids known lost (the failed-over hub) so
+    rounds never wait on them; a reborn id that re-registers is
+    un-marked. ``hold_disconnected`` (supervised runs) keeps a
+    disconnected spoke in the round's wait set until the stale deadline
+    instead of excluding it: under supervision a vanished spoke is being
+    respawned, and a hub that raced through the remaining rounds alone
+    would finish and unbind before the reborn spoke redials."""
 
     def __init__(self, num_learners: int, *,
                  listen: Address = ("127.0.0.1", 0),
                  stale_after_s: float = 180.0,
                  stop_event: Optional[Any] = None,
                  wire_codec: str = serde.DEFAULT_CODEC,
-                 start_round: int = -1):
+                 hub_id: int = 0,
+                 start_round: int = -1,
+                 dead: Any = (),
+                 hold_disconnected: bool = False):
         if num_learners < 1:
             raise ValueError("num_learners must be >= 1")
-        self.learner_id = self.hub_id = 0
+        if not 0 <= hub_id < num_learners:
+            raise ValueError(f"hub_id must be in [0, {num_learners}), "
+                             f"got {hub_id}")
+        self.learner_id = self.hub_id = int(hub_id)
         self.num_learners = num_learners
         self.stale_after_s = stale_after_s
         # KIND_GRAD_MEAN broadcasts are encoded with this; spokes must
@@ -211,7 +228,8 @@ class GradHub(GradientExchange):
         self._contrib: Dict[int, Dict[int, List[np.ndarray]]] = {}
         self._done_round = int(start_round)
         self._spokes: Dict[int, FrameChannel] = {}
-        self._dead: set = set()
+        self._dead: set = {int(d) for d in dead} - {self.hub_id}
+        self._hold_disconnected = bool(hold_disconnected)
         self._mean_history: "collections.OrderedDict[int, bytes]" = \
             collections.OrderedDict()
         # telemetry
@@ -323,8 +341,13 @@ class GradHub(GradientExchange):
         chan.close()
         with self._cond:
             if self._spokes.get(lid) is chan:
-                # a vanished spoke is dead: rounds stop waiting for it
-                self._dead.add(lid)
+                # unsupervised, a vanished spoke is dead: rounds stop
+                # waiting for it. Supervised, it is being respawned: it
+                # stays in the wait set (the stale deadline still bounds
+                # every round), so the reborn spoke finds the hub alive,
+                # replays the means it missed and rejoins
+                if not self._hold_disconnected:
+                    self._dead.add(lid)
                 self._cond.notify_all()
 
     # ------------------------------------------------------------------
@@ -529,6 +552,15 @@ class SpokeExchange(GradientExchange):
             self._hub_gone = True
             self._cond.notify_all()
 
+    def abort_wait(self) -> None:
+        """Mark the hub lost from the outside (the supervision layer
+        learned of its death before TCP did): wakes a blocked
+        ``allreduce`` so failover can proceed instead of riding out the
+        reply timeout."""
+        with self._cond:
+            self._hub_gone = True
+            self._cond.notify_all()
+
     # ------------------------------------------------------------------
 
     def allreduce(self, leaves, round_idx):
@@ -611,6 +643,182 @@ class SpokeExchange(GradientExchange):
         with self._cond:
             self._cond.notify_all()
         self._reader.join(timeout=5.0)
+
+
+class ResilientExchange(GradientExchange):
+    """The self-healing wrapper a *supervised* group worker puts around
+    its exchange. The bare ``SpokeExchange`` keeps its fail-fast
+    contract (hub gone => RuntimeError) — this class is where that
+    error becomes a recoverable event:
+
+    * ``allreduce`` catches the hub-gone/timeout error and blocks
+      (bounded by ``failover_deadline_s``) for the parent's failover
+      verdict, delivered through the worker's control thread via
+      ``begin_failover`` / ``set_hub``.
+    * If THIS learner is the promoted one, it builds a new ``GradHub``
+      continuing at ``start_round = round_idx - 1`` (so the in-flight
+      round reduces on the new hub) with the dead hub pre-marked, and
+      reports the address via ``on_promoted`` (the worker ships it up
+      the pipe; the parent relays it to the surviving spokes).
+    * Otherwise it redials the relayed address as a fresh spoke and
+      retries the same round — the round number never skips, so the
+      group's monotonic version stream continues across the failover.
+    * Past the deadline it degrades to *solo* training: the mean of a
+      group of one, version ``round + 1`` continuity, and a loud
+      ``degraded_solo`` telemetry flag (``/healthz`` shows degraded).
+
+    Codec mismatches still raise (that is a config bug, not a fault).
+    """
+
+    def __init__(self, inner: GradientExchange, learner_id: int,
+                 num_learners: int, *,
+                 stop_event: Optional[Any] = None,
+                 failover_deadline_s: float = 20.0,
+                 stale_after_s: float = 180.0,
+                 wire_codec: str = serde.DEFAULT_CODEC,
+                 on_promoted=None,
+                 initial_dead: Any = ()):
+        self.learner_id = learner_id
+        self.num_learners = num_learners
+        self.wire_codec = serde.check_codec(wire_codec)
+        self._inner = inner
+        self._ext_stop = stop_event
+        self._stop = threading.Event()
+        self._cond = threading.Condition()
+        self._failover_deadline_s = failover_deadline_s
+        self._stale_after_s = stale_after_s
+        self._on_promoted = on_promoted
+        self._dead_ids = {int(d) for d in initial_dead}
+        self._promote = False
+        self._new_hub: Optional[Address] = None
+        self.failovers = 0
+        self.degraded_solo = False
+        self.solo_rounds = 0
+
+    # ------------------------------------------------------------------
+
+    def _stopped(self) -> bool:
+        return self._stop.is_set() or (
+            self._ext_stop is not None and self._ext_stop.is_set())
+
+    # control plane — called from the worker's parent-pipe reader thread
+
+    def begin_failover(self, new_hub_id: int,
+                       dead_id: Optional[int] = None) -> None:
+        """The parent named a new hub. Arm the swap and wake a blocked
+        allreduce (the inner spoke may not have noticed the death)."""
+        with self._cond:
+            if dead_id is not None:
+                self._dead_ids.add(int(dead_id))
+            self._promote = int(new_hub_id) == self.learner_id
+            self._new_hub = None
+            self._cond.notify_all()
+        poke = getattr(self._inner, "abort_wait", None)
+        if poke is not None:
+            poke()
+
+    def set_hub(self, addr: Address) -> None:
+        """The promoted hub's address arrived (relayed by the parent)."""
+        with self._cond:
+            self._new_hub = tuple(addr)
+            self._cond.notify_all()
+
+    # ------------------------------------------------------------------
+
+    def allreduce(self, leaves, round_idx):
+        while not self._stopped():
+            if self.degraded_solo:
+                # the mean of a group of one; version stream continues
+                self.solo_rounds += 1
+                return list(leaves), round_idx + 1
+            inner = self._inner
+            try:
+                out = inner.allreduce(leaves, round_idx)
+            except serde.CodecMismatchError:
+                raise               # config bug: never retried
+            except RuntimeError:
+                out = None          # hub gone / round evicted / timeout
+                if self._stopped():
+                    return None
+            else:
+                if out is not None:
+                    return out
+                if self._stopped():
+                    return None
+            if not self._swap(round_idx):
+                if self._stopped():
+                    return None
+                self.degraded_solo = True
+        return None
+
+    def _swap(self, round_idx: int) -> bool:
+        """Wait (bounded) for the failover verdict, then become the new
+        hub or redial it. False => deadline passed, caller degrades."""
+        try:
+            self._inner.close()
+        except Exception:
+            pass
+        deadline = time.monotonic() + self._failover_deadline_s
+        while not self._stopped():
+            with self._cond:
+                promote, addr = self._promote, self._new_hub
+                if not promote and addr is None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return False
+                    self._cond.wait(min(0.2, remaining))
+                    continue
+                self._promote = False
+                self._new_hub = None
+                dead = set(self._dead_ids)
+            if promote:
+                # ResilientExchange only exists in supervised runs, so a
+                # promoted hub always holds disconnected spokes for the
+                # respawner rather than writing them off
+                hub = GradHub(self.num_learners, hub_id=self.learner_id,
+                              start_round=round_idx - 1,
+                              stale_after_s=self._stale_after_s,
+                              stop_event=self._ext_stop,
+                              wire_codec=self.wire_codec,
+                              dead=dead, hold_disconnected=True)
+                self._inner = hub
+                self.failovers += 1
+                if self._on_promoted is not None:
+                    self._on_promoted(hub.address)
+                return True
+            try:
+                spoke = SpokeExchange(
+                    tuple(addr), self.learner_id, self.num_learners,
+                    stop_event=self._ext_stop,
+                    dial_timeout_s=max(1.0,
+                                       deadline - time.monotonic()),
+                    reply_timeout_s=max(60.0, 4 * self._stale_after_s),
+                    wire_codec=self.wire_codec)
+            except RuntimeError:
+                continue            # not up yet (or died again): wait on
+            self._inner = spoke
+            self.failovers += 1
+            return True
+        return False
+
+    # ------------------------------------------------------------------
+
+    def snapshot(self):
+        snap = self._inner.snapshot()
+        snap.update({
+            "resilient": True,
+            "learner_id": self.learner_id,
+            "failovers": self.failovers,
+            "degraded_solo": self.degraded_solo,
+            "solo_rounds": self.solo_rounds,
+        })
+        return snap
+
+    def close(self):
+        self._stop.set()
+        with self._cond:
+            self._cond.notify_all()
+        self._inner.close()
 
 
 # ---------------------------------------------------------------------------
@@ -767,32 +975,96 @@ def _learner_worker(learner_id: int, conn, stop_event,
     try:
         num_learners = int(spec["num_learners"])
         wire_codec = spec.get("wire_codec", serde.DEFAULT_CODEC)
+        supervise = bool(spec.get("supervise", False))
+        hub_id = int(spec.get("hub_id", 0))
         resume = spec.get("resume")
         start_step = int(resume["version"]) if resume is not None else 0
+        # publisher duty follows the hub (a promotion flips it mid-run)
+        state = {"publisher": learner_id == hub_id}
+        pend_dead: set = set()
         exchange = None
+
+        def _build_hub(dead=()):
+            return GradHub(num_learners, hub_id=learner_id,
+                           start_round=start_step - 1,
+                           stale_after_s=spec["stale_after_s"],
+                           stop_event=stop_event, wire_codec=wire_codec,
+                           dead=dead, hold_disconnected=supervise)
+
         if num_learners > 1 and start_step >= int(spec["steps"]):
             # resumed at its last version: no round is left, so no peer is
             # needed (a spoke would dial a hub that has already finished)
             exchange = NullExchange()
         elif num_learners > 1:
-            if learner_id == 0:
-                exchange = GradHub(num_learners, start_round=start_step - 1,
-                                   stale_after_s=spec["stale_after_s"],
-                                   stop_event=stop_event,
-                                   wire_codec=wire_codec)
+            if learner_id == hub_id:
+                exchange = _build_hub()
                 conn.send(("hub", list(exchange.address)))
             else:
-                msg = conn.recv()       # the parent relays the address
-                if msg[0] != "hub" or msg[1] is None:
-                    raise RuntimeError("no gradient-exchange hub address "
-                                       "(hub worker failed?)")
-                exchange = SpokeExchange(
-                    tuple(msg[1]), learner_id, num_learners,
-                    stop_event=stop_event,
-                    reply_timeout_s=max(600.0, 4 * spec["stale_after_s"]),
-                    wire_codec=wire_codec)
+                while exchange is None:
+                    msg = conn.recv()   # the parent relays the address
+                    if msg[0] == "failover" and supervise:
+                        # the hub died before it ever bound: the parent
+                        # re-elected before the start
+                        if len(msg) > 2 and msg[2] is not None:
+                            pend_dead.add(int(msg[2]))
+                        if int(msg[1]) == learner_id:
+                            hub_id = learner_id
+                            state["publisher"] = True
+                            exchange = _build_hub(dead=pend_dead)
+                            conn.send(("hub", list(exchange.address)))
+                        continue
+                    if msg[0] != "hub" or msg[1] is None:
+                        raise RuntimeError("no gradient-exchange hub "
+                                           "address (hub worker failed?)")
+                    exchange = SpokeExchange(
+                        tuple(msg[1]), learner_id, num_learners,
+                        stop_event=stop_event,
+                        reply_timeout_s=max(600.0,
+                                            4 * spec["stale_after_s"]),
+                        wire_codec=wire_codec)
         # num_learners == 1: no exchange at all; the worker then runs the
         # fused train step run_async_training runs
+
+        if supervise and isinstance(exchange, (GradHub, SpokeExchange)):
+            def _on_promoted(addr):
+                state["publisher"] = True
+                try:
+                    conn.send(("hub", list(addr)))
+                except (OSError, BrokenPipeError):
+                    pass
+
+            resilient = ResilientExchange(
+                exchange, learner_id, num_learners,
+                stop_event=stop_event,
+                failover_deadline_s=float(
+                    spec.get("failover_deadline_s", 20.0)),
+                stale_after_s=spec["stale_after_s"],
+                wire_codec=wire_codec, on_promoted=_on_promoted,
+                initial_dead=pend_dead)
+            exchange = resilient
+
+            def _control():
+                # after the handshake the parent sends only failover
+                # verdicts and relayed hub addresses; the main thread never
+                # recv()s again, so this thread owns the pipe's read side
+                while not stop_event.is_set():
+                    try:
+                        if not conn.poll(0.2):
+                            continue
+                        msg = conn.recv()
+                    except (EOFError, OSError):
+                        return
+                    if msg[0] == "failover":
+                        resilient.begin_failover(
+                            int(msg[1]),
+                            dead_id=(int(msg[2])
+                                     if len(msg) > 2 and
+                                     msg[2] is not None else None))
+                    elif msg[0] == "hub" and msg[1] is not None:
+                        resilient.set_hub(tuple(msg[1]))
+
+            threading.Thread(target=_control, name="group-control",
+                             daemon=True).start()
 
         import torch
 
@@ -840,13 +1112,15 @@ def _learner_worker(learner_id: int, conn, stop_event,
             peer_addrs=spec.get("peer_addrs"),
             wire_codec=wire_codec,
             vtrace_impl=spec.get("vtrace_impl", "auto"),
-            device=device)
+            supervise=supervise, device=device)
 
         tel_every = int(spec.get("telemetry_every", 0))
         tel_interval = float(spec.get("telemetry_interval_s", 0.0))
-        # the publisher's replica stands for all: they are identical
-        ckpt_every = int(spec.get("ckpt_every", 0)) if learner_id == 0 \
-            else 0
+        # the publisher's replica stands for all: they are identical.
+        # Every supervised worker keeps the cadence (a promotion may hand
+        # it publisher duty mid-run)
+        ckpt_every = (int(spec.get("ckpt_every", 0))
+                      if supervise or learner_id == hub_id else 0)
         ckpt_full = bool(spec.get("ckpt_full", False))
         last_tel = [time.monotonic()]
 
@@ -862,13 +1136,14 @@ def _learner_worker(learner_id: int, conn, stop_event,
                     conn.send(("telemetry", snapshot_fn()))
                 except (OSError, BrokenPipeError):
                     pass
-            if ckpt_every and step % ckpt_every == 0:
+            if ckpt_every and step % ckpt_every == 0 and \
+                    state["publisher"]:
                 host = learner._host_jax(params)
                 try:
                     if ckpt_full:
                         # a group checkpoint: params + optimizer state +
-                        # published version, what a resumed group starts
-                        # from
+                        # published version, what a respawned spoke or a
+                        # resumed group starts from
                         conn.send(("ckpt", step, int(learner.store.version),
                                    serde.encode_tree(host),
                                    serde.encode_tree(
@@ -901,7 +1176,7 @@ def _learner_worker(learner_id: int, conn, stop_event,
                 "shapes": {"vtrace": sorted(vk.vtrace.shapes),
                            "loss_vtrace": sorted(vk.loss_vtrace.shapes)}},
         }
-        if learner_id == 0:
+        if state["publisher"]:
             result["params"] = serde.encode_tree(host)
         conn.send(("result", result))
         status = 0
@@ -959,7 +1234,8 @@ def run_group_training(
     return_final_params: bool = False,
     obs=None,
     supervise: bool = False,
-    restart_policy=None,
+    restart_policy: Optional[RestartPolicy] = None,
+    failover_deadline_s: float = 20.0,
     ckpt_dir: Optional[str] = None,
     resume_from: Optional[str] = None,
     kernel_counts: Optional[Dict[int, Dict]] = None,
@@ -973,9 +1249,9 @@ def run_group_training(
     Every round each learner backward-passes one dynamic batch from its
     own transport, the gradients are mean-reduced over the framed
     channel, and every learner applies the same mean, so after round t
-    all replicas hold identical parameters published at version
-    ``t + 1`` (``v + t + 1`` when resumed at version ``v``) by delegation from the hub (learner 0, the
-    designated publisher). ``stale_after_s`` is the drop rule: a learner
+    all replicas hold identical parameters published at version ``t + 1``
+    (``v + t + 1`` when resumed at version ``v``) by delegation from the
+    hub (learner 0, the designated publisher). ``stale_after_s`` is the drop rule: a learner
     that misses the round deadline is left out of that round's mean
     (counted in ``group.stale_dropped``) but still receives and applies
     it. ``num_learners=1`` runs the same worker with no exchange: the
@@ -1000,8 +1276,20 @@ def run_group_training(
     ``obs.telemetry_interval_s``), and ``/metrics`` serves the
     ``merge_telemetry`` of the latest ones (a stub before the first),
     each learner's under a ``learner="k"`` label. The bound address lands
-    in ``obs.bound_address``. ``supervise`` and ``restart_policy`` raise
-    (ROADMAP.md, Queue 1 item 13: supervision).
+    in ``obs.bound_address``.
+
+    ``supervise=True`` turns faults into events: a spoke learner worker
+    that dies silently (SIGKILL, OOM) is respawned under
+    ``restart_policy``'s budget from the latest group checkpoint (or from
+    scratch), and catches up by applying the hub's replayed means through
+    the same ``apply_step``; a dead hub triggers failover: the lowest live
+    learner id is promoted, the survivors redial it, and the round and
+    version stream continue. A survivor that cannot rejoin within
+    ``failover_deadline_s`` degrades to solo training (``degraded_solo``).
+    The merged telemetry gains a ``supervisor`` section, and the group
+    section ``abandoned_learners`` (the failed-over hubs, whose actor
+    shards are lost). A supervised run streams full checkpoints, and
+    ``ckpt_dir`` saves them with the supervisor's ``restart_epochs``.
 
     Returns ``(tracker, last_metrics, merged_telemetry)``, shaped like
     ``run_async_training``'s triple with the telemetry merged by
@@ -1009,10 +1297,6 @@ def run_group_training(
     (host numpy tree, JAX layout) appended when
     ``return_final_params=True``.
     """
-    if supervise or restart_policy is not None:
-        raise NotImplementedError(
-            "a supervised learner group is not ported yet (ROADMAP.md, "
-            "Queue 1 item 13: supervision)")
     if not isinstance(env_name, str):
         raise ValueError("learner-group workers rebuild the env by "
                          "name; pass an env name, not an Env object")
@@ -1074,11 +1358,15 @@ def run_group_training(
              if obs is not None and obs.metrics_port is not None
              else 0.0)),
         "resume": resume_spec,
-        # full checkpoints (params + opt state) when they are saved to a
-        # directory a group can resume from
-        "ckpt_full": ckpt_dir is not None,
+        "hub_id": 0, "supervise": supervise,
+        "failover_deadline_s": failover_deadline_s,
+        # full checkpoints (params + opt state) whenever the parent needs
+        # restartable state: a directory a group can resume from, or a
+        # supervised run (respawns start from the latest one)
+        "ckpt_full": supervise or ckpt_dir is not None,
         "ckpt_every": (ckpt_every if (on_checkpoint is not None or
-                                      ckpt_dir is not None) else 0),
+                                      supervise or ckpt_dir is not None)
+                       else 0),
         # the workers take the caller's intra-op thread count
         "num_threads": torch.get_num_threads(),
         "device": str(device),
@@ -1101,12 +1389,22 @@ def run_group_training(
         procs.append(p)
         p.start()
         child_conn.close()
+    all_procs: List[mp.process.BaseProcess] = list(procs)
 
     results: Dict[int, Dict] = {}
     errors: List[str] = []
     latest_tel: Dict[int, Dict] = {}
     hub_sent = False
     live = set(range(num_learners))
+
+    # supervision state
+    sup = Supervisor(restart_policy) if supervise else None
+    current_hub = 0                     # publisher duty follows it
+    hub_addr: Optional[List] = None
+    failover_pending = False
+    pending_respawn: Dict[int, Any] = {}    # k -> RestartDecision
+    abandoned: set = set()              # hub ids lost to failover
+    latest_ckpt: Optional[Dict[str, Any]] = None
 
     server = None
     if obs is not None and obs.metrics_port is not None:
@@ -1115,10 +1413,15 @@ def run_group_training(
         def group_snapshot() -> Dict[str, Any]:
             tels = dict(latest_tel)
             if not tels:        # nothing shipped yet: a stub, not a 500
-                return {"group": {"num_learners": num_learners,
-                                  "publisher": 0, "stale_dropped": 0,
+                snap = {"group": {"num_learners": num_learners,
+                                  "publisher": current_hub,
+                                  "stale_dropped": 0,
                                   "awaiting_first_telemetry": True}}
-            return merge_telemetry(tels, publisher=0)
+            else:
+                snap = merge_telemetry(tels, publisher=current_hub)
+            if sup is not None:
+                snap["supervisor"] = sup.snapshot()
+            return snap
 
         server = MetricsServer(group_snapshot, host=obs.metrics_host,
                                port=obs.metrics_port).start()
@@ -1135,13 +1438,18 @@ def run_group_training(
             except (OSError, BrokenPipeError):
                 pass
 
-    def _save_group_ckpt(step: int, ckpt: Dict[str, Any]) -> None:
+    def _save_group_ckpt(step: int) -> None:
+        if not ckpt_dir or latest_ckpt is None:
+            return
         from repro_torch.checkpoint import checkpoint as ckpt_lib
-        tree = {"params": serde.decode_tree(ckpt["params"], copy=True)[0],
-                "opt": serde.decode_tree(ckpt["opt"], copy=True)[0]}
-        ckpt_lib.save(ckpt_dir, step, tree,
-                      extra={"version": ckpt["version"],
-                             "format": "fleet-v1"})
+        tree = {"params": serde.decode_tree(latest_ckpt["params"],
+                                            copy=True)[0],
+                "opt": serde.decode_tree(latest_ckpt["opt"],
+                                         copy=True)[0]}
+        extra = {"version": latest_ckpt["version"], "format": "fleet-v1"}
+        if sup is not None:
+            extra["restart_epochs"] = sup.restart_epochs()
+        ckpt_lib.save(ckpt_dir, step, tree, extra=extra)
 
     def _fail(msg: str) -> None:
         nonlocal hub_sent
@@ -1151,32 +1459,115 @@ def run_group_training(
             hub_sent = True
             _relay_hub(None)
 
+    def _handle_death(k: int) -> None:
+        """A worker died silently (no error message: SIGKILL, OOM).
+        Supervised, that is an event (failover for the hub, respawn for a
+        spoke), not an error that ends the run."""
+        nonlocal current_hub, failover_pending
+        if sup is None:
+            _fail(f"learner worker {k} exited with code "
+                  f"{procs[k].exitcode} before reporting")
+            return
+        if k == current_hub:
+            survivors = sorted(live)
+            if not survivors:
+                _fail(f"hub learner {k} died with no survivors to "
+                      f"promote")
+                return
+            # hub failover: promote the lowest live learner id; the dead
+            # hub's actor shard is lost (graceful degradation), the round
+            # and version stream continue on the new hub
+            abandoned.add(k)
+            sup.record_failover()
+            current_hub = survivors[0]
+            failover_pending = True
+            for j in survivors:
+                try:
+                    conns[j].send(("failover", current_hub, k))
+                except (OSError, BrokenPipeError):
+                    pass
+        else:
+            decision = sup.record_death(f"learner-{k}")
+            if decision is None:
+                _fail(f"learner worker {k} died over its restart budget "
+                      f"({sup.policy.max_restarts} per "
+                      f"{sup.policy.window_s:.0f}s)")
+                return
+            pending_respawn[k] = decision
+
+    def _maybe_respawn() -> None:
+        now = time.monotonic()
+        for k in [k for k, d in pending_respawn.items()
+                  if d.not_before <= now]:
+            d = pending_respawn.pop(k)
+            respec = dict(spec)
+            respec["hub_id"] = current_hub
+            if latest_ckpt is not None:
+                # restart from the latest group checkpoint; the hub's
+                # mean-replay history carries it from that version to the
+                # group's current round
+                respec["resume"] = dict(latest_ckpt)
+                # new RNG streams for the reborn actors, but only when the
+                # params come from a checkpoint: a respawn from scratch
+                # must re-derive the identical replica (same init, same
+                # means), so its seed stays
+                respec["seed"] = fold_restart_seed(seed, d.epoch)
+            parent_conn, child_conn = ctx.Pipe()
+            p = ctx.Process(target=_learner_worker,
+                            args=(k, child_conn, stop, respec),
+                            name=f"learner-{k}-r{d.epoch}")
+            conns[k] = parent_conn
+            procs[k] = p
+            all_procs.append(p)
+            p.start()
+            child_conn.close()
+            live.add(k)
+            sup.note_restarted(f"learner-{k}")
+            # mid-failover the only known address is the dead hub's; the
+            # reborn spoke then waits for the relayed new one
+            if hub_addr is not None and not failover_pending:
+                try:
+                    parent_conn.send(("hub", hub_addr))
+                except (OSError, BrokenPipeError):
+                    pass
+
+    def _on_worker_gone(k: int) -> None:
+        live.discard(k)
+        if k in results or errors:
+            return
+        _handle_death(k)
+
     try:
-        while live:
+        while live or pending_respawn:
+            _maybe_respawn()
             ready = mp_connection.wait([conns[k] for k in live],
-                                       timeout=0.5)
+                                       timeout=0.2 if pending_respawn
+                                       else 0.5)
             if not ready:
                 for k in list(live):
                     if procs[k].exitcode is not None:
-                        live.discard(k)
-                        if k not in results and not errors:
-                            _fail(f"learner worker {k} exited with code "
-                                  f"{procs[k].exitcode} before reporting")
+                        _on_worker_gone(k)
                 continue
             for conn in ready:
                 k = conns.index(conn)
                 try:
                     msg = conn.recv()
                 except (EOFError, OSError):
-                    live.discard(k)
-                    if k not in results and not errors:
+                    if k not in results and sup is None and not errors:
                         _fail(f"learner worker {k} died without "
                               f"reporting (pipe EOF)")
+                        live.discard(k)
+                    else:
+                        _on_worker_gone(k)
                     continue
                 tag = msg[0]
                 if tag == "hub":
                     hub_sent = True
+                    hub_addr = msg[1]
                     _relay_hub(msg[1], exclude={k})
+                    if failover_pending:
+                        failover_pending = False
+                        sup.note_failover_done()
                 elif tag == "telemetry":
                     # the latest snapshot feeds the group's /metrics;
                     # on_progress(learner_id, snapshot) is the live-logging
@@ -1190,15 +1581,15 @@ def run_group_training(
                             msg[1],
                             serde.decode_tree(msg[2], copy=True)[0])
                 elif tag == "ckpt":
-                    # (step, version, params, opt state)
+                    # (step, version, params, opt state): the respawn
+                    # source and the disk save
+                    latest_ckpt = {"params": msg[3], "opt": msg[4],
+                                   "version": int(msg[2])}
                     if on_checkpoint is not None:
                         on_checkpoint(
                             msg[1],
                             serde.decode_tree(msg[3], copy=True)[0])
-                    if ckpt_dir is not None:
-                        _save_group_ckpt(int(msg[1]), {
-                            "params": msg[3], "opt": msg[4],
-                            "version": int(msg[2])})
+                    _save_group_ckpt(int(msg[1]))
                 elif tag == "error":
                     _fail(f"learner worker {msg[1]}:\n{msg[2]}")
                     live.discard(k)
@@ -1211,9 +1602,9 @@ def run_group_training(
         if errors:
             stop.set()
         deadline = time.monotonic() + _JOIN_TIMEOUT_S
-        for p in procs:
+        for p in all_procs:
             p.join(max(0.1, deadline - time.monotonic()))
-        for p in procs:
+        for p in all_procs:
             if p.is_alive():                # no orphans, ever
                 p.terminate()
                 p.join(timeout=5.0)
@@ -1225,8 +1616,9 @@ def run_group_training(
 
     if errors:
         raise RuntimeError("learner group failed:\n" + errors[0])
-    if set(results) != set(range(num_learners)):
-        missing = sorted(set(range(num_learners)) - set(results))
+    expected = set(range(num_learners)) - abandoned
+    if not expected <= set(results):
+        missing = sorted(expected - set(results))
         raise RuntimeError(f"learner worker(s) {missing} produced no "
                            f"result")
 
@@ -1244,11 +1636,16 @@ def run_group_training(
                    "param_digests": digests,
                    "replicas_identical": len(set(digests.values())) == 1,
                    "transport": transport}
+    if abandoned:
+        group_extra["abandoned_learners"] = sorted(abandoned)
     telemetry = merge_telemetry(
         {k: r["telemetry"] for k, r in results.items()},
-        publisher=0, group_extra=group_extra)
-    metrics = results[0]["metrics"]
+        publisher=current_hub, group_extra=group_extra)
+    if sup is not None:
+        telemetry["supervisor"] = sup.snapshot()
+    metrics = results[current_hub]["metrics"]
     if return_final_params:
-        params, _meta = serde.decode_tree(results[0]["params"], copy=True)
+        params, _meta = serde.decode_tree(results[current_hub]["params"],
+                                          copy=True)
         return tracker, metrics, telemetry, params
     return tracker, metrics, telemetry

@@ -660,6 +660,11 @@ class Learner:
             snap["learner_id"] = self.learner_id
             snap["slot_base"] = self.slot_base
             snap["exchange"] = col.get("exchange", self._exchange.snapshot())
+        if "supervisor" in col:
+            # supervised only: the restart/failover/lease-reap counts ride
+            # the snapshot (and the group parent's merge); unsupervised
+            # runs keep the pinned key set
+            snap["supervisor"] = col["supervisor"]
         if self._phase_timing:
             # only with the flight recorder on: without it the key set
             # stays the JAX package's pinned one

@@ -31,9 +31,14 @@ thread pool's meaning, except that ``frames`` counts trajectories that
 Shutdown: set the shared stop flag; children leave their loops (wire
 puts and param pulls poll it); join with a deadline; ``terminate()``
 stragglers, so no child outlives the run. A child that fails reports its
-traceback and fails the run: there is no fallback to thread actors, and
-supervised respawns are not ported yet (ROADMAP.md, Queue 1 item 13:
-supervision).
+traceback and fails the run: there is no fallback to thread actors.
+
+Supervised (``attach_supervisor``), a child that dies without reporting
+an error (SIGKILL, preemption, OOM) is respawned on the learner's next
+``raise_errors`` call, on the same global slot with the restart epoch
+folded into its seed. Like the first child it acts on the CPU and holds
+no CUDA context. A reported traceback is a code bug and still fails the
+run.
 """
 from __future__ import annotations
 
@@ -41,20 +46,24 @@ import multiprocessing as mp
 import threading
 import time
 from multiprocessing import connection as mp_connection
-from typing import List
+from typing import Dict, List, Optional
 
 from repro_torch.distributed.actor_pool import PoolAccounting
 from repro_torch.distributed.paramstore import ParameterStore
 from repro_torch.distributed.runner import (inference_actor_main,
                                             process_actor_main)
 from repro_torch.distributed.serde import TrajectoryItem
-from repro_torch.distributed.supervise import KillSafeEvent
+from repro_torch.distributed.supervise import (KillSafeEvent, Supervisor,
+                                               fold_restart_seed)
 from repro_torch.distributed.transport import ShmTransport
 
 
 class _SpawnedPool(PoolAccounting):
     """What both pools share: the stop flag, the children, joining them
-    with ``terminate()`` for stragglers, and arrival accounting."""
+    with ``terminate()`` for stragglers, arrival accounting and the
+    supervised respawn of silently dead children (``_heal``)."""
+
+    _key_prefix = "?"           # the supervisor's key: f"{prefix}-{slot}"
 
     def _init_pool(self, env_name, num_envs: int, num_actors: int,
                    store: ParameterStore, transport, seed: int, icfg,
@@ -75,6 +84,10 @@ class _SpawnedPool(PoolAccounting):
         self._stop = KillSafeEvent(self._ctx)
         self._procs: List[mp.process.BaseProcess] = []
         self.errors: List[str] = []             # child tracebacks
+        # supervised respawn (attach_supervisor)
+        self._supervisor: Optional[Supervisor] = None
+        self._live: Dict[int, mp.process.BaseProcess] = {}  # idx -> child
+        self._respawns: Dict[str, tuple] = {}   # key -> (idx, decision)
         self._init_accounting(num_actors, num_envs * icfg.unroll_length,
                               slot_base)
         transport.on_item = self._note_arrival
@@ -102,6 +115,9 @@ class _SpawnedPool(PoolAccounting):
                                + self.errors[0])
         if self._stop.is_set():
             return
+        if self._supervised():
+            self._heal()
+            return
         # a child that crashed before it could report (import error, OOM
         # kill) must not leave the learner polling forever
         for p in self._procs:
@@ -110,9 +126,45 @@ class _SpawnedPool(PoolAccounting):
                     f"actor process {p.name} exited with code "
                     f"{p.exitcode} before reporting an error")
 
+    def attach_supervisor(self, supervisor: Supervisor) -> None:
+        """Opt into supervised respawn of children that die without
+        reporting an error (same global slot, restart epoch folded into
+        the seed)."""
+        self._supervisor = supervisor
+
+    def _supervised(self) -> bool:
+        return self._supervisor is not None
+
+    def _heal(self) -> None:
+        """Respawn silently dead children under the restart policy.
+        Non-blocking: called from the learner loop, so backoff waits ride
+        the loop. A dead child reported no error (``raise_errors`` raised
+        otherwise): SIGKILL, preemption or OOM, the faults a fleet must
+        absorb."""
+        sup = self._supervisor
+        for i, p in list(self._live.items()):
+            if p.exitcode is None or p.exitcode == 0:
+                continue
+            del self._live[i]
+            key = f"{self._key_prefix}-{self.slot_base + i}"
+            decision = sup.record_death(key)
+            if decision is None:
+                raise RuntimeError(
+                    f"actor process {p.name} exited with code "
+                    f"{p.exitcode}; restart budget exhausted")
+            self._respawns[key] = (i, decision)
+        now = time.monotonic()
+        due = [k for k, (_i, d) in self._respawns.items()
+               if d.not_before <= now]
+        for key in due:
+            i, decision = self._respawns.pop(key)
+            self._spawn_child(i, decision.epoch)
+            sup.note_restarted(key)
+
 
 class ProcessActorPool(_SpawnedPool):
     backend = "process"
+    _key_prefix = "proc"
 
     def __init__(self, env_name: str, arch_cfg, icfg, num_envs: int,
                  num_actors: int, store: ParameterStore,
@@ -132,6 +184,7 @@ class ProcessActorPool(_SpawnedPool):
         self._init_pool(env_name, num_envs, num_actors, store, transport,
                         seed, icfg, slot_base)
         self._conns = []                        # parent ends of pipes
+        self._conn_lock = threading.Lock()      # respawns append live
         self._arch_cfg = arch_cfg
         self._icfg = icfg
         self.service = service
@@ -148,9 +201,15 @@ class ProcessActorPool(_SpawnedPool):
     def _serve_params(self) -> None:
         dead: set = set()
         while True:
-            conns = [c for c in self._conns if c not in dead]
+            # re-read the pipes each pass: a supervised respawn appends a
+            # new one mid-run and it must be served
+            with self._conn_lock:
+                conns = [c for c in self._conns if c not in dead]
             if not conns:
-                break                   # every child is gone
+                if self._supervisor is None or self._stop.is_set():
+                    break               # every child is gone
+                time.sleep(0.05)
+                continue                # supervised: a respawn may repopulate
             for conn in mp_connection.wait(conns, timeout=0.2):
                 try:
                     msg = conn.recv()
@@ -175,9 +234,17 @@ class ProcessActorPool(_SpawnedPool):
                     p.is_alive() for p in self._procs):
                 break
 
-    def _spawn_child(self, i: int):
+    def _supervised(self) -> bool:
+        # inference children are not respawned: their reply pipes are
+        # registered with the frontend once, at start
+        return self._supervisor is not None and self._frontend is None
+
+    def _spawn_child(self, i: int, epoch: int = 0):
         parent_conn, child_conn = self._ctx.Pipe()
-        self._conns.append(parent_conn)
+        with self._conn_lock:
+            self._conns.append(parent_conn)
+        seed = fold_restart_seed(self.seed, epoch)
+        producer = self.queue.producer()     # the child's own channel
         clients = None
         if self._frontend is not None:
             # frontend client ids stay pool-local (the service is the
@@ -186,20 +253,22 @@ class ProcessActorPool(_SpawnedPool):
                        for s in range(self.infer_streams)]
             target, args = inference_actor_main, (
                 self.slot_base + i, self.env_name, self._arch_cfg,
-                self._icfg, self.num_envs, self.seed,
-                self.queue.producer(), clients, child_conn, self._stop,
+                self._icfg, self.num_envs, seed,
+                producer, clients, child_conn, self._stop,
                 self.queue.wire_codec)
         else:
             target, args = process_actor_main, (
                 self.slot_base + i, self.env_name, self._arch_cfg,
-                self._icfg, self.num_envs, self.seed,
-                self.queue.producer(), child_conn, self._stop,
+                self._icfg, self.num_envs, seed,
+                producer, child_conn, self._stop,
                 self.queue.wire_codec)
         p = self._ctx.Process(target=target, args=args,
                               name=f"actor-proc-{i}", daemon=True)
         self._procs.append(p)
+        self._live[i] = p
         p.start()
         child_conn.close()              # the parent keeps only its end
+        producer.close()                # ditto: its exit reads as EOF
         for c in clients or ():
             c.close()                   # ditto for the reply recv-ends
 
@@ -250,6 +319,7 @@ class SocketActorPool(_SpawnedPool):
     machines run ``launch.train --connect host:port``."""
 
     backend = "remote"
+    _key_prefix = "remote"
 
     def __init__(self, env_name: str, arch_cfg, icfg, num_envs: int,
                  num_actors: int, store: ParameterStore, transport,
@@ -283,17 +353,30 @@ class SocketActorPool(_SpawnedPool):
         self.errors.append(text)
         self.queue.close()                  # wake the learner
 
+    def _supervised(self) -> bool:
+        # truly remote actors are an operator's to relaunch: the reaper
+        # only frees their lease
+        return self._supervisor is not None and self.spawn_local
+
+    def _spawn_child(self, i: int, epoch: int = 0):
+        """Spawn loopback child ``i``. A respawn dials in with a fresh
+        nonce; the transport hands it the dead slot and bumps the slot's
+        restart epoch, which the CONFIG handshake folds into the seed
+        (so ``epoch`` is not passed here)."""
+        from repro_torch.distributed.netserve import remote_actor_child
+        p = self._ctx.Process(
+            target=remote_actor_child,
+            args=(tuple(self.queue.address), self._stop),
+            name=f"actor-remote-{i}", daemon=True)
+        self._procs.append(p)
+        self._live[i] = p
+        p.start()
+
     def start(self) -> None:
         if not self.spawn_local:
             return                      # remote machines dial in
-        from repro_torch.distributed.netserve import remote_actor_child
         for i in range(self.num_actors):
-            p = self._ctx.Process(
-                target=remote_actor_child,
-                args=(tuple(self.queue.address), self._stop),
-                name=f"actor-remote-{i}", daemon=True)
-            self._procs.append(p)
-            p.start()
+            self._spawn_child(i)
 
     def stop(self) -> None:
         self._stop.set()

@@ -43,9 +43,11 @@ timing, sampled trajectory traces, the ``torch.profiler`` window, the
 
 Ported: the three actor backends in unroll and inference mode, the
 three transports with their wire codecs, one learner or a group's
-worker, replay, periodic fleet-v1 checkpoints and the flight recorder;
-no SPMD learner and no supervision. Every other value of the JAX
-runtime's options raises, naming its ROADMAP.md Queue 1 item.
+worker, replay, periodic fleet-v1 checkpoints, the flight recorder and
+supervision (``supervise``: respawned actors, the socket transport's
+heartbeat lease reaper and elastic membership, the supervisor's section
+in the telemetry); no SPMD learner, which raises naming its ROADMAP.md
+Queue 1 item.
 """
 from __future__ import annotations
 
@@ -151,6 +153,10 @@ def _setup(
     exchange=None,
     peer_addrs=None,
     obs=None,
+    supervise: bool = False,
+    supervisor=None,
+    heartbeat_timeout_s: float = 10.0,
+    elastic: bool = False,
     device="cuda",
 ) -> Learner:
     """Build one learner worker's dependency graph (env, params, train
@@ -167,7 +173,14 @@ def _setup(
 
     ``obs`` (an ``ObsConfig``) turns on the learner's side of the flight
     recorder: phase timing, the trace recorder (with ``trace_path``) and
-    the ``torch.profiler`` window (with ``profile_steps``)."""
+    the ``torch.profiler`` window (with ``profile_steps``).
+
+    ``supervise`` (or a ``supervisor`` of the caller's, as a group worker
+    passes) turns on supervision: the pools respawn dead actors, the
+    socket transport reaps leases silent for ``heartbeat_timeout_s`` and,
+    with ``elastic``, grows slots past ``num_actors``, and the
+    supervisor's ledger joins the telemetry. Without it every fault
+    propagates as before."""
     _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
               transport, env_name, spmd_devices=spmd_devices)
     env = make_env(env_name) if isinstance(env_name, str) else env_name
@@ -197,6 +210,13 @@ def _setup(
         initial_opt_state=initial_opt_state, exchange=exchange,
         wire_codec=wire_codec, vtrace_impl=vtrace_impl, trace=trace,
         phase_timing=phase_timing, profile=profile, device=device)
+    if supervisor is None and supervise:
+        from repro_torch.distributed.supervise import Supervisor
+        supervisor = Supervisor()
+    learner.supervisor = supervisor
+    if supervisor is not None:
+        learner.obs_registry.register_producer("supervisor",
+                                               supervisor.snapshot)
     service = None
     if actor_mode == "inference":
         from repro_torch.core.replay import fold_replay_seed
@@ -230,8 +250,15 @@ def _setup(
         transport_kw.update({"listen": listen_addr or ("127.0.0.1", 0),
                              "max_actors": num_actors,
                              "slot_base": slot_base})
+        if supervisor is not None:
+            # heartbeat liveness, lease reaping and elastic membership
+            # belong to the networked transport only
+            transport_kw["heartbeat_timeout_s"] = heartbeat_timeout_s
+            transport_kw["elastic"] = elastic
     queue = make_transport(transport, queue_capacity, queue_policy,
                            **transport_kw)
+    if supervisor is not None and hasattr(queue, "supervisor"):
+        queue.supervisor = supervisor
     learner.queue = queue
     env_name = env_name if isinstance(env_name, str) else env.name
     if actor_backend == "remote":
@@ -258,20 +285,26 @@ def _setup(
         pool = ActorPool(env, arch, icfg, num_envs, num_actors,
                          learner.store, queue, seed=seed, service=service,
                          slot_base=slot_base, device=learner.device)
+    if supervisor is not None:
+        pool.attach_supervisor(supervisor)
     learner.attach(pool, service)
     return learner
 
 
-def fleet_checkpointer(ckpt_dir: str) -> Callable:
+def fleet_checkpointer(ckpt_dir: str, supervisor=None) -> Callable:
     """``Learner.run``'s ``on_checkpoint`` for ``ckpt_dir``: it saves the
     combined tree ``{"params", "opt"}`` with ``extra={"version",
     "format": "fleet-v1"}``, so a resumed run restores the optimizer
-    moments and continues the version stream."""
+    moments and continues the version stream. Supervised, ``extra`` also
+    holds the supervisor's ``restart_epochs``."""
     from repro_torch.checkpoint import checkpoint as ckpt_lib
 
     def on_ckpt(step, params, opt_state, version):
+        extra = {"version": int(version), "format": "fleet-v1"}
+        if supervisor is not None:
+            extra["restart_epochs"] = supervisor.restart_epochs()
         ckpt_lib.save(ckpt_dir, step, {"params": params, "opt": opt_state},
-                      extra={"version": int(version), "format": "fleet-v1"})
+                      extra=extra)
     return on_ckpt
 
 
@@ -317,10 +350,13 @@ def run_async_training(
     on ``device`` (the card unless the caller asks for the CPU).
 
     The signature and defaults are the JAX runtime's, plus ``device``.
-    ``heartbeat_timeout_s`` and ``elastic`` belong to supervision
-    (ROADMAP.md, Queue 1 item 13: supervision): the first is accepted
-    and unused, as on the reference's unsupervised path, and
-    ``elastic=True`` raises; so does ``supervise``, naming the item.
+    ``supervise=True`` absorbs actor deaths: thread, process and remote
+    actors are respawned under a ``Supervisor``'s restart budget, with
+    the restart epoch folded into their seed; over the socket transport
+    a lease silent for ``heartbeat_timeout_s`` is reaped and, with
+    ``elastic``, actors past ``num_actors`` get new slots. The telemetry
+    gains a ``supervisor`` section. Unsupervised, ``heartbeat_timeout_s``
+    and ``elastic`` are unused, as in the reference.
 
     ``actor_backend`` picks where actors live and ``transport`` how
     trajectories travel: ``thread`` actors over ``inproc`` (live trees)
@@ -357,9 +393,8 @@ def run_async_training(
 
     ``ckpt_dir`` with ``ckpt_every > 0`` saves the combined tree
     ``{"params", "opt"}`` (JAX layout) every ``ckpt_every`` updates, with
-    ``extra={"version", "format": "fleet-v1"}``. The restart epochs of a
-    supervised run join with supervision (ROADMAP.md, Queue 1 item 13:
-    supervision).
+    ``extra={"version", "format": "fleet-v1"}``, and supervised also
+    ``restart_epochs``.
 
     ``warm_buckets=True`` runs one throwaway update per batch bucket
     before the timed region. ``batch_linger_s`` is the learner's flush
@@ -381,11 +416,6 @@ def run_async_training(
     metrics, snapshot_fn)``, where ``params`` is the published tree and
     ``snapshot_fn`` a zero-argument callable producing the telemetry.
     """
-    del heartbeat_timeout_s
-    if elastic:
-        raise _unported("elastic membership", 13, "supervision")
-    if supervise:
-        raise _unported("supervise", 13, "supervision")
     learner = _setup(
         env_name, icfg, num_envs,
         num_actors=num_actors, actor_backend=actor_backend,
@@ -399,7 +429,9 @@ def run_async_training(
         infer_flush_timeout_s=infer_flush_timeout_s,
         infer_max_batch_requests=infer_max_batch_requests,
         infer_streams=infer_streams, listen_addr=listen_addr,
-        spawn_remote=spawn_remote, obs=obs, device=device)
+        spawn_remote=spawn_remote, obs=obs, supervise=supervise,
+        heartbeat_timeout_s=heartbeat_timeout_s, elastic=elastic,
+        device=device)
     server = sink = None
     prev_trace_env = None
     trace_env_set = False
@@ -422,7 +454,7 @@ def run_async_training(
             prev_trace_env = os.environ.get("REPRO_TRACE_EVERY")
             os.environ["REPRO_TRACE_EVERY"] = str(max(1, obs.trace_every))
             trace_env_set = True
-    on_ckpt = (fleet_checkpointer(ckpt_dir)
+    on_ckpt = (fleet_checkpointer(ckpt_dir, learner.supervisor)
                if ckpt_dir and ckpt_every > 0 else None)
     try:
         metrics, final_telemetry = learner.run(

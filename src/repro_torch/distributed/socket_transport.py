@@ -46,9 +46,14 @@ Failure discipline (what the chaos suite pins down):
 
 A learner group's shard map (``peer_addrs``: every learner's listen
 address) rides the CONFIG handshake and a full learner's refusal, and a
-refused client spills to a learner it has not tried. Not ported yet: the
-heartbeat lease reaper and elastic membership (ROADMAP.md, Queue 1 item
-13). Asking for them raises, naming the item.
+refused client spills to a learner it has not tried.
+
+Supervision: with ``heartbeat_timeout_s`` the CONFIG handshake asks each
+actor to beacon on its ctrl link every third of the deadline
+(``SocketActorClient._heartbeat_loop``), and a reaper thread revokes the
+slot lease of any actor silent past it, so the slot can be reclaimed at
+once. With ``elastic`` a dialer finding every slot held by a live actor
+gets a new slot past ``max_actors`` instead of a refusal.
 """
 from __future__ import annotations
 
@@ -310,13 +315,21 @@ class SocketTransport:
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}, got "
                              f"{policy!r}")
-        if heartbeat_timeout_s is not None or elastic:
-            raise NotImplementedError(
-                "the heartbeat lease reaper and elastic membership are not "
-                "ported yet (ROADMAP.md, Queue 1 item 13: supervision)")
         self.capacity = capacity
         self.policy = policy
-        self.elastic = False
+        # liveness: when set, the CONFIG handshake asks actors to
+        # heartbeat on ctrl (timeout/3 cadence) and a reaper thread
+        # expires the slot lease of any actor silent past the deadline,
+        # so its slot is reclaimable at once. None keeps the unsupervised
+        # behaviour: leases move only when a relaunched actor claims a
+        # dead slot
+        self.heartbeat_timeout_s = heartbeat_timeout_s
+        # elastic membership: a dialer finding every slot held by a LIVE
+        # actor gets a new slot past ``max_actors`` instead of a refusal;
+        # ``on_slot_grown`` fires (outside the slot lock)
+        self.elastic = elastic
+        self.on_slot_grown: Optional[Callable[[int], None]] = None
+        self.supervisor = None          # optional supervise.Supervisor
         # the run's wire codec: announced in the CONFIG handshake so
         # every actor encodes the way this learner expects (a peer that
         # doesn't speak it refuses loudly at connect, never mid-run)
@@ -396,6 +409,12 @@ class SocketTransport:
                                           name="socket-accept",
                                           daemon=True)
         self._acceptor.start()
+        self._reaper: Optional[threading.Thread] = None
+        if heartbeat_timeout_s is not None:
+            self._reaper = threading.Thread(target=self._reap_loop,
+                                            name="socket-reaper",
+                                            daemon=True)
+            self._reaper.start()
 
     # ------------------------------------------------------------------
     # eviction attribution passes straight through to the local queue
@@ -451,6 +470,44 @@ class SocketTransport:
                 self._threads.append(t)
             t.start()
 
+    def _reap_loop(self) -> None:
+        """Deadline-based liveness: expire the slot lease of any actor
+        silent past ``heartbeat_timeout_s``. The lease (nonce ownership)
+        is what a reap revokes; the slot stays, with its accounting, for
+        the next claimant, and a reaped actor that was merely wedged finds
+        its redial refused (stale nonce) and exits visibly."""
+        timeout = self.heartbeat_timeout_s
+        poll = min(1.0, timeout / 4.0)
+        while not self._stop.wait(poll):
+            if self._discard:
+                continue
+            now = time.monotonic()
+            reaped: List[int] = []
+            with self._lock:
+                for slot in self._slots.values():
+                    live = ((slot.ctrl is not None and not slot.ctrl.dead)
+                            or (slot.data is not None
+                                and not slot.data.dead))
+                    if not (live or slot.owner_nonce is not None):
+                        continue            # nothing to reap
+                    if now - slot.last_seen <= timeout:
+                        continue
+                    for k in [k for k, v in self._slot_by_nonce.items()
+                              if v is slot]:
+                        del self._slot_by_nonce[k]
+                    slot.owner_nonce = None
+                    slot.lease_reaps += 1
+                    self._c_lease_reaps.inc()
+                    reaped.append(slot.actor_id)
+                chans = [c for s in self._slots.values()
+                         if s.actor_id in reaped
+                         for c in (s.ctrl, s.data) if c is not None]
+            for chan in chans:      # close outside the slot lock
+                chan.close()
+            if self.supervisor is not None:
+                for actor_id in reaped:
+                    self.supervisor.record_lease_reap(f"slot-{actor_id}")
+
     def _conn_entry(self, sock: socket.socket) -> None:
         chan = FrameChannel(sock)
         deadline = time.monotonic() + 5.0
@@ -497,6 +554,10 @@ class SocketTransport:
                 cfg = {"actor_id": slot.actor_id,
                        "data_buf": self.data_buf_bytes,
                        "wire_codec": self.wire_codec}
+                if self.heartbeat_timeout_s is not None:
+                    # beacons at a third of the reap deadline: two missed
+                    # beats of slack before the lease expires
+                    cfg["heartbeat_s"] = self.heartbeat_timeout_s / 3.0
                 if self.peer_addrs is not None:
                     # the group's shard map: every learner's listen
                     # address, the whole topology in one handshake
@@ -538,7 +599,9 @@ class SocketTransport:
               nonce: Optional[str] = None) -> Optional[_ActorSlot]:
         if role not in ("ctrl", "data"):
             return None
+        grew = False
         with self._lock:
+            next_before = self._next_id
             if actor_id < 0:
                 if role != "ctrl":
                     return None         # data conns must name their actor
@@ -577,8 +640,10 @@ class SocketTransport:
                             # must not replay its predecessor's stream
                             slot.epoch += 1
                             break
-                    if slot is None:
+                    if slot is None and not self.elastic:
                         return None     # every slot has a live actor
+                    # elastic membership: every slot has a live actor, so
+                    # grow: a new global id past the ceiling
                 if slot is None:
                     actor_id = self._next_id
                     self._next_id += 1
@@ -613,6 +678,15 @@ class SocketTransport:
                 old.close()
             setattr(slot, role, chan)
             slot.last_seen = time.monotonic()
+            grew = (self.max_actors is not None
+                    and self._next_id > next_before
+                    and slot.actor_id >=
+                    self.slot_base + self.max_actors)
+        if grew and self.on_slot_grown is not None:
+            try:
+                self.on_slot_grown(slot.actor_id)
+            except Exception:       # accounting growth must not kill accept
+                pass
         return slot
 
     # ------------------------------------------------------------------
@@ -804,6 +878,8 @@ class SocketTransport:
         self._acceptor.join(timeout=5.0)
         for t in threads:
             t.join(timeout=5.0)
+        if self._reaper is not None:
+            self._reaper.join(timeout=5.0)
 
     @property
     def closed(self) -> bool:
@@ -915,7 +991,8 @@ class SocketActorClient:
     def __init__(self, address: Address, *,
                  stop_event: Optional[Any] = None,
                  backoff: Tuple[float, float] = (0.05, 1.0),
-                 dial_timeout: float = 60.0):
+                 dial_timeout: float = 60.0,
+                 heartbeat_s: Optional[float] = None):
         import uuid
         self._addr = tuple(address)
         self._tried_addrs: set = set()  # learners that refused us
@@ -944,6 +1021,8 @@ class SocketActorClient:
         self.wire_codec = serde.DEFAULT_CODEC   # set by the handshake
         self.reconnects = 0
         self.trajs_sent = 0
+        self.heartbeat_s = heartbeat_s  # None: the learner's CONFIG decides
+        self._hb_thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------------
 
@@ -975,13 +1054,30 @@ class SocketActorClient:
             return None
         if self._channel("data") is None:
             return None
-        if self.config.get("heartbeat_s"):
-            # a supervised learner: not ported yet
-            self.close(bye=True)
-            raise NotImplementedError(
-                "heartbeats are not ported yet (ROADMAP.md, Queue 1 item "
-                "13: supervision)")
+        interval = self.heartbeat_s or self.config.get("heartbeat_s")
+        if interval and self._hb_thread is None:
+            self._hb_thread = threading.Thread(
+                target=self._heartbeat_loop, args=(float(interval),),
+                name="socket-heartbeat", daemon=True)
+            self._hb_thread.start()
         return self.config
+
+    def _heartbeat_loop(self, interval: float) -> None:
+        """Liveness beacon: a KIND_HEARTBEAT on ctrl every ``interval``
+        seconds, so the learner's reaper tells a live but quiet actor
+        (long episode, backpressured data link) from a dead one.
+        Best-effort: a dead ctrl link is redialed by ``_channel``; a
+        failed send is retried next tick."""
+        while not self.stopped:
+            if self._stopped.wait(interval):
+                break
+            try:
+                chan = self._channel("ctrl")
+                if chan is not None and not chan.dead:
+                    chan.send(KIND_HEARTBEAT, 0, b"",
+                              stop=self._stop_check)
+            except Exception:   # liveness must never kill the actor
+                pass
 
     # ------------------------------------------------------------------
     # connection management
@@ -1245,6 +1341,8 @@ class SocketActorClient:
                               stop=self._stop_check)
                 chan.close()
         self._stopped.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=2.0)
         with self._boxes_lock:
             boxes = list(self._infer_boxes.values())
         for box in boxes:

@@ -7,20 +7,27 @@ pools are written against.
                     zero-copy, no serde.
   ShmTransport      a cross-process transport. Producers (actor
                     processes, or threads exercising the byte boundary)
-                    move only serde-encoded contiguous buffers through a
-                    bounded ``multiprocessing`` wire queue; a parent-side
-                    drain thread decodes them (numpy leaves, which the
-                    learner stages through its pinned buffers) and
-                    applies the backpressure policy in a local
-                    ``TrajectoryQueue``.
+                    move only serde-encoded contiguous buffers, each over
+                    a one-way pipe of its own with a bound on the buffers
+                    in flight; a parent-side drain thread decodes them
+                    (numpy leaves, which the learner stages through its
+                    pinned buffers) and applies the backpressure policy
+                    in a local ``TrajectoryQueue``.
   SocketTransport   (``socket_transport.py``) the same buffers as
                     CRC-checked frames over TCP.
 
 Backpressure composes across the wire: with the ``block`` policy a slow
-learner stalls the drain thread, the wire queue fills, and producer
-``put``s time out in *their* process. With the drop policies the drain
-thread never blocks for long, and loss accounting happens where the
-policy lives.
+learner stalls the drain thread, a producer's buffers in flight reach
+their bound, and its ``send``s time out in *its* process. With the drop
+policies the drain thread never blocks for long, and loss accounting
+happens where the policy lives.
+
+The wire is kill-safe (``repro.distributed.transport`` shares one
+``multiprocessing.Queue`` among its producers; this port does not): a
+producer SIGKILLed in the middle of a write would leave a torn message in
+a shared pipe and die holding the queue's write lock, and every other
+producer would then block for ever. Here a dead producer's pipe reaches
+end-of-file, its torn tail is dropped with it, and no lock is shared.
 
 Attribution hooks (all optional, parent-side):
   on_item(item)     decoded item accepted into the local queue
@@ -31,9 +38,9 @@ from __future__ import annotations
 
 import abc
 import multiprocessing as mp
-import queue as stdlib_queue
 import threading
-from typing import Any, Callable, Dict, Optional
+from multiprocessing import connection as mp_connection
+from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.distributed import serde
 from repro_torch.distributed.serde import TrajectoryItem
@@ -94,12 +101,20 @@ class InprocTransport(TrajectoryQueue, Transport):
 Transport.register(TrajectoryQueue)
 
 
+# Linux's F_SETPIPE_SZ: a producer's pipe holds a whole trajectory, so a
+# send with a credit in hand does not block in the middle of its write
+_F_SETPIPE_SZ, _PIPE_BYTES = 1031, 1 << 20
+
+
 class ShmProducer:
     """Picklable producer handle for a ``ShmTransport``: what an actor
-    process receives. Moves opaque byte buffers."""
+    process receives. Moves opaque byte buffers over its own one-way pipe;
+    ``credits`` (a semaphore the drain releases once a buffer is read)
+    bounds its buffers in flight."""
 
-    def __init__(self, wire: Any, stop_event: Any):
-        self._wire = wire
+    def __init__(self, conn: Any, credits: Any, stop_event: Any):
+        self._conn = conn
+        self._credits = credits
         self._stop = stop_event
 
     def send(self, buf: bytes, timeout: float = 0.1) -> bool:
@@ -107,13 +122,18 @@ class ShmProducer:
         shutting down (check ``stopped``)."""
         if self._stop.is_set():
             return False
-        try:
-            self._wire.put(buf, timeout=timeout)
-            return True
-        except stdlib_queue.Full:
+        if not self._credits.acquire(timeout=timeout):
             return False
+        try:
+            self._conn.send_bytes(buf)
+            return True
         except (ValueError, OSError):        # wire closed under us
             return False
+
+    def close(self) -> None:
+        """Drop this process's end of the pipe. The parent does so once a
+        child holds its copy: the child's exit then reads as end-of-file."""
+        self._conn.close()
 
     @property
     def stopped(self) -> bool:
@@ -121,14 +141,16 @@ class ShmProducer:
 
 
 class ShmTransport(Transport):
-    """Cross-process transport: serialized buffers over a bounded
-    ``multiprocessing`` queue, decoded and policy-filtered parent-side.
+    """Cross-process transport: serialized buffers over one bounded pipe a
+    producer, decoded and policy-filtered parent-side.
 
     The parent (learner) side is a full ``Transport``; producers use
-    either ``put`` (same-process threads: encode + wire) or the picklable
-    ``producer()`` handle (actor processes: wire only, the caller
-    encodes). The context is ``spawn``: children never inherit the
-    parent's CUDA state."""
+    either ``put`` (same-process threads: encode + wire) or a picklable
+    ``producer()`` handle (an actor process: wire only, the caller
+    encodes; one handle a process, its parent end closed once the child
+    started). ``wire_capacity`` is a producer's buffers in flight. The
+    context is ``spawn``: children never inherit the parent's CUDA
+    state."""
 
     rejects_at_put = False
 
@@ -147,8 +169,12 @@ class ShmTransport(Transport):
         # kill-safe: a SIGKILLed child holding mp.Event's lock would
         # deadlock close()
         self._stop = KillSafeEvent(self._ctx)
-        self._wire = self._ctx.Queue(
-            maxsize=wire_capacity or max(2, capacity // 4))
+        self._credit = wire_capacity or max(1, capacity // 8)
+        # reader end -> the credits its producer spends
+        self._chans: Dict[Any, Any] = {}
+        self._chan_lock = threading.Lock()
+        self._local: Optional[ShmProducer] = None   # ``put``'s channel
+        self._put_lock = threading.Lock()
         self._inner = TrajectoryQueue(capacity, policy, registry=registry)
         self.registry = self._inner.registry
         self.on_item: Optional[Callable[[TrajectoryItem], None]] = None
@@ -179,7 +205,17 @@ class ShmTransport(Transport):
     # producer side
 
     def producer(self) -> ShmProducer:
-        return ShmProducer(self._wire, self._stop)
+        """A new channel: its own pipe and credits, read by the drain."""
+        reader, writer = self._ctx.Pipe(duplex=False)
+        try:
+            import fcntl
+            fcntl.fcntl(writer.fileno(), _F_SETPIPE_SZ, _PIPE_BYTES)
+        except (ImportError, OSError):
+            pass                # the default pipe size: writes may block
+        credits = self._ctx.BoundedSemaphore(self._credit)
+        with self._chan_lock:
+            self._chans[reader] = credits
+        return ShmProducer(writer, credits, self._stop)
 
     def put(self, item: TrajectoryItem, timeout: Optional[float] = None,
             count_stall: bool = True) -> bool:
@@ -189,53 +225,79 @@ class ShmTransport(Transport):
         if self._stop.is_set():
             return False
         buf = serde.encode_item(item, codec=self.wire_codec)
-        try:
-            self._wire.put(buf, timeout=timeout)
-            return True
-        except stdlib_queue.Full:
-            if count_stall:
-                self.wire_put_stalls += 1
-            return False
-        except (ValueError, OSError):
-            return False
+        with self._put_lock:
+            if self._local is None:
+                self._local = self.producer()
+            if self._local.send(buf, timeout=0.1 if timeout is None
+                                else timeout):
+                return True
+        if count_stall and not self._stop.is_set():
+            self.wire_put_stalls += 1
+        return False
 
     # ------------------------------------------------------------------
     # drain: wire bytes -> decoded items -> policy queue
 
+    def _recv(self) -> List[bytes]:
+        """One buffer from each producer that has one ready (every ready
+        producer gets its turn, so a busy one cannot starve the others),
+        after at most 0.1 s of waiting. A producer whose pipe ended (its
+        process exited or was killed, a torn last buffer included) is
+        dropped."""
+        with self._chan_lock:
+            readers = list(self._chans)
+        if not readers:
+            self._stop.wait(0.1)
+            return []
+        bufs = []
+        for reader in mp_connection.wait(readers, timeout=0.1):
+            try:
+                buf = reader.recv_bytes()
+            except (EOFError, OSError):
+                with self._chan_lock:
+                    self._chans.pop(reader, None)
+                reader.close()
+                continue
+            with self._chan_lock:
+                credits = self._chans.get(reader)
+            if credits is not None:
+                credits.release()
+            bufs.append(buf)
+        return bufs
+
     def _drain_loop(self) -> None:
         while not self._stop.is_set():
-            try:
-                buf = self._wire.get(timeout=0.1)
-            except stdlib_queue.Empty:
-                continue
-            except (EOFError, OSError):
-                break
-            self.wire_received += 1
-            self.wire_bytes += len(buf)
-            if self._discard:
-                continue    # shutdown: keep the wire flowing, drop data
-            try:
-                item = serde.decode_item(buf)
-            except Exception as e:      # a torn or corrupt buffer
-                self.drain_errors.append(repr(e))
-                continue
-            self.wire_raw_bytes += serde.tree_nbytes(item.data)
-            while not self._stop.is_set() and not self._discard:
-                if self._inner.put(item, timeout=0.1):
-                    if self.on_item is not None:
-                        self.on_item(item)
-                    break
-                # the closed check comes first: a put that failed because
-                # close()/begin_shutdown() raced us is shutdown discard,
-                # not a drop_newest rejection to charge to the actor
-                if self._inner.closed or self._discard:
-                    break
-                if self._inner.policy == "drop_newest":
-                    if self.on_reject is not None:
-                        self.on_reject(item)
-                    break                   # genuine policy rejection
-                # block policy: local queue full, learner slow — stall
-                # here so the wire fills and producers feel it
+            for buf in self._recv():
+                self._take(buf)
+
+    def _take(self, buf: bytes) -> None:
+        """Decode one buffer and offer it to the local policy queue."""
+        self.wire_received += 1
+        self.wire_bytes += len(buf)
+        if self._discard:
+            return      # shutdown: keep the wire flowing, drop data
+        try:
+            item = serde.decode_item(buf)
+        except Exception as e:      # a torn or corrupt buffer
+            self.drain_errors.append(repr(e))
+            return
+        self.wire_raw_bytes += serde.tree_nbytes(item.data)
+        while not self._stop.is_set() and not self._discard:
+            if self._inner.put(item, timeout=0.1):
+                if self.on_item is not None:
+                    self.on_item(item)
+                return
+            # the closed check comes first: a put that failed because
+            # close()/begin_shutdown() raced us is shutdown discard, not a
+            # drop_newest rejection to charge to the actor
+            if self._inner.closed or self._discard:
+                return
+            if self._inner.policy == "drop_newest":
+                if self.on_reject is not None:
+                    self.on_reject(item)
+                return                      # genuine policy rejection
+            # block policy: local queue full, learner slow: stall here so
+            # the wire fills and producers feel it
 
     # ------------------------------------------------------------------
     # consumer side: delegate to the local policy queue
@@ -254,10 +316,9 @@ class ShmTransport(Transport):
     def begin_shutdown(self) -> None:
         """Enter discard mode: the drain thread keeps *consuming* the
         wire but drops everything, so producer processes winding down can
-        always flush their queue feeders (a feeder killed mid-write into a
-        full pipe would tear a frame). The local queue closes so the
-        learner drains what is left and stops. Call this before joining
-        producer processes; call ``close`` after."""
+        always finish their writes. The local queue closes so the learner
+        drains what is left and stops. Call this before joining producer
+        processes; call ``close`` after."""
         self._discard = True
         self._inner.close()
 
@@ -269,15 +330,13 @@ class ShmTransport(Transport):
         self.begin_shutdown()
         self._stop.set()
         self._drain.join(timeout=5.0)
-        # sweep whatever raced past the drain thread, then release the
-        # queue's feeder resources without waiting on it at exit
-        try:
-            while True:
-                self._wire.get_nowait()
-        except (stdlib_queue.Empty, EOFError, OSError):
-            pass
-        self._wire.close()
-        self._wire.cancel_join_thread()
+        # a producer still writing sees a broken pipe, not a hang
+        with self._chan_lock:
+            readers, self._chans = list(self._chans), {}
+        for reader in readers:
+            reader.close()
+        if self._local is not None:
+            self._local.close()
 
     @property
     def closed(self) -> bool:

@@ -57,11 +57,12 @@ Replay (``--replay-fraction`` > 0) and checkpoints (``--ckpt-dir``) run in
 both runtimes, in the JAX package's format: a checkpoint either package
 wrote restores in the other. The sync runtime saves and restores params
 only (its optimizer state starts afresh on resume, as the JAX CLI's
-does); the async runtime saves params only and restores those or a
-fleet-v1 checkpoint with its optimizer state and version. A learner
-group saves params only too, refuses to run over an existing checkpoint
-without ``--resume``, and with it resumes from a fleet-v1 checkpoint
-only, as the JAX CLI does.
+does); the async runtime saves params only (fleet-v1 with
+``--supervise``) and restores those or a fleet-v1 checkpoint with its
+optimizer state and version. A learner group saves params only too
+(fleet-v1 with ``--supervise``), refuses to run over an existing
+checkpoint without ``--resume``, and with it resumes from a fleet-v1
+checkpoint only, as the JAX CLI does.
 
 The observability flags (``--metrics-port``, ``--trace``,
 ``--profile-steps``, ``--telemetry-sink``, ``--telemetry-json`` and
@@ -72,9 +73,20 @@ async runtime, one learner or a group:
       --runtime async --smoke --metrics-port 0 --trace /tmp/t.json \
       --trace-every 1
 
+``--supervise`` (async runtime, one learner or a group) absorbs deaths:
+actor threads, process and remote children and spoke learners are
+respawned, a dead hub fails over, remote leases silent past
+``--heartbeat-timeout-s`` are reaped, ``--elastic`` grows the remote slot
+range, and ``--ckpt-dir`` receives the runtime's fleet-v1 checkpoints (a
+group resumes from them with ``--resume``). On the sync runtime it changes
+nothing, as in the JAX CLI:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --learners 2 --supervise --smoke --steps 30
+
 Values of the JAX CLI's flags whose paths are not ported yet (the SPMD
-learner, supervision and elastic membership, token training) end the run
-with a ``SystemExit`` that names the ROADMAP.md Queue 1 item.
+learner, token training) end the run with a ``SystemExit`` that names the
+ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -218,9 +230,6 @@ def _parser() -> argparse.ArgumentParser:
                         "int8 stores per-leaf absmax scales (max error "
                         "absmax/127); both deflate the other leaves. "
                         "Remote actors take the codec from the handshake")
-    p.add_argument("--elastic", action="store_true",
-                   help="elastic membership of remote actors: not "
-                        "ported yet")
     p.add_argument("--vtrace-impl", default="auto",
                    choices=["auto", "fused", "pallas", "scan", "reference"],
                    help="V-trace implementation for the async learner's "
@@ -247,7 +256,27 @@ def _parser() -> argparse.ArgumentParser:
                         "Single-learner runs resume from --ckpt-dir "
                         "automatically")
     p.add_argument("--supervise", action="store_true",
-                   help="self-healing fleet mode: not ported yet")
+                   help="self-healing fleet mode (async runtime): "
+                        "heartbeat liveness + lease reaping for remote "
+                        "actors, supervised respawn of dead actor "
+                        "children / threads / spoke learners (restart "
+                        "budget + backoff), hub failover (the lowest "
+                        "live learner id is promoted; survivors degrade "
+                        "to solo past the deadline), and periodic full "
+                        "checkpoints (params + opt state) to --ckpt-dir")
+    p.add_argument("--heartbeat-timeout-s", type=float, default=10.0,
+                   help="remote-actor liveness deadline (--supervise): "
+                        "a slot silent this long has its lease reaped; "
+                        "clients heartbeat at a third of it")
+    p.add_argument("--elastic", action="store_true",
+                   help="with --supervise: let late-dialing remote "
+                        "actors grow the slot range past "
+                        "--actor-threads instead of being refused")
+    p.add_argument("--failover-deadline-s", type=float, default=20.0,
+                   help="learner-group hub failover budget: a survivor "
+                        "that cannot rejoin a new hub within this many "
+                        "seconds degrades to solo training (loud "
+                        "degraded_solo telemetry flag)")
     p.add_argument("--log-every", type=int, default=25)
     p.add_argument("--seed", type=int, default=0)
     obs = p.add_argument_group("observability (async runtime)")
@@ -317,10 +346,6 @@ def _refuse_unported(args) -> None:
             raise SystemExit("--learner-mode spmd keeps ONE learner "
                              "process; drop --learners (device "
                              "parallelism comes from --spmd-devices)")
-    if args.supervise:
-        raise _unported("--supervise", 13, "supervision")
-    if args.elastic:
-        raise _unported("--elastic", 13, "supervision")
     if args.learner_mode == "spmd":
         raise _unported("--learner-mode spmd", 15,
                         "TPU-mesh tooling analogues")
@@ -569,8 +594,10 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
                   f"{q['dropped']}/{q['put_stalls']} "
                   f"learner_fps={tel['frames_per_sec']:7.0f} "
                   f"actor_fps={tel['actors']['actor_fps']:7.0f}" + extra)
-        if args.ckpt_dir and step % args.ckpt_every == 0:
-            # params-only saves, as the JAX CLI's without --supervise
+        if args.ckpt_dir and step % args.ckpt_every == 0 and \
+                not args.supervise:
+            # params-only saves; --supervise switches to the runtime's
+            # fleet-v1 checkpoints instead
             ckpt.save(args.ckpt_dir, step, params)
         if hook is not None:
             hook(step, params, metrics, snapshot_fn)
@@ -588,8 +615,11 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
         initial_params=initial_params, initial_opt_state=initial_opt,
         start_step=start_step, on_update=on_update, obs=_build_obs(args),
-        device=device)
-    if args.ckpt_dir and last_params[0]:
+        supervise=args.supervise,
+        heartbeat_timeout_s=args.heartbeat_timeout_s, elastic=args.elastic,
+        ckpt_dir=(args.ckpt_dir if args.supervise else None),
+        ckpt_every=args.ckpt_every, device=device)
+    if args.ckpt_dir and last_params[0] and not args.supervise:
         ckpt.save(args.ckpt_dir, args.steps, last_params[0])
     print(f"final return(100) = {tracker.mean_return():.3f}")
     keys = TELEMETRY_KEYS + tuple(k for k in ("inference", "replay")
@@ -678,12 +708,16 @@ def _run_group(args, env, arch, icfg, transport, device) -> GroupRun:
         seed=args.seed, arch=arch,
         telemetry_every=args.log_every, on_progress=on_progress,
         ckpt_every=args.ckpt_every if args.ckpt_dir else 0,
-        # params-only saves, as the JAX CLI's without --supervise
+        # params-only saves without --supervise; a supervised group saves
+        # fleet-v1 (params + optimizer state) through ckpt_dir instead
         on_checkpoint=((lambda step, p: ckpt.save(args.ckpt_dir, step, p))
-                       if args.ckpt_dir else None),
+                       if args.ckpt_dir and not args.supervise else None),
+        supervise=args.supervise,
+        failover_deadline_s=args.failover_deadline_s,
+        ckpt_dir=args.ckpt_dir if args.supervise else None,
         resume_from=resume_from, return_final_params=True,
         kernel_counts=kernel_counts, obs=_build_obs(args), device=device)
-    if args.ckpt_dir:
+    if args.ckpt_dir and not args.supervise:
         ckpt.save(args.ckpt_dir, args.steps, params)
     print(f"final return(100) = {tracker.mean_return():.3f}")
     keys = ["group", "learner_updates", "frames_consumed",

@@ -293,7 +293,8 @@ def test_cli_group_checkpoint_rules(tmp_path, capsys):
     (["--learners", "2", "--learner-mode", "spmd"],
      "keeps ONE learner process"),
     (["--learner-mode", "spmd"], "item 15"),
-    (["--learners", "2", "--supervise"], "item 13"),
+    (["--learners", "2", "--supervise", "--transport", "socket"],
+     "requires --actor-backend remote"),
 ])
 def test_cli_group_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -301,8 +302,9 @@ def test_cli_group_refusals(argv, match):
 
 
 def test_group_api_refuses_supervision_and_hooks():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_group_training("bandit", _icfg(), 4, 1, supervise=True,
+    # a supervised group still checks its env before it spawns a worker
+    with pytest.raises(ValueError, match="env name"):
+        run_group_training(object(), _icfg(), 4, 1, supervise=True,
                            device="cpu")
     with pytest.raises(ValueError, match="env name"):
         run_group_training(object(), _icfg(), 4, 1, device="cpu")

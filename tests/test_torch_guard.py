@@ -83,30 +83,83 @@ _ASYNC = ["--runtime", "async"]
 
 
 @pytest.mark.parametrize("argv,match", [
-    (_ASYNC + ["--actor-backend", "process", "--learners", "2",
-               "--supervise"], "item 13"),
-    (["--supervise"], "item 13"),
     (["--learner-mode", "spmd"], "requires --runtime async"),
     (["--arch", "gemma-7b"], "token"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
-    (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference",
-               "--supervise"], "item 13"),
-    (_ASYNC + ["--actor-backend", "remote", "--elastic"], "item 13"),
     (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
      "keeps ONE learner process"),
     (_ASYNC + ["--actor-backend", "remote", "--transport", "socket",
                "--learner-mode", "spmd"], "item 15"),
-    (_ASYNC + ["--transport", "shm", "--actor-mode", "inference",
-               "--learners", "2", "--elastic"], "item 13"),
-    (_ASYNC + ["--learners", "2", "--supervise"], "item 13"),
     (_ASYNC + ["--learner-mode", "spmd"], "item 15"),
-    (_ASYNC + ["--supervise"], "item 13"),
-    (_ASYNC + ["--learners", "2", "--resume", "--supervise"], "item 13"),
 ])
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
         train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+
+
+class _Reached(Exception):
+    pass
+
+
+# the supervision keywords the JAX CLI hands each runtime: a single
+# learner takes the transport's (heartbeat, elastic), a group the
+# failover deadline; supervised, both get --ckpt-dir (here unset: "")
+_ONE = {"supervise": True, "heartbeat_timeout_s": 10.0, "elastic": False,
+        "ckpt_dir": ""}
+_GROUP = {"supervise": True, "failover_deadline_s": 20.0, "ckpt_dir": ""}
+
+
+@pytest.mark.parametrize("argv,runtime,want", [
+    (_ASYNC + ["--actor-backend", "process", "--learners", "2",
+               "--supervise"], "group", _GROUP),
+    (["--supervise"], None, None),
+    (_ASYNC + ["--actor-backend", "process", "--actor-mode", "inference",
+               "--supervise"], "one", _ONE),
+    (_ASYNC + ["--actor-backend", "remote", "--elastic"], "one",
+     dict(_ONE, supervise=False, elastic=True, ckpt_dir=None)),
+    (_ASYNC + ["--transport", "shm", "--actor-mode", "inference",
+               "--learners", "2", "--elastic"], "group",
+     dict(_GROUP, supervise=False, ckpt_dir=None)),
+    (_ASYNC + ["--learners", "2", "--supervise"], "group", _GROUP),
+    (_ASYNC + ["--supervise"], "one", _ONE),
+    (_ASYNC + ["--learners", "2", "--resume", "--supervise"], "group",
+     _GROUP),
+    (_ASYNC + ["--actor-backend", "remote", "--supervise", "--elastic",
+               "--heartbeat-timeout-s", "3", "--failover-deadline-s", "7"],
+     "one", dict(_ONE, heartbeat_timeout_s=3.0, elastic=True)),
+])
+def test_supervision_flags_reach_the_runtime(monkeypatch, argv, runtime,
+                                             want):
+    """The supervision flags reach ``run_async_training`` (one learner)
+    or ``run_group_training`` (``--learners N``) as the JAX CLI passes
+    them; on the sync runtime ``--supervise`` changes nothing and the run
+    takes its step."""
+    import repro_torch.distributed as dist
+
+    seen = {}
+
+    def fake(name):
+        def run(*args, **kw):
+            seen[name] = kw
+            raise _Reached
+        return run
+
+    monkeypatch.setattr(dist, "run_async_training", fake("one"))
+    monkeypatch.setattr(dist, "run_group_training", fake("group"))
+    full = ["--device", "cpu", "--smoke", "--steps", "1"] + argv
+    if runtime is None:
+        run = train_lib.train(full)
+        assert seen == {} and run.params
+        return
+    with pytest.raises(_Reached):
+        train_lib.train(full)
+    assert list(seen) == [runtime]
+    got = seen[runtime]
+    assert {k: got.get(k, "absent") for k in want} == want
+    absent = (("failover_deadline_s",) if runtime == "one" else
+              ("heartbeat_timeout_s", "elastic"))
+    assert not any(k in got for k in absent)
 
 
 def test_a_cuda_device_turns_tf32_off(monkeypatch):
