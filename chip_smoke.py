@@ -161,8 +161,9 @@ exception and a nonzero exit:
    window from the hook's snapshots); K2 once an update; every traced trajectory with all seven
    spans and its stamps in order (u0 <= u1 <= r <= dequeue <= collect <=
    step0 <= step1 <= publish), none dropped; the profile window's Chrome
-   trace holding exactly its 5 K2 launches, and its busy share beside
-   6a's; the sink's last line at the last update; the telemetry file
+   trace holding exactly its 5 K2 launches (a run whose trace lost some
+   is taken again, up to ``DEVICE_TRIES`` runs, each run's K2 launches
+   counted), and its busy share beside 6a's; the sink's last line at the last update; the telemetry file
    equal to the final telemetry. Learner frames/s beside 6a's.
 6x. Traces across the process boundary: 6n's process actors for
    ``OBS_PROC_STEPS`` updates with every trajectory traced: e0 <= e1 <= r
@@ -216,24 +217,30 @@ exception and a nonzero exit:
    prefill shape, a ragged T, S != T (T = 200 against S = 330 across the
    128-row tiles), non-causal (S = 1 too), sliding windows of 64 at T =
    512 and 2048, T = S = 2048, one and four query heads per kv head, D =
-   32, 64, 128 and 256.
+   32, 64, 128 and 256; the prefill shapes of phases 20-23 (D = 256 with
+   G = 1 and G = 10, the hybrid's window of 2048 at T = 2048, and a
+   window of 128 at D = 256, G = 10).
 10. K5 (decode attention) against its plain version: the serving path's
     decode shape, S = 32768, S = 1, 17, 64, 65, 1000 and 4097, G = 1, 4
     and 16, and biases with masked prefixes and suffixes built by the
-    decode path's own ``decode_bias``.
+    decode path's own ``decode_bias``; the decode shapes of phases
+    20-23, the hybrid's ring (G = 10, D = 256, S = 2048) past its wrap and
+    before it.
 11. The serving path: ``repro_torch.launch.serve`` at its defaults
     (mistral-nemo-12b at full width and depth, 64 requests, batch 16, ctx
     128, 32 decode steps) on the card. K4 must launch once a layer at each
-    prefill and K5 once a layer at each decode step; counts are zeroed just
-    before and read just after. Prints actions/s, step latency, prefill and
-    decode-step ms and the card's peak allocated memory.
+    prefill, K5 once a layer at each decode step and K3 never; counts are
+    zeroed just before and read just after. Prints actions/s, step
+    latency, prefill and decode-step ms and the card's peak allocated
+    memory, with the card's name and power limit.
 12. Served logits against the plain route: the first batch's tokens and
     sampled actions replayed through ``ops``'s ``impl='ref'`` route on the
     same params; prefill logits and every decode step's logits compared.
 13. Where a decode step's time goes: a ``torch.profiler`` trace of a few
     decode steps, the card's busy time against the unprofiled step.
-14. Times with CUDA events: K4 and K5 at the serving path's shapes and at
-    one long shape each, beside the plain version, the bound (bytes over
+14. Times with CUDA events: K4 and K5 at the serving path's shapes, at
+    gemma-7b's and recurrentgemma-2b's (phases 20 and 23), and at one long
+    shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
     ``F.scaled_dot_product_attention``, that the port never calls; with
     the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound;
@@ -255,6 +262,22 @@ exception and a nonzero exit:
     operations over 67 TFLOP/s fp32), and its device time from phase 2a;
     no single PyTorch call computes the recurrence, so there is no
     library time.
+20-23. The dense configs and the RG-LRU hybrid at their published widths
+    and all their layers (``NEW_SERVES``): ``repro_torch.launch.serve
+    --arch gemma-7b``, ``qwen1.5-4b``, ``stablelm-1.6b`` (ctx 128) and
+    ``recurrentgemma-2b`` (ctx 2048, its window, so the first decode step
+    wraps the ring), each one batch of 16 streams and ``NEW_SERVE_STEPS``
+    decode steps. K4 once an attention layer at the prefill, K5 once an
+    attention layer a decode step, K3 once a recurrent layer at the
+    prefill and never in a decode step: the counts are zeroed just before
+    and read just after. Each prints as phase 11, and its served logits
+    are held to the plain route as in phase 12; recurrentgemma-2b's
+    decode steps are traced as in phase 13 and its prefill as in phase
+    18; each run's weights are freed before the next.
+24. Path shapes: every shape at which a serving path (11, 16, 20-23)
+    launched K3, K4 or K5 (each wrapper's ``shapes``) and that phases 9,
+    10 and 15 left out, held against the plain version as those phases
+    hold theirs; its errors join the kernels' ``max_abs_err``.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -309,16 +332,17 @@ BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
 # the full-width async runs (phases 6a, 6c, 6i, 6j, 6n, 6o: unroll mode,
 # replay, chase replay, inference mode, process actors, with the same
-# settings) take 80 updates, the remote loopback runs (6q, three of them)
-# 80 too: at 400 the whole script ran 818 s on one H100, at 200 661-736 s
-# before the learner groups (6r-6v) came, with them and 120 it ran 1052 s
-# on a host 1.7x slower, and the script must stay within the ~800 s that
-# its 1200 s budget leaves for a slower host (PERF.md, section 4). An
+# settings) take 35 updates, the remote loopback runs (6q, three of them)
+# 35 too: at 400 the whole script ran 818 s on one H100, at 200 661-736 s
+# before the learner groups (6r-6v) came, 801-851 s at 80 with
+# supervision (6y-6z), and with the serving phases 20-24 it ran 892-1040
+# s at 50, too close to the 1200 s budget on a slow host (PERF.md,
+# section 4). An
 # async run's timed window starts at update steps - 2 * ASYNC_WINDOW -
 # ASYNC_PROFILED. The JAX acceptance bars (phases 6b, 6k, 6p) keep their
 # 400
-ASYNC_STEPS, BAR_STEPS = 80, 400
-REMOTE_STEPS = 80
+ASYNC_STEPS, BAR_STEPS = 35, 400
+REMOTE_STEPS = 35
 
 
 def _async_argv(env: str, steps: int, *extra: str):
@@ -333,7 +357,7 @@ def _async_argv(env: str, steps: int, *extra: str):
 ASYNC_ARGV = _async_argv("catch", ASYNC_STEPS)
 # the steady updates timed, then those profiled, near the end of an async
 # run (phases 6a, 6c, 6i, 6j, 6n, 6o, 6q)
-ASYNC_WINDOW, ASYNC_PROFILED = 20, 5
+ASYNC_WINDOW, ASYNC_PROFILED = 10, 5
 # the async path with replay at the paper's half (phase 6c)
 REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
                             "2"]
@@ -345,7 +369,7 @@ CKPT_EVERY = 10
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 # slice 8: the new envs, chase at full width, inference mode, multi-task
 ENV_B, ENV_STEPS = 32, 200
-CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, 80
+CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, ASYNC_STEPS
 CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
                                 "--replay-fraction", "0.5",
                                 "--replay-reuse", "2")
@@ -449,6 +473,12 @@ K4_CASES = [
     (1, 2048, 2048, 32, 8, 128, True, 64),  # window 64 at T = S = 2048
     (2, 200, 330, 32, 8, 128, True, 0),     # ragged across 128-row tiles
     (2, 1, 1, 32, 8, 128, False, 0),        # non-causal, S = 1
+    # the prefill shapes of the dense configs and the hybrid (phases 20-23)
+    (16, 128, 128, 16, 16, 256, True, 0),   # gemma-7b: D = 256, G = 1
+    (16, 128, 128, 20, 20, 128, True, 0),   # qwen1.5-4b: G = 1
+    (16, 128, 128, 32, 32, 64, True, 0),    # stablelm-1.6b: D = 64, G = 1
+    (16, 2048, 2048, 10, 1, 256, True, 2048),  # recurrentgemma-2b: G = 10
+    (2, 512, 512, 10, 1, 256, True, 128),   # D = 256, G = 10 under a window
 ]
 # K5 checks: (B, H, K, S, D, cache_index, window) with the decode path's
 # bias: decode_bias(cache_index, S, window)
@@ -466,6 +496,13 @@ K5_CASES = [
     (4, 32, 8, 65, 128, 64, 0),             # S = 65: one key past 64
     (4, 32, 8, 4097, 128, 4096, 0),         # S = 4097: splits, ragged
     (4, 32, 2, 1000, 128, 999, 0),          # G = 16 at D = 128
+    # the decode shapes of the dense configs and the hybrid (phases 20-23)
+    (16, 16, 16, 128, 256, 135, 0),         # gemma-7b: D = 256, G = 1
+    (16, 20, 20, 128, 128, 135, 0),         # qwen1.5-4b: G = 1
+    (16, 32, 32, 128, 64, 135, 0),          # stablelm-1.6b: D = 64, G = 1
+    (16, 10, 1, 2048, 256, 2055, 2048),     # recurrentgemma-2b: the ring
+    # past its wrap (G = 10, D = 256), then before it (masked suffix)
+    (16, 10, 1, 2048, 256, 1500, 2048),
 ]
 # each kernel's device events in a profiler trace: its launch, then any
 # pass it launches with it (K5's combine of the S splits)
@@ -491,14 +528,22 @@ TRACES_RETAKEN = []
 # the async windows' pad less the largest shift allowed for: the busy
 # time leaves out what the actors launched in it
 ASYNC_SKIP_US = (TRACE_PAD_S - 0.01) * 1e6
-# K4 timed: (label, (B, T, H, K, D), calls); K5: (label, (B, H, K, S, D),
-# cache_index, calls)
-K4_TIMED = [("main", (16, 128, 32, 8, 128), 200),
-            ("long", (1, 4096, 32, 8, 128), 10)]
-K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 200),
-            ("long", (8, 32, 8, 32768, 128), 40000, 20)]
+# K4 timed, causal: (label, (B, T, H, K, D), window, calls); K5: (label,
+# (B, H, K, S, D), cache_index, window, calls). "gemma" and
+# "recurrentgemma" are those serving paths' prefill and decode shapes
+# (phases 20 and 23; the hybrid's window of 2048 covers its whole prefill,
+# and its decode reads the ring past its wrap)
+K4_TIMED = [("main", (16, 128, 32, 8, 128), 0, 200),
+            ("long", (1, 4096, 32, 8, 128), 0, 10),
+            ("gemma", (16, 128, 16, 16, 256), 0, 200),
+            ("recurrentgemma", (16, 2048, 10, 1, 256), 2048, 10)]
+K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 0, 200),
+            ("long", (8, 32, 8, 32768, 128), 40000, 0, 20),
+            ("gemma", (16, 16, 16, 128, 256), 135, 0, 200),
+            ("recurrentgemma", (16, 10, 1, 2048, 256), 2055, 2048, 200)]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
+SERVE_PARAMS = 11_576_791_059
 # K3 checks: (T, N). (8, 8388608) is the mamba2 serving path's cross-chunk
 # pass (8 chunks of 256 at ctx 2048; batch 16 x 64 heads x P 64 x N 128);
 # (2048, 40960) the RG-LRU prefill's at batch 16, width 2560, ctx 2048
@@ -507,6 +552,23 @@ K3_SHAPES = [(1, 1), (33, 7), (257, 129), (512, 1024), (8, 8388608),
 K3_MAIN, K3_LONG = (8, 8388608), (2048, 40960)
 SSM_ARGV = ["--device", "cuda", "--arch", "mamba2-1.3b", "--ctx", "2048"]
 SSM_LAYERS, SSM_PARAMS = 48, 1_343_779_859
+# phases 20-23: the dense configs and the RG-LRU hybrid at full width, one
+# batch of 16 and 8 decode steps each; the dense three at the server's ctx
+# 128, the hybrid at ctx 2048, its window, so its first decode step wraps
+# the ring. (arch, ctx, layers, params, launches of K3, K4, K5): K4 once an
+# attention layer at the prefill, K5 once an attention layer a decode
+# step, K3 once a recurrent layer at the prefill
+NEW_SERVE_STEPS = 8
+NEW_SERVES = [
+    ("gemma-7b", 128, 28, 8_537_739_283, (0, 28, 224)),
+    ("qwen1.5-4b", 128, 40, 3_561_461_779, (0, 40, 320)),
+    ("stablelm-1.6b", 128, 24, 1_439_033_363, (0, 24, 192)),
+    ("recurrentgemma-2b", 2048, 26, 2_894_622_739, (18, 8, 64)),
+]
+# the shapes the serving paths launched K3, K4 and K5 at (each wrapper's
+# ``shapes``, read after each serving run), held in phase 24
+PATH_SHAPES = {"linear_scan": set(), "flash_attention": set(),
+               "decode_attention": set()}
 
 
 def _card_line() -> str:
@@ -2483,101 +2545,113 @@ def phase_flight_recorder(vk, single_before, single_busy) -> int:
     from repro_torch.launch import train as train_lib
     from repro_torch.obs.trace import SPAN_NAMES
 
-    shutil.rmtree(OBS_DIR, ignore_errors=True)
-    OBS_DIR.mkdir(parents=True)
-    port = _free_port()
-    files = {k: OBS_DIR / k for k in ("trace.json", "sink.jsonl",
-                                      "telemetry.json")}
+    # the profiler now and then drops a kernel's device events (phase
+    # 2a's note): a window that lost K2 launches is taken again with the
+    # whole run, as phase 2a's traces are, up to DEVICE_TRIES runs; every
+    # run's K2 launches count
     lo, hi = OBS_PROFILE
-    argv = _async_argv(
-        "catch", OBS_STEPS, "--metrics-port", str(port), "--trace",
-        str(files["trace.json"]), "--trace-every", str(OBS_TRACE_EVERY),
-        "--telemetry-sink", str(files["sink.jsonl"]), "--sink-interval-s",
-        "0.5", "--profile-steps", f"{lo}:{hi}", "--profile-dir",
-        str(OBS_DIR / "profile"), "--telemetry-json",
-        str(files["telemetry.json"]))
-    marks, snaps = {}, {}
-
-    def hook(step, params, metrics, snapshot_fn):
-        if step == OBS_SCRAPE_AT:
-            _check_routes("flight recorder", port, OBS_SCRAPE_AT)
-        if step in (OBS_SCRAPE_AT + 1, OBS_RATE_AT):
-            # the unprofiled updates between, each ended on the card
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-            snaps[step] = snapshot_fn()
-
-    vk.reset_launch_counts()
-    run = train_lib.train(argv, on_update=hook)
-    torch.cuda.synchronize()
-    k2, k1 = vk.loss_vtrace.launches, vk.vtrace.launches
-    _no_actor_threads("flight recorder")
-    tel = run.telemetry
-    if (tel["learner_updates"], k2, k1) != (OBS_STEPS, OBS_STEPS, 0):
-        raise AssertionError(f"flight recorder: (updates, K2, K1) "
-                             f"{(tel['learner_updates'], k2, k1)}, expected "
-                             f"{(OBS_STEPS, OBS_STEPS, 0)}")
-    ph = tel["phases"]
-    keys = {"collect", "host_stage", "device_put", "step", "publish"}
-    if ph["updates_timed"] != OBS_STEPS or set(ph["total_s"]) != keys or \
-            min(ph["total_s"].values()) < 0:
-        raise AssertionError(f"flight recorder: phases {ph}")
-    # the updates between the two marks: after the scrape, before the
-    # profile window, nothing of the hook in them but its snapshot
-    a, b = (snaps[s]["phases"] for s in (OBS_SCRAPE_AT + 1, OBS_RATE_AT))
-    clean = {k: (b["total_s"][k] - a["total_s"][k]) * 1e3
-             / (b["updates_timed"] - a["updates_timed"]) for k in keys}
-    print(f"flight recorder: {OBS_STEPS} updates, K2 launches {k2} K1 {k1}; "
-          f"phases, mean ms an update (host clock; step is the update's "
-          f"dispatch), over updates {a['updates_timed'] + 1}-"
-          f"{b['updates_timed']} (no scrape, no profiler): "
-          + ", ".join(f"{k} {clean[k]:.4f}" for k in ph["mean_ms"])
-          + f"; over all {ph['updates_timed']} (the scrape, the hook's "
-          f"synchronises, the profile window and its pad included): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ph["mean_ms"].items()))
-
-    # the lifecycle trace: seven spans a trajectory, stamps in order
-    trajs, rows = _spans(files["trace.json"])
-    measured = tel["lag"]["measured"]
-    n = len(trajs)
-    if not (measured // OBS_TRACE_EVERY - 2 <= n <=
-            measured // OBS_TRACE_EVERY) or n >= TRACE_BOUND:
-        raise AssertionError(f"flight recorder: {n} traced trajectories of "
-                             f"{measured} consumed at one in "
-                             f"{OBS_TRACE_EVERY} an actor")
-    eps = 0.01                      # microseconds of float rounding
-    for t in trajs:
-        # u0, u1 (= e0 = e1 in process), r, dequeue, step0, step1; collect
-        # is batch_collect's end
-        chain = [t[name]["ts"] for name in SPAN_NAMES]
-        collect = t["batch_collect"]["ts"] + t["batch_collect"]["dur"]
-        if any(b < a - eps for a, b in zip(chain, chain[1:])) or \
-                not (chain[4] - eps <= collect <= chain[5] + eps) or \
-                t["env_unroll"]["ts"] + t["env_unroll"]["dur"] > \
-                chain[1] + eps:
-            stamps = {k: (e["ts"], e["dur"]) for k, e in t.items()}
-            raise AssertionError(f"flight recorder: stamps out of order "
-                                 f"{stamps}")
-    means = {name: sum(t[name]["dur"] for t in trajs) / n / 1e3
-             for name in SPAN_NAMES}
-    print(f"flight recorder: trace of {n} trajectories ({measured} "
-          f"consumed, one in {OBS_TRACE_EVERY} an actor traced; none "
-          f"dropped: {n} < the bound {TRACE_BOUND}), rows "
-          f"{sorted(rows.values())}, all seven spans, every trajectory's "
-          f"stamps in order; mean span ms: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in means.items()))
-
-    # the profile window: one Chrome trace, exactly its K2 launches
-    prof = OBS_DIR / "profile" / f"updates_{lo}_{hi}.pt.trace.json"
-    if not prof.is_file():
-        raise AssertionError(f"flight recorder: no profile at {prof}")
-    busy_us, count, k2_traced = _chrome_device(prof, ASYNC_SKIP_US)
     window = hi - lo + 1
-    if k2_traced != window or not count:
-        raise AssertionError(f"flight recorder: {prof.name} holds "
-                             f"{k2_traced} K2 launches (and {count} device "
-                             f"events after its pad); updates {lo}-{hi} "
-                             f"launched {window}")
+    launched = 0
+    for attempt in range(1, DEVICE_TRIES + 1):
+        shutil.rmtree(OBS_DIR, ignore_errors=True)
+        OBS_DIR.mkdir(parents=True)
+        port = _free_port()
+        files = {k: OBS_DIR / k for k in ("trace.json", "sink.jsonl",
+                                          "telemetry.json")}
+        argv = _async_argv(
+            "catch", OBS_STEPS, "--metrics-port", str(port), "--trace",
+            str(files["trace.json"]), "--trace-every", str(OBS_TRACE_EVERY),
+            "--telemetry-sink", str(files["sink.jsonl"]), "--sink-interval-s",
+            "0.5", "--profile-steps", f"{lo}:{hi}", "--profile-dir",
+            str(OBS_DIR / "profile"), "--telemetry-json",
+            str(files["telemetry.json"]))
+        marks, snaps = {}, {}
+
+        def hook(step, params, metrics, snapshot_fn):
+            if step == OBS_SCRAPE_AT:
+                _check_routes("flight recorder", port, OBS_SCRAPE_AT)
+            if step in (OBS_SCRAPE_AT + 1, OBS_RATE_AT):
+                # the unprofiled updates between, each ended on the card
+                torch.cuda.synchronize()
+                marks[step] = time.perf_counter()
+                snaps[step] = snapshot_fn()
+
+        vk.reset_launch_counts()
+        run = train_lib.train(argv, on_update=hook)
+        torch.cuda.synchronize()
+        k2, k1 = vk.loss_vtrace.launches, vk.vtrace.launches
+        _no_actor_threads("flight recorder")
+        tel = run.telemetry
+        if (tel["learner_updates"], k2, k1) != (OBS_STEPS, OBS_STEPS, 0):
+            raise AssertionError(
+                f"flight recorder: (updates, K2, K1) "
+                f"{(tel['learner_updates'], k2, k1)}, expected "
+                f"{(OBS_STEPS, OBS_STEPS, 0)}")
+        ph = tel["phases"]
+        keys = {"collect", "host_stage", "device_put", "step", "publish"}
+        if ph["updates_timed"] != OBS_STEPS or set(ph["total_s"]) != keys or \
+                min(ph["total_s"].values()) < 0:
+            raise AssertionError(f"flight recorder: phases {ph}")
+        # the updates between the two marks: after the scrape, before the
+        # profile window, nothing of the hook in them but its snapshot
+        a, b = (snaps[s]["phases"] for s in (OBS_SCRAPE_AT + 1, OBS_RATE_AT))
+        clean = {k: (b["total_s"][k] - a["total_s"][k]) * 1e3
+                 / (b["updates_timed"] - a["updates_timed"]) for k in keys}
+        print(f"flight recorder: {OBS_STEPS} updates, K2 launches {k2} K1 "
+              f"{k1}; phases, mean ms an update (host clock; step is the "
+              f"update's dispatch), over updates {a['updates_timed'] + 1}-"
+              f"{b['updates_timed']} (no scrape, no profiler): "
+              + ", ".join(f"{k} {clean[k]:.4f}" for k in ph["mean_ms"])
+              + f"; over all {ph['updates_timed']} (the scrape, the hook's "
+              f"synchronises, the profile window and its pad included): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ph["mean_ms"].items()))
+
+        # the lifecycle trace: seven spans a trajectory, stamps in order
+        trajs, rows = _spans(files["trace.json"])
+        measured = tel["lag"]["measured"]
+        n = len(trajs)
+        if not (measured // OBS_TRACE_EVERY - 2 <= n <=
+                measured // OBS_TRACE_EVERY) or n >= TRACE_BOUND:
+            raise AssertionError(
+                f"flight recorder: {n} traced trajectories of {measured} "
+                f"consumed at one in {OBS_TRACE_EVERY} an actor")
+        eps = 0.01                      # microseconds of float rounding
+        for t in trajs:
+            # u0, u1 (= e0 = e1 in process), r, dequeue, step0, step1;
+            # collect is batch_collect's end
+            chain = [t[name]["ts"] for name in SPAN_NAMES]
+            collect = t["batch_collect"]["ts"] + t["batch_collect"]["dur"]
+            if any(b < a - eps for a, b in zip(chain, chain[1:])) or \
+                    not (chain[4] - eps <= collect <= chain[5] + eps) or \
+                    t["env_unroll"]["ts"] + t["env_unroll"]["dur"] > \
+                    chain[1] + eps:
+                stamps = {k: (e["ts"], e["dur"]) for k, e in t.items()}
+                raise AssertionError(f"flight recorder: stamps out of order "
+                                     f"{stamps}")
+        means = {name: sum(t[name]["dur"] for t in trajs) / n / 1e3
+                 for name in SPAN_NAMES}
+        print(f"flight recorder: trace of {n} trajectories ({measured} "
+              f"consumed, one in {OBS_TRACE_EVERY} an actor traced; none "
+              f"dropped: {n} < the bound {TRACE_BOUND}), rows "
+              f"{sorted(rows.values())}, all seven spans, every trajectory's "
+              f"stamps in order; mean span ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in means.items()))
+
+        # the profile window: one Chrome trace, exactly its K2 launches
+        prof = OBS_DIR / "profile" / f"updates_{lo}_{hi}.pt.trace.json"
+        if not prof.is_file():
+            raise AssertionError(f"flight recorder: no profile at {prof}")
+        busy_us, count, k2_traced = _chrome_device(prof, ASYNC_SKIP_US)
+        launched += k2
+        if k2_traced == window and count:
+            break
+        what = (f"flight recorder: {prof.name} holds {k2_traced} K2 "
+                f"launches (and {count} device events after its pad); "
+                f"updates {lo}-{hi} launched {window}")
+        if attempt == DEVICE_TRIES:
+            raise AssertionError(what)
+        print(f"{what}: run {attempt} of {DEVICE_TRIES}, taken again")
+        TRACES_RETAKEN.append({"flight recorder": k2_traced})
     update_ms = ((marks[OBS_RATE_AT] - marks[OBS_SCRAPE_AT + 1]) * 1e3
                  / (OBS_RATE_AT - OBS_SCRAPE_AT - 1))
     busy = busy_us / window / 1e3 / update_ms
@@ -2608,7 +2682,7 @@ def phase_flight_recorder(vk, single_before, single_busy) -> int:
           f"{single_before['frames_per_sec']:.0f}: "
           f"{rate['frames_per_sec'] / single_before['frames_per_sec']:.2f}x")
     shutil.rmtree(OBS_DIR, ignore_errors=True)
-    return k2
+    return launched
 
 
 def phase_traced_process(vk) -> int:
@@ -2890,16 +2964,17 @@ def _rand(shape, seed: int, dtype, dev):
 
 def _attn_check(name: str, got, want) -> float:
     """Hold K4/K5 outputs to the tolerance of their dtype (ATTN_*);
-    return the max abs error."""
+    return the max abs error. A NaN, in either, is over it."""
     g, w = got.float(), want.float()
     err = (g - w).abs()
     if want.dtype == torch.float32:
         allow = ATTN_F32_ATOL + ATTN_F32_RTOL * w.abs()
     else:
         allow = ATTN_BF16_ATOL + ATTN_BF16_RTOL * w.abs()
-    over = err > allow
+    over = ~(err <= allow)
     if bool(over.any()):
-        i = int(torch.argmax((err - allow).flatten()))
+        i = int(torch.argmax(torch.where(over, err - allow, -1.0)
+                             .nan_to_num(nan=float("inf")).flatten()))
         raise AssertionError(
             f"{name}: {int(over.sum())} elements over the {want.dtype} "
             f"tolerance; worst |got - want| {float(err.flatten()[i]):.3e} "
@@ -2953,25 +3028,34 @@ def phase_k5(dk, dev) -> float:
     return worst
 
 
-def phase_serve(fk, dk):
-    """The serving path at its defaults, K4/K5 counted over exactly it."""
+def _serve_counted(lk, fk, dk, argv, want, launches_want):
+    """``serve(argv)`` on the card, K3/K4/K5 counted over exactly it (the
+    counts zeroed just before, read just after): (layers, params,
+    batches, decode steps) must equal ``want`` and the launches
+    ``launches_want``, every served logit finite and of its shape. The
+    shapes each kernel launched at join ``PATH_SHAPES`` (phase 24)."""
     from repro_torch.launch import serve as serve_lib
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fk.reset_launch_counts()
-    dk.reset_launch_counts()
-    run = serve_lib.serve(SERVE_ARGV)
+    kernels = {"linear_scan": lk.linear_scan,
+               "flash_attention": fk.flash_attention,
+               "decode_attention": dk.decode_attention}
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+    run = serve_lib.serve(argv)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fk.flash_attention.launches,
-                "decode_attention": dk.decode_attention.launches}
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, fn in kernels.items():
+        PATH_SHAPES[name] |= fn.shapes
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": SERVE_LAYERS * SERVE_BATCHES,
-            "decode_attention": SERVE_LAYERS * SERVE_STEPS * SERVE_BATCHES}
-    if (run.arch.num_layers, run.batches, run.decode_steps) != \
-            (SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS) or launches != want:
-        raise AssertionError(f"serving path: {run.arch.num_layers} layers, "
-                             f"{run.batches} batches, {run.decode_steps} "
-                             f"steps, launches {launches}; expected {want}")
+    got = (run.arch.num_layers, run.param_count, run.batches,
+           run.decode_steps)
+    if got != want or launches != launches_want:
+        raise AssertionError(f"serving {' '.join(argv)}: (layers, params, "
+                             f"batches, steps) {got}, launches {launches}; "
+                             f"expected {want}, launches {launches_want}")
     fb = run.first_batch
     for i, lg in enumerate(fb["logits"]):
         if tuple(lg.shape) != (16, 1, run.num_actions) or \
@@ -2980,16 +3064,28 @@ def phase_serve(fk, dk):
                                  f"finite {bool(torch.isfinite(lg).all())}")
     med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     print(f"serving: {run.arch.name} {run.param_count:,} params, "
-          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}; "
-          f"launches K4 {launches['flash_attention']} K5 "
+          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}, ctx "
+          f"{fb['tokens'].shape[1]}; launches K3 {launches['linear_scan']} "
+          f"K4 {launches['flash_attention']} K5 "
           f"{launches['decode_attention']}")
-    print(f"serving: {run.actions_per_s:.1f} actions/s, p50 step latency "
-          f"{med(run.step_latency_ms):.3f} ms (batch time / decode steps), "
-          f"prefill {med(run.prefill_ms):.3f} ms (median of "
+    print(f"serving: {run.arch.name} {run.actions_per_s:.1f} actions/s, p50 "
+          f"step latency {med(run.step_latency_ms):.3f} ms (batch time / "
+          f"decode steps), prefill {med(run.prefill_ms):.3f} ms (median of "
           f"{len(run.prefill_ms)}), decode step {med(run.decode_ms):.3f} ms "
           f"(median of {len(run.decode_ms)}), peak allocated "
-          f"{peak / 1e9:.2f} GB")
+          f"{peak / 1e9:.2f} GB; {_card_line()}")
     return launches, run
+
+
+def phase_serve(lk, fk, dk):
+    """The serving path at its defaults (mistral-nemo-12b), K4/K5 once a
+    layer at each prefill and decode step, K3 never."""
+    return _serve_counted(
+        lk, fk, dk, SERVE_ARGV,
+        (SERVE_LAYERS, SERVE_PARAMS, SERVE_BATCHES, SERVE_STEPS),
+        {"linear_scan": 0,
+         "flash_attention": SERVE_LAYERS * SERVE_BATCHES,
+         "decode_attention": SERVE_LAYERS * SERVE_STEPS * SERVE_BATCHES})
 
 
 def phase_serve_logits(run) -> float:
@@ -3194,7 +3290,7 @@ def _k4_inputs(b, t, h, kh, d, dev):
     return (q, k, v) + tuple(x.transpose(1, 2) for x in (q, k, v))
 
 
-def _k5_inputs(b, h, kh, s, d, index, dev):
+def _k5_inputs(b, h, kh, s, d, index, window, dev):
     """K5's bf16 (q, k, v, bias) and SDPA's (q4, k, v, mask) for them."""
     from repro_torch.models.attention import decode_bias
 
@@ -3202,32 +3298,49 @@ def _k5_inputs(b, h, kh, s, d, index, dev):
     q = _rand((b, h, d), 17, bf, dev)
     k = _rand((b, s, kh, d), 18, bf, dev)
     v = _rand((b, s, kh, d), 19, bf, dev)
-    bias = decode_bias(index, s, 0, b, dev)
+    bias = decode_bias(index, s, window, b, dev)
     return (q, k, v, bias, q[:, :, None], k.transpose(1, 2),
             v.transpose(1, 2), bias.to(bf)[:, None, None, :])
 
 
+def _k4_library(qt, kt, vt, window: int):
+    """The library call beside K4: causal ``F.scaled_dot_product_attention``
+    on SDPA's (B, heads, T, D) views. Only where ``window`` masks nothing
+    past the causal mask (0, or at least T) is that the same function."""
+    import torch.nn.functional as F
+
+    if window and window < qt.shape[2]:
+        raise ValueError(f"window {window} < T {qt.shape[2]}: the causal "
+                         f"library call would compute another function")
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+
 def phase_attn_times(fk, dk, dev):
-    """K4 and K5 at the serving path's shapes and one long shape each, in
-    bf16, beside the plain version, the bound and one library call."""
+    """K4 and K5 at the serving paths' shapes and one long shape each, in
+    bf16, beside the plain version, the bound and one library call. K4's
+    windows cover the whole context (``_k4_library``), so the library
+    call's causal mask is the same function."""
     import torch.nn.functional as F
 
     rows = {}
-    for label, (b, t, h, kh, d), iters in K4_TIMED:
+    for label, (b, t, h, kh, d), window, iters in K4_TIMED:
         q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
-        ms = _time_ms(lambda: fk.flash_attention(q, k, v, True, 0), iters)
-        plain_ms = _time_ms(lambda: fk.flash_attention_plain(q, k, v, True,
-                                                             0), iters)
-        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), iters)
+        lib = _k4_library(qt, kt, vt, window)
+        ms = _time_ms(lambda: fk.flash_attention(q, k, v, True, window),
+                      iters)
+        plain_ms = _time_ms(lambda: fk.flash_attention_plain(
+            q, k, v, True, window), iters)
+        lib_ms = _time_ms(lib, iters)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        ops = 4 * b * h * d * _attn_pairs(t, t, True, 0)
+        ops = 4 * b * h * d * _attn_pairs(t, t, True, window)
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
         (dev_ms, calls), (lib_dev_ms, _) = (
             DEVICE[("flash_attention", label)],
             DEVICE[("flash_attention library", label)])
         print(f"time flash_attention {label} (B,T,H,K,D)="
-              f"{(b, t, h, kh, d)} causal bf16: kernel {ms:.5f} ms "
+              f"{(b, t, h, kh, d)} causal window={window} bf16: kernel "
+              f"{ms:.5f} ms "
               f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s,"
               f" {100 * bound_ms / ms:.1f}% of the bound), plain "
               f"{plain_ms:.5f} ms, library (F.scaled_dot_product_attention)"
@@ -3242,9 +3355,9 @@ def phase_attn_times(fk, dk, dev):
                                            bound_ms=bound_ms,
                                            bound_by=bound_by,
                                            library_ms=lib_ms)
-    for label, (b, h, kh, s, d), index, iters in K5_TIMED:
+    for label, (b, h, kh, s, d), index, window, iters in K5_TIMED:
         q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
-                                                     dev)
+                                                     window, dev)
         ms = _time_ms(lambda: dk.decode_attention(q, k, v, bias), iters)
         plain_ms = _time_ms(lambda: dk.decode_attention_plain(q, k, v, bias),
                             iters)
@@ -3260,7 +3373,8 @@ def phase_attn_times(fk, dk, dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         nsplit, split_len = dk.plan_splits(b, kh, s, sms)
         print(f"time decode_attention {label} (B,H,K,S,D)="
-              f"{(b, h, kh, s, d)} bf16: kernel {ms:.5f} ms "
+              f"{(b, h, kh, s, d)} index={index} window={window} ({valid // b}"
+              f" of {s} slots valid) bf16: kernel {ms:.5f} ms "
               f"({nbytes / ms / 1e9:.3f} TB/s, {100 * bound_ms / ms:.1f}% of "
               f"the bound), plain {plain_ms:.5f} ms, library "
               f"(F.scaled_dot_product_attention) {lib_ms:.5f} ms "
@@ -3313,55 +3427,20 @@ def phase_k3(lk, dev) -> float:
 
 
 def phase_serve_ssm(lk, fk, dk):
-    """The mamba2 serving path, K3/K4/K5 counted over exactly it."""
-    from repro_torch.launch import serve as serve_lib
-
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    lk.reset_launch_counts()
-    fk.reset_launch_counts()
-    dk.reset_launch_counts()
-    run = serve_lib.serve(SSM_ARGV)
-    torch.cuda.synchronize()
-    launches = {"linear_scan": lk.linear_scan.launches,
-                "flash_attention": fk.flash_attention.launches,
-                "decode_attention": dk.decode_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    want = {"linear_scan": SSM_LAYERS * SERVE_BATCHES,
-            "flash_attention": 0, "decode_attention": 0}
-    got = (run.arch.num_layers, run.param_count, run.batches,
-           run.decode_steps)
-    if got != (SSM_LAYERS, SSM_PARAMS, SERVE_BATCHES, SERVE_STEPS) or \
-            launches != want:
-        raise AssertionError(f"SSM serving path: (layers, params, batches, "
-                             f"steps) {got}, launches {launches}; expected "
-                             f"{(SSM_LAYERS, SSM_PARAMS, SERVE_BATCHES)}, "
-                             f"{SERVE_STEPS} steps, launches {want}")
-    fb = run.first_batch
-    for i, lg in enumerate(fb["logits"]):
-        if tuple(lg.shape) != (16, 1, run.num_actions) or \
-                not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"served logits {i}: {tuple(lg.shape)}, "
-                                 f"finite {bool(torch.isfinite(lg).all())}")
-    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
-    print(f"serving: {run.arch.name} {run.param_count:,} params, "
-          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}, ctx "
-          f"{fb['tokens'].shape[1]}; launches K3 {launches['linear_scan']} "
-          f"K4 {launches['flash_attention']} K5 "
-          f"{launches['decode_attention']}")
-    print(f"serving: {run.actions_per_s:.1f} actions/s, p50 step latency "
-          f"{med(run.step_latency_ms):.3f} ms (batch time / decode steps), "
-          f"prefill {med(run.prefill_ms):.3f} ms (median of "
-          f"{len(run.prefill_ms)}), decode step {med(run.decode_ms):.3f} ms "
-          f"(median of {len(run.decode_ms)}), peak allocated "
-          f"{peak / 1e9:.2f} GB")
-    return launches, run
+    """The mamba2 serving path, K3 once a layer at each prefill, K4/K5
+    never."""
+    return _serve_counted(
+        lk, fk, dk, SSM_ARGV,
+        (SSM_LAYERS, SSM_PARAMS, SERVE_BATCHES, SERVE_STEPS),
+        {"linear_scan": SSM_LAYERS * SERVE_BATCHES, "flash_attention": 0,
+         "decode_attention": 0})
 
 
-def phase_prefill_split(run) -> None:
+def phase_prefill_split(run, scans: int = SSM_LAYERS) -> None:
     """Device busy time of one profiled prefill against the unprofiled
-    median, and the device kernels that take most of it; a trace that
-    lost some of K3's launches is taken again (``_traced``)."""
+    median, and the device kernels that take most of it; the trace must
+    hold the prefill's ``scans`` K3 launches, and one that lost some is
+    taken again (``_traced``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import backbone as bb
@@ -3379,11 +3458,10 @@ def phase_prefill_split(run) -> None:
                 _trace_pad()
         return prof
 
-    prof = _traced(f"{run.arch.name} prefill", take, "linear_scan",
-                   SSM_LAYERS)
+    prof = _traced(f"{run.arch.name} prefill", take, "linear_scan", scans)
     _print_busy(f"{run.arch.name} prefill", prof, 1,
                 sorted(run.prefill_ms)[len(run.prefill_ms) // 2],
-                "linear_scan", SSM_LAYERS)
+                "linear_scan", scans)
 
 
 # (kernel, shape or label) -> (device ms a call, calls traced), phase 2a
@@ -3412,17 +3490,16 @@ def phase_device_times(vk, fk, dk, lk, dev) -> None:
              KERNEL_EVENTS["vtrace"])
         keep(("loss_vtrace", (t, b, a)), lambda: vk.loss_vtrace(*inp),
              KERNEL_EVENTS["loss_vtrace"])
-    for label, (b, t, h, kh, d), _ in K4_TIMED:
+    for label, (b, t, h, kh, d), window, _ in K4_TIMED:
         q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
         keep(("flash_attention", label),
-             lambda: fk.flash_attention(q, k, v, True, 0),
+             lambda: fk.flash_attention(q, k, v, True, window),
              KERNEL_EVENTS["flash_attention"])
         keep(("flash_attention library", label),
-             lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, is_causal=True, enable_gqa=True), None)
-    for label, (b, h, kh, s, d), index, _ in K5_TIMED:
+             _k4_library(qt, kt, vt, window), None)
+    for label, (b, h, kh, s, d), index, window, _ in K5_TIMED:
         q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
-                                                     dev)
+                                                     window, dev)
         keep(("decode_attention", label),
              lambda: dk.decode_attention(q, k, v, bias),
              KERNEL_EVENTS["decode_attention"])
@@ -3461,6 +3538,89 @@ def phase_scan_times(lk, dev):
                                        bound_ms=bound_ms, bound_by=bound_by)
         del a, b
     return rows
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the dense configs and the RG-LRU hybrid, K3/K4/K5
+
+
+def phase_serve_config(lk, fk, dk, arch: str, ctx: int, layers: int,
+                       params: int, want: Tuple[int, int, int]):
+    """Phases 20-23: ``serve --arch <arch>`` at full width and all its
+    layers, one batch of 16 and ``NEW_SERVE_STEPS`` decode steps, the
+    launches of (K3, K4, K5) equal to ``want``; then its served logits
+    against the plain route (as phase 12); for the hybrid, where a decode
+    step's time goes (as phase 13) and its prefill's (as phase 18).
+    Returns the launches."""
+    argv = ["--device", "cuda", "--arch", arch, "--ctx", str(ctx),
+            "--requests", "16", "--decode-steps", str(NEW_SERVE_STEPS)]
+    launches, run = _serve_counted(
+        lk, fk, dk, argv, (layers, params, 1, NEW_SERVE_STEPS),
+        dict(zip(("linear_scan", "flash_attention", "decode_attention"),
+                 want)))
+    phase_serve_logits(run)
+    k3, _, k5 = want
+    if k3:
+        phase_serve_split(run, "decode_attention", k5 // NEW_SERVE_STEPS)
+        phase_prefill_split(run, k3)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_path_shapes(lk, fk, dk, dev):
+    """Phase 24: every shape at which a serving path launched K3, K4 or
+    K5 (``PATH_SHAPES``) and that phases 9, 10 and 15 left out, held
+    against the plain version as those phases hold theirs (K5 with the
+    serving paths' bias: every slot valid). Returns the worst errors
+    (K3, K4, K5)."""
+    k3_done = {(t, n, init) for t, n in K3_SHAPES for init in (True, False)}
+    dtypes = (torch.bfloat16, torch.float32)
+    k4_done = {(b, t, s, h, kh, d, causal, window, dt)
+               for b, t, s, h, kh, d, causal, window in K4_CASES
+               for dt in dtypes}
+    k5_done = {(b, h, kh, s, d, dt) for b, h, kh, s, d, _, _ in K5_CASES
+               for dt in dtypes}
+    todo = {name: sorted(PATH_SHAPES[name] - done, key=str)
+            for name, done in (("linear_scan", k3_done),
+                               ("flash_attention", k4_done),
+                               ("decode_attention", k5_done))}
+    print(f"path shapes: K3 launched at "
+          f"{sorted(PATH_SHAPES['linear_scan'])}, K4 at "
+          f"{sorted(PATH_SHAPES['flash_attention'], key=str)}, K5 at "
+          f"{sorted(PATH_SHAPES['decode_attention'], key=str)}; not in "
+          f"phases 9, 10 and 15, checked now: {todo}")
+    from repro_torch.models.attention import decode_bias
+
+    errs = {"linear_scan": 0.0, "flash_attention": 0.0,
+            "decode_attention": 0.0}
+    for t, n, init in todo["linear_scan"]:
+        a, b, h0 = _scan_inputs(t, n, t + n, dev)
+        h0 = h0 if init else None
+        errs["linear_scan"] = max(errs["linear_scan"], _check(
+            f"K3 path (T,N)={(t, n)} h0={init}", [lk.linear_scan(a, b, h0)],
+            [lk.linear_scan_plain(a, b, h0)]))
+    for n, (b, t, s, h, kh, d, causal, window, dt) in \
+            enumerate(todo["flash_attention"]):
+        q = _rand((b, t, h, d), 500 + 3 * n, dt, dev)
+        k = _rand((b, s, kh, d), 501 + 3 * n, dt, dev)
+        v = _rand((b, s, kh, d), 502 + 3 * n, dt, dev)
+        errs["flash_attention"] = max(errs["flash_attention"], _attn_check(
+            f"K4 path {(b, t, s, h, kh, d, causal, window, dt)}",
+            fk.flash_attention(q, k, v, causal, window),
+            fk.flash_attention_plain(q, k, v, causal, window)))
+    for n, (b, h, kh, s, d, dt) in enumerate(todo["decode_attention"]):
+        q = _rand((b, h, d), 600 + 3 * n, dt, dev)
+        k = _rand((b, s, kh, d), 601 + 3 * n, dt, dev)
+        v = _rand((b, s, kh, d), 602 + 3 * n, dt, dev)
+        bias = decode_bias(s, s, 0, b, dev)
+        errs["decode_attention"] = max(errs["decode_attention"], _attn_check(
+            f"K5 path {(b, h, kh, s, d, dt)}",
+            dk.decode_attention(q, k, v, bias),
+            dk.decode_attention_plain(q, k, v, bias)))
+    torch.cuda.synchronize()
+    return (errs["linear_scan"], errs["flash_attention"],
+            errs["decode_attention"])
 
 
 class _Laps:
@@ -3598,7 +3758,7 @@ def main() -> int:
 
     err_k4 = phase_k4(fk, dev)
     err_k5 = phase_k5(dk, dev)
-    serve_launches, serve_run = phase_serve(fk, dk)
+    serve_launches, serve_run = phase_serve(lk, fk, dk)
     launches.update(serve_launches)
     phase_serve_logits(serve_run)
     phase_serve_split(serve_run, "decode_attention", SERVE_LAYERS)
@@ -3609,7 +3769,7 @@ def main() -> int:
 
     err_k3 = phase_k3(lk, dev)
     ssm_launches, ssm_run = phase_serve_ssm(lk, fk, dk)
-    launches["linear_scan"] = ssm_launches["linear_scan"]
+    launches["linear_scan"] += ssm_launches["linear_scan"]
     phase_serve_logits(ssm_run)
     phase_prefill_split(ssm_run)
     phase_serve_split(ssm_run)
@@ -3617,6 +3777,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(phase_scan_times(lk, dev))
     lap("15-19")
+
+    for n, (arch, ctx, layers, params, want) in enumerate(NEW_SERVES):
+        got = phase_serve_config(lk, fk, dk, arch, ctx, layers, params,
+                                 want)
+        for name, count in got.items():
+            launches[name] += count
+        lap(f"{20 + n} ({arch})")
+    e3, e4, e5 = phase_serve_path_shapes(lk, fk, dk, dev)
+    err_k3, err_k4, err_k5 = (max(err_k3, e3), max(err_k4, e4),
+                              max(err_k5, e5))
+    lap("24")
     print(f"times above: {card}")
 
     meta = {

@@ -1,8 +1,9 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
 ``ArchConfig`` keeps only the fields the ported paths read: those of the
-conv-LSTM agents, of the dense token decoders and of the Mamba-2 SSM
-stack (the MoE, RG-LRU, enc-dec and VLM fields join with those blocks).
+conv-LSTM agents, of the dense token decoders, of the Mamba-2 SSM stack
+and of the RG-LRU hybrid (the MoE, enc-dec and VLM fields join with those
+blocks).
 ``ImpalaConfig`` has every field of the reference but ``seed``, which
 no code reads: the runs take their seed as an argument.
 """
@@ -24,9 +25,19 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block configuration."""
+    lru_width: int = 0            # defaults to d_model if 0
+    conv_width: int = 4
+    # layer pattern: 'rr a' repeated -> 2 recurrent : 1 local attention
+    pattern: Tuple[str, ...] = ("recurrent", "recurrent", "attention")
+    attention_window: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # impala_cnn | dense | ssm
+    family: str                   # impala_cnn | dense | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -42,6 +53,7 @@ class ArchConfig:
     use_rope: bool = True
     sliding_window: int = 0       # 0 = full attention
     ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
     # IMPALA conv nets (paper Fig. 3)
     impala_net: str = ""          # '' | 'shallow' | 'deep'
     image_hw: Tuple[int, int, int] = (72, 96, 3)

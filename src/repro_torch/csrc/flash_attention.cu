@@ -895,7 +895,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       // update of m, l and O, and P in two bf16 terms
       auto softmax = [&](float (&s)[C::kBN / 2], int kv0) {
         // mask the raw scores, only on tiles across an edge: a row's keys
-        // kv0 + col0 + c are valid for lo <= c <= hi
+        // kv0 + col0 + c are valid for lo <= c <= hi. A masked score is
+        // -inf, not kNegInf: with D = 256 (64-key tiles) a window can mask
+        // a row's whole first tile, and -1e30 * scale_log2 would then be
+        // the row's running max, where fmaf(x, scale_log2, -m) leaves the
+        // rounding residual of that product (up to ~1e21) and exp2 of it
+        // is inf. -inf scales to -inf and exp2 of it is 0 whatever m is,
+        // and m itself starts at the finite kNegInf, so corr stays finite
         const bool edge = kv0 + C::kBN > S ||
                           (causal && kv0 + C::kBN - 1 > m0) ||
                           (window && kv0 <= m0 + 63 - window);
@@ -911,7 +917,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
               for (int e = 0; e < 2; ++e) {
                 const int c = j * 8 + e;
                 float& x = s[j * 4 + 2 * rr + e];
-                x = (c <= hi && c >= lo) ? x : kNegInf;
+                x = (c <= hi && c >= lo) ? x : -INFINITY;
               }
           }
         }

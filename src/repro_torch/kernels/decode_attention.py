@@ -10,7 +10,9 @@ float32; the output in q's dtype. The kernel is CUDA C++ in
 version (``decode_attention_plain``, the dense oracle) only because the
 tensors it was given lie on the CPU; on CUDA tensors it launches the
 kernel or raises. ``decode_attention.launches`` counts the kernel's
-launches, and nothing else.
+launches, and nothing else; ``decode_attention.shapes`` is the set of
+(B, H, K, S, D, dtype) it launched at, which ``reset_launch_counts``
+leaves as it is.
 """
 from __future__ import annotations
 
@@ -93,10 +95,12 @@ def decode_attention(q, k, v, bias) -> torch.Tensor:
         build.stream(q.device))
     build.raise_on(code, "repro_decode_attention")
     decode_attention.launches += 1
+    decode_attention.shapes.add((b, h, kh, s, d, q.dtype))
     return out
 
 
 decode_attention.launches = 0
+decode_attention.shapes = set()
 
 
 def reset_launch_counts() -> None:

@@ -10,7 +10,9 @@ float32; the output in q's dtype. The kernel is CUDA C++ in
 version (``flash_attention_plain``, the masked-dense oracle) only because
 the tensors it was given lie on the CPU; on CUDA tensors it launches the
 kernel or raises. ``flash_attention.launches`` counts the kernel's
-launches, and nothing else.
+launches, and nothing else; ``flash_attention.shapes`` is the set of
+(B, T, S, H, K, D, causal, window, dtype) it launched at, which
+``reset_launch_counts`` leaves as it is.
 """
 from __future__ import annotations
 
@@ -81,10 +83,13 @@ def flash_attention(q, k, v, causal: bool = True,
         int(q.dtype == torch.bfloat16), build.stream(q.device))
     build.raise_on(code, "repro_flash_attention")
     flash_attention.launches += 1
+    flash_attention.shapes.add((b, t, s, h, kh, d, bool(causal), int(window),
+                                q.dtype))
     return out
 
 
 flash_attention.launches = 0
+flash_attention.shapes = set()
 
 
 def reset_launch_counts() -> None:

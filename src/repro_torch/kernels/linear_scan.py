@@ -11,7 +11,8 @@ The kernel is CUDA C++ in ``repro_torch/csrc/linear_scan.cu`` (built by
 version (``linear_scan_plain``, the oracle's loop) only because the
 tensors it was given lie on the CPU; on CUDA tensors it launches the
 kernel or raises. ``linear_scan.launches`` counts the kernel's launches,
-and nothing else.
+and nothing else; ``linear_scan.shapes`` is the set of (T, N, with h0)
+it launched at, which ``reset_launch_counts`` leaves as it is.
 """
 from __future__ import annotations
 
@@ -47,10 +48,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
         h.data_ptr(), t, n, build.stream(a.device))
     build.raise_on(code, "repro_linear_scan")
     linear_scan.launches += 1
+    linear_scan.shapes.add((t, n, h0 is not None))
     return h
 
 
 linear_scan.launches = 0
+linear_scan.shapes = set()
 
 
 def reset_launch_counts() -> None:

@@ -9,21 +9,34 @@ then steps all streams in lockstep through ``--decode-steps`` decode
 steps against the decode cache, one sampled action per stream per step.
 The kernels on the card, per family:
 
-* ``dense`` (mistral-nemo-12b, the default ``--arch``): prefill attention
-  runs K4 (flash attention) once a layer and each decode step runs K5
-  (decode attention) once a layer, against the KV cache.
+* ``dense`` (mistral-nemo-12b, the default ``--arch``; gemma-7b,
+  qwen1.5-4b, stablelm-1.6b): prefill attention runs K4 (flash
+  attention) once a layer and each decode step runs K5 (decode
+  attention) once a layer, against the KV cache.
 * ``ssm`` (``--arch mamba2-1.3b``): each prefill runs K3 (the linear
   scan) once a layer, for the cross-chunk state pass; a decode step
   updates each layer's SSM and conv states and launches no kernel of the
   port.
+* ``hybrid`` (``--arch recurrentgemma-2b``): each prefill runs K3 once a
+  recurrent (RG-LRU) layer, for its diagonal recurrence, and K4 once a
+  local-attention layer; each decode step runs K5 once a local-attention
+  layer, against its ring buffer of ``min(ctx, window)`` slots, and
+  launches no K3 (the recurrent layers update their states in place).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch mamba2-1.3b --ctx 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch gemma-7b          # or qwen1.5-4b, stablelm-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch recurrentgemma-2b --ctx 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --requests 4 --batch 2 --ctx 16 --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --arch mamba2-1.3b --requests 4 --batch 2 --ctx 40 --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+      --arch recurrentgemma-2b --requests 4 --batch 2 --ctx 40 \
+      --decode-steps 4
 
 ``--device`` defaults to cuda and raises where no card is found; it does
 not fall back to the CPU. ``--smoke`` is off by default, so the default
@@ -54,7 +67,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: cuda (the default; raises "
                         "when no card is found) or cpu")
-    p.add_argument("--arch", default="mistral-nemo-12b")
+    p.add_argument("--arch", default="mistral-nemo-12b",
+                   help="token backbone: mistral-nemo-12b, gemma-7b, "
+                        "qwen1.5-4b, stablelm-1.6b (dense: K4 each prefill "
+                        "layer, K5 each decode layer), mamba2-1.3b (ssm: "
+                        "K3 each prefill layer) or recurrentgemma-2b "
+                        "(hybrid: K3 each recurrent prefill layer, K4/K5 "
+                        "each local-attention layer)")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke config of --arch")
     p.add_argument("--batch", type=int, default=16)

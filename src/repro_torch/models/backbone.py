@@ -5,10 +5,12 @@ apply paths of the ported families.
   the conv torso over time (B*T images), runs the LSTM over time with the
   actor-provided initial state, and the heads give
   ``AgentOutput(policy_logits, values)``.
-* token backbones: ``dense`` decoders (mistral-nemo-12b) and ``ssm``
-  stacks (mamba2-1.3b): embedding -> layer stack -> final norm -> heads,
-  served by ``apply_prefill`` (the whole context, returns the logits at
-  the last step and the decode cache: KV caches, or SSM and conv states)
+* token backbones: ``dense`` decoders (mistral-nemo-12b, gemma-7b,
+  qwen1.5-4b, stablelm-1.6b), ``ssm`` stacks (mamba2-1.3b) and the
+  ``hybrid`` RG-LRU stack (recurrentgemma-2b): embedding -> layer stack
+  -> final norm -> heads, served by ``apply_prefill`` (the whole context,
+  returns the logits at the last step and the decode cache: KV caches,
+  ring buffers of the local window, RG-LRU or SSM and conv states)
   and ``apply_decode`` (one step against the cache). Token training is
   not ported yet.
 """
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import convnets, lstm as lstm_lib
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (dense, dense_specs, embed,
@@ -126,8 +129,8 @@ def apply_decode(params, token: torch.Tensor, cache, cache_index: int,
                  cfg: ArchConfig, num_actions: int,
                  impl: str = "auto") -> AgentOutput:
     """token: (B, 1) int; cache_index: the absolute position (host int).
-    Writes the step's keys and values (or SSM and conv states) into
-    ``cache`` in place and returns it as the output's cache."""
+    Writes the step's keys and values (or RG-LRU, SSM and conv states)
+    into ``cache`` in place and returns it as the output's cache."""
     del num_actions
     b = token.shape[0]
     x = embed(params["embed"], token, torch_dtype(cfg.dtype))
@@ -146,8 +149,12 @@ def _block_cache_abstract(kind: str, batch: int, length: int,
         raise NotImplementedError(f"block kind {kind!r}: {tfm.NOT_PORTED}")
     if kind == "ssm":
         return {"ssm": ssm_lib.ssm_state_abstract(batch, cfg, dtype)}
+    if kind == "recurrent":
+        return {"rglru": rglru_lib.rglru_state_abstract(batch, cfg, dtype)}
     if kind == "local":
-        length = min(cfg.sliding_window, length)
+        window = (cfg.rglru.attention_window if cfg.rglru is not None
+                  else cfg.sliding_window)
+        length = min(window, length)
     spec = attn_lib.CacheSpec(length, cfg.num_kv_heads,
                               cfg.resolved_head_dim)
     return {"kv": attn_lib.init_cache_arrays(batch, spec, dtype, "meta")}
@@ -157,12 +164,15 @@ def cache_abstract(batch: int, length: int, cfg: ArchConfig) -> Dict:
     """The decode cache of the whole stack as ``meta`` tensors (shapes and
     dtypes, no storage), the counterpart of JAX's ShapeDtypeStructs."""
     dtype = torch_dtype(cfg.dtype)
-    group, _ = tfm.layer_plan(cfg)
+    group, leftover = tfm.layer_plan(cfg)
     n = tfm.num_groups(cfg)
     one = {f"l{i}": _block_cache_abstract(k, batch, length, cfg, dtype)
            for i, k in enumerate(group)}
-    return {"scan": tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
-                             one)}
+    out = {"scan": tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)),
+                            one)}
+    for i, k in enumerate(leftover):
+        out[f"tail{i}"] = _block_cache_abstract(k, batch, length, cfg, dtype)
+    return out
 
 
 def cache_init(batch: int, length: int, cfg: ArchConfig,

@@ -48,7 +48,11 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.distributed.netserve', "
         "'repro_torch.distributed.group', "
         "'repro_torch.distributed.transport', 'repro_torch.obs.http', "
-        "'repro_torch.obs.trace', 'repro_torch.obs.sink'}\n"
+        "'repro_torch.obs.trace', 'repro_torch.obs.sink', "
+        "'repro_torch.models.rglru', 'repro_torch.configs.gemma_7b', "
+        "'repro_torch.configs.qwen1_5_4b', "
+        "'repro_torch.configs.stablelm_1_6b', "
+        "'repro_torch.configs.recurrentgemma_2b'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -84,7 +88,10 @@ _ASYNC = ["--runtime", "async"]
 
 @pytest.mark.parametrize("argv,match", [
     (["--learner-mode", "spmd"], "requires --runtime async"),
-    (["--arch", "gemma-7b"], "token"),
+    (["--arch", "gemma-7b"], "token training"),
+    (["--arch", "recurrentgemma-2b"], "token training"),
+    (["--arch", "olmoe-1b-7b"], "item 14"),
+    (["--arch", "whisper-small"], "item 14"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
     (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
@@ -309,6 +316,28 @@ def test_attention_wrappers_take_plain_versions_on_cpu_without_counting():
     assert dk.decode_attention.launches == 0
 
 
+def test_scan_and_attention_shape_records_grow_only_with_launches():
+    """K3's, K4's and K5's ``shapes``, as K1's and K2's: a CPU call adds
+    none, and resetting the counts keeps what was recorded."""
+    before = (set(lk.linear_scan.shapes), set(fk.flash_attention.shapes),
+              set(dk.decode_attention.shapes))
+    a, b, h0 = _scan_inputs(7, 5, 2)
+    q, k, v = _attn_inputs(2, 9, 9, 4, 2, 16, 3)
+    lk.linear_scan.shapes.add((-1, -1, False))
+    for mod in (lk, fk, dk):
+        mod.reset_launch_counts()
+    lk.linear_scan(a, b, h0)
+    fk.flash_attention(q, k, v, True, 0)
+    dk.decode_attention(q[:, 0].contiguous(), k, v,
+                        decode_bias(9, 9, 0, 2, "cpu"))
+    try:
+        assert lk.linear_scan.shapes == before[0] | {(-1, -1, False)}
+        assert fk.flash_attention.shapes == before[1]
+        assert dk.decode_attention.shapes == before[2]
+    finally:
+        lk.linear_scan.shapes.discard((-1, -1, False))
+
+
 def test_attention_wrappers_refuse_what_the_kernel_does_not_take():
     q, k, v = _attn_inputs(2, 9, 9, 4, 2, 16, 1)
     with pytest.raises(TypeError, match="bfloat16 or all float32"):
@@ -391,7 +420,8 @@ def test_kernels_match_plain_on_the_card(t, b, a):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,t,s,h,kh,d,causal,window", [
     (16, 128, 128, 32, 8, 128, True, 0), (2, 100, 160, 32, 8, 128, True, 0),
-    (2, 160, 100, 8, 8, 64, False, 0), (1, 300, 300, 4, 1, 32, True, 64)])
+    (2, 160, 100, 8, 8, 64, False, 0), (1, 300, 300, 4, 1, 32, True, 64),
+    (2, 128, 128, 16, 16, 256, True, 0), (1, 300, 300, 10, 1, 256, True, 128)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain_on_the_card(b, t, s, h, kh, d, causal,
                                                    window, dtype):
@@ -413,7 +443,8 @@ def test_flash_attention_matches_plain_on_the_card(b, t, s, h, kh, d, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kh,s,d,index,window", [
     (16, 32, 8, 128, 128, 160, 0), (4, 32, 8, 1000, 128, 300, 0),
-    (4, 32, 8, 1024, 128, 2000, 256), (3, 8, 8, 130, 64, 100, 0)])
+    (4, 32, 8, 1024, 128, 2000, 256), (3, 8, 8, 130, 64, 100, 0),
+    (2, 16, 16, 128, 256, 135, 0), (2, 10, 1, 512, 256, 700, 512)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_matches_plain_on_the_card(b, h, kh, s, d, index,
                                                     window, dtype):
