@@ -219,13 +219,16 @@ exception and a nonzero exit:
    512 and 2048, T = S = 2048, one and four query heads per kv head, D =
    32, 64, 128 and 256; the prefill shapes of phases 20-23 (D = 256 with
    G = 1 and G = 10, the hybrid's window of 2048 at T = 2048, and a
-   window of 128 at D = 256, G = 10).
+   window of 128 at D = 256, G = 10); unmasked with S > T (100 queries
+   over 1,600 keys), ragged on both sides (37 over 1,500, D = 64) and
+   whisper's encoder at batch 2 (T = S = 1,500), for phases 23c-23d.
 10. K5 (decode attention) against its plain version: the serving path's
     decode shape, S = 32768, S = 1, 17, 64, 65, 1000 and 4097, G = 1, 4
     and 16, and biases with masked prefixes and suffixes built by the
     decode path's own ``decode_bias``; the decode shapes of phases
     20-23, the hybrid's ring (G = 10, D = 256, S = 2048) past its wrap and
-    before it.
+    before it; every one of 1,600 (G = 4, D = 128) or 1,500 (G = 1, D =
+    64) keys valid, as in cross-attention decode (phases 23c-23d).
 11. The serving path: ``repro_torch.launch.serve`` at its defaults
     (mistral-nemo-12b at full width and depth, 64 requests, batch 16, ctx
     128, 32 decode steps) on the card. K4 must launch once a layer at each
@@ -239,8 +242,9 @@ exception and a nonzero exit:
 13. Where a decode step's time goes: a ``torch.profiler`` trace of a few
     decode steps, the card's busy time against the unprofiled step.
 14. Times with CUDA events: K4 and K5 at the serving path's shapes, at
-    gemma-7b's and recurrentgemma-2b's (phases 20 and 23), and at one long
-    shape each, beside the plain version, the bound (bytes over
+    gemma-7b's and recurrentgemma-2b's (phases 20 and 23), at
+    llama-3.2-vision-11b's cross-attention and whisper-small's encoder and
+    cross-attention (phases 23c-23d), and at one long shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
     ``F.scaled_dot_product_attention``, that the port never calls; with
     the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound;
@@ -274,7 +278,29 @@ exception and a nonzero exit:
     are held to the plain route as in phase 12; recurrentgemma-2b's
     decode steps are traced as in phase 13 and its prefill as in phase
     18; each run's weights are freed before the next.
-24. Path shapes: every shape at which a serving path (11, 16, 20-23)
+23a-23b. The MoE configs at their published widths and all their layers
+    (``MOE_SERVES``): ``repro_torch.launch.serve --arch
+    granite-moe-1b-a400m`` and ``olmoe-1b-7b``, as phases 20-22 (ctx 128,
+    one batch of 16, ``NEW_SERVE_STEPS`` decode steps): K4 once a layer at
+    the prefill and K5 once a layer a decode step, K3 never. Their served
+    logits are held to the plain route as in phase 12, and each MoE layer
+    of the prefill is held to the plain route on the kernel route's own
+    input, with the tokens that the two routes' routers sent to other
+    experts counted. olmoe's decode step is traced as in phase 13, and its
+    MoE layer split into router, weight casts, expert products and the
+    dispatch and combine around them.
+23c-23d. llama-3.2-vision-11b and whisper-small at their published
+    widths and all their layers through ``repro_torch.models.backbone``
+    (the server sends tokens only): 16 streams of 128 tokens with the stub
+    frontend's embeddings (image (16, 1600, 4096), frames (16, 1500, 768),
+    bf16 from a seeded generator on the card), ``apply_prefill`` and
+    ``NEW_SERVE_STEPS`` sampled ``apply_decode(batch=)`` steps. llama: K4
+    32 self + 8 cross (unmasked over 1,600 keys) at the prefill, K5 40 a
+    step; whisper: K4 12 encoder (unmasked over 1,500 frames) + 12 self +
+    12 cross, K5 24 a step; the counts are zeroed just before and read
+    just after. Prints as phase 11, and the logits are held to the plain
+    route as in phase 12.
+24. Path shapes: every shape at which a serving path (11, 16, 20-23d)
     launched K3, K4 or K5 (each wrapper's ``shapes``) and that phases 9,
     10 and 15 left out, held against the plain version as those phases
     hold theirs; its errors join the kernels' ``max_abs_err``.
@@ -479,6 +505,12 @@ K4_CASES = [
     (16, 128, 128, 32, 32, 64, True, 0),    # stablelm-1.6b: D = 64, G = 1
     (16, 2048, 2048, 10, 1, 256, True, 2048),  # recurrentgemma-2b: G = 10
     (2, 512, 512, 10, 1, 256, True, 128),   # D = 256, G = 10 under a window
+    # cross-attention and the whisper encoder (phases 23c-23d), unmasked:
+    # S > T as the image layers' 1,600 keys, ragged on both sides as
+    # whisper's 1,500 frames, and the encoder itself at batch 2
+    (2, 100, 1600, 32, 8, 128, False, 0),
+    (2, 37, 1500, 12, 12, 64, False, 0),
+    (2, 1500, 1500, 12, 12, 64, False, 0),
 ]
 # K5 checks: (B, H, K, S, D, cache_index, window) with the decode path's
 # bias: decode_bias(cache_index, S, window)
@@ -503,6 +535,10 @@ K5_CASES = [
     (16, 10, 1, 2048, 256, 2055, 2048),     # recurrentgemma-2b: the ring
     # past its wrap (G = 10, D = 256), then before it (masked suffix)
     (16, 10, 1, 2048, 256, 1500, 2048),
+    # cross-attention decode (phases 23c-23d): the index past the last
+    # slot, so every one of the 1,600 or 1,500 keys is valid
+    (4, 32, 8, 1600, 128, 1600, 0),
+    (4, 12, 12, 1500, 64, 1500, 0),
 ]
 # each kernel's device events in a profiler trace: its launch, then any
 # pass it launches with it (K5's combine of the S splits)
@@ -517,6 +553,13 @@ DEVICE_CALLS = 50
 # traces of one call that phase 2a takes before it fails where one holds
 # only some of its device events
 DEVICE_TRIES = 3
+# traces of a serving or sync busy share (``_traced``) taken before the run
+# fails where each lost some of its kernel's launches, and the idle host
+# seconds between two of them: a long trace (the hybrid's 0.77 s prefill)
+# has been seen to lose one of its 18 K3 launches in three takes in a row
+# that followed one another at once, where five whole runs before had
+# lost none
+TRACE_TRIES, TRACE_RETRY_PAUSE_S = 6, 2.0
 # idle host seconds a trace keeps before its first launch and after its
 # last synchronise. The trace drops a device event whose time, converted
 # to the host's clock, falls outside its window, and now and then the
@@ -528,19 +571,26 @@ TRACES_RETAKEN = []
 # the async windows' pad less the largest shift allowed for: the busy
 # time leaves out what the actors launched in it
 ASYNC_SKIP_US = (TRACE_PAD_S - 0.01) * 1e6
-# K4 timed, causal: (label, (B, T, H, K, D), window, calls); K5: (label,
-# (B, H, K, S, D), cache_index, window, calls). "gemma" and
+# K4 timed: (label, (B, T, S, H, K, D), causal, window, calls); K5:
+# (label, (B, H, K, S, D), cache_index, window, calls). "gemma" and
 # "recurrentgemma" are those serving paths' prefill and decode shapes
 # (phases 20 and 23; the hybrid's window of 2048 covers its whole prefill,
-# and its decode reads the ring past its wrap)
-K4_TIMED = [("main", (16, 128, 32, 8, 128), 0, 200),
-            ("long", (1, 4096, 32, 8, 128), 0, 10),
-            ("gemma", (16, 128, 16, 16, 256), 0, 200),
-            ("recurrentgemma", (16, 2048, 10, 1, 256), 2048, 10)]
+# and its decode reads the ring past its wrap); "llama cross" the VLM's
+# image layers (phase 23c: 128 queries over 1,600 patch keys, unmasked;
+# its decode step's query over all of them), "whisper encoder" and
+# "whisper cross" the audio backbone's (phase 23d)
+K4_TIMED = [("main", (16, 128, 128, 32, 8, 128), True, 0, 200),
+            ("long", (1, 4096, 4096, 32, 8, 128), True, 0, 10),
+            ("gemma", (16, 128, 128, 16, 16, 256), True, 0, 200),
+            ("recurrentgemma", (16, 2048, 2048, 10, 1, 256), True, 2048, 10),
+            ("llama cross", (16, 128, 1600, 32, 8, 128), False, 0, 200),
+            ("whisper encoder", (16, 1500, 1500, 12, 12, 64), False, 0, 20)]
 K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 0, 200),
             ("long", (8, 32, 8, 32768, 128), 40000, 0, 20),
             ("gemma", (16, 16, 16, 128, 256), 135, 0, 200),
-            ("recurrentgemma", (16, 10, 1, 2048, 256), 2055, 2048, 200)]
+            ("recurrentgemma", (16, 10, 1, 2048, 256), 2055, 2048, 200),
+            ("llama cross", (16, 32, 8, 1600, 128), 1600, 0, 200),
+            ("whisper cross", (16, 12, 12, 1500, 64), 1500, 0, 200)]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
 SERVE_PARAMS = 11_576_791_059
@@ -564,6 +614,27 @@ NEW_SERVES = [
     ("qwen1.5-4b", 128, 40, 3_561_461_779, (0, 40, 320)),
     ("stablelm-1.6b", 128, 24, 1_439_033_363, (0, 24, 192)),
     ("recurrentgemma-2b", 2048, 26, 2_894_622_739, (18, 8, 64)),
+]
+# phases 23a-23b: the MoE configs through the server at full width, as
+# phases 20-22 (ctx 128, one batch of 16, NEW_SERVE_STEPS decode steps):
+# (arch, ctx, layers, params, launches of K3, K4, K5). olmoe's decode
+# step is traced, and its MoE layer split into its parts (MOE_SPLIT)
+MOE_SERVES = [
+    ("granite-moe-1b-a400m", 128, 24, 1_334_647_827, (0, 24, 192)),
+    ("olmoe-1b-7b", 128, 16, 6_816_112_659, (0, 16, 128)),
+]
+MOE_SPLIT = "olmoe-1b-7b"
+# phases 23c-23d: the VLM and the enc-dec backbone at full width through
+# the backbone API (the server sends tokens only): batch 16, ctx 128,
+# NEW_SERVE_STEPS decode steps, the stub frontend's embeddings (B,
+# encoder_seq_len, d_model) in bf16 from a seeded generator on the card.
+# (arch, layers, params, launches of K3, K4, K5): llama K4 32 self + 8
+# cross a prefill and K5 40 a step; whisper K4 12 encoder + 12 self + 12
+# cross, K5 12 self + 12 cross a step
+CROSS_BATCH, CROSS_CTX = 16, 128
+CROSS_RUNS = [
+    ("llama-3.2-vision-11b", 40, 9_249_898_515, (0, 40, 320)),
+    ("whisper-small", 12, 238_204_435, (0, 36, 192)),
 ]
 # the shapes the serving paths launched K3, K4 and K5 at (each wrapper's
 # ``shapes``, read after each serving run), held in phase 24
@@ -3038,6 +3109,7 @@ def _serve_counted(lk, fk, dk, argv, want, launches_want):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     kernels = {"linear_scan": lk.linear_scan,
                "flash_attention": fk.flash_attention,
                "decode_attention": dk.decode_attention}
@@ -3073,7 +3145,8 @@ def _serve_counted(lk, fk, dk, argv, want, launches_want):
           f"decode steps), prefill {med(run.prefill_ms):.3f} ms (median of "
           f"{len(run.prefill_ms)}), decode step {med(run.decode_ms):.3f} ms "
           f"(median of {len(run.decode_ms)}), peak allocated "
-          f"{peak / 1e9:.2f} GB; {_card_line()}")
+          f"{peak / 1e9:.2f} GB ({held / 1e9:.2f} GB of it held before "
+          f"the run); {_card_line()}")
     return launches, run
 
 
@@ -3089,21 +3162,24 @@ def phase_serve(lk, fk, dk):
 
 
 def phase_serve_logits(run) -> float:
-    """Replay the first batch through the plain attention route."""
+    """Replay the first batch through the plain attention route: its
+    tokens, and the stub frontend's embeddings where it had them
+    (``first_batch["ctx"]``, phases 23c-23d), then its sampled actions."""
     from repro_torch.models import backbone as bb
 
     fb = run.first_batch
     toks = fb["tokens"]
     ctx = toks.shape[1]
+    batch = {"tokens": toks, **fb.get("ctx", {})}
     worst = 0.0
     with torch.no_grad():
-        out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
+        out = bb.apply_prefill(run.params, batch, run.arch,
                                run.num_actions, impl="ref")
         outs = [out.policy_logits]
         cache, tok = out.cache, toks[:, -1:]
         for i, action in enumerate(fb["actions"]):
             out = bb.apply_decode(run.params, tok, cache, ctx + i, run.arch,
-                                  run.num_actions, impl="ref")
+                                  run.num_actions, batch=batch, impl="ref")
             cache = out.cache
             outs.append(out.policy_logits)
             tok = action % run.arch.vocab_size
@@ -3162,22 +3238,24 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
 
 
 def _traced(what: str, take, kernel=None, launches: int = 0):
-    """``take()``'s profiler trace, taken again (up to ``DEVICE_TRIES``
-    traces, as phase 2a's are) while it holds another number than
-    ``launches`` of ``kernel``'s launches: such a trace lost device
+    """``take()``'s profiler trace, taken again (up to ``TRACE_TRIES``
+    traces, ``TRACE_RETRY_PAUSE_S`` apart) while it holds another number
+    than ``launches`` of ``kernel``'s launches: such a trace lost device
     events. ``_print_busy`` then holds the last one to the same count."""
-    for attempt in range(1, DEVICE_TRIES + 1):
+    for attempt in range(1, TRACE_TRIES + 1):
         prof = take()
-        if kernel is None or attempt == DEVICE_TRIES:
+        if kernel is None or attempt == TRACE_TRIES:
             return prof
         name = KERNEL_EVENTS[kernel][0]
         _, _, whole = _device_busy(prof.events())
         got = sum(c for event, (_, c) in whole.items() if name in event)
         if got == launches:
             return prof
-        print(f"{what}: trace {attempt} of {DEVICE_TRIES} holds {got} "
-              f"{name} launches where {launches} ran; traced again")
+        print(f"{what}: trace {attempt} of {TRACE_TRIES} holds {got} "
+              f"{name} launches where {launches} ran; traced again after "
+              f"{TRACE_RETRY_PAUSE_S} s")
         TRACES_RETAKEN.append({name: got})
+        time.sleep(TRACE_RETRY_PAUSE_S)
 
 
 def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
@@ -3281,12 +3359,12 @@ def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
     return total
 
 
-def _k4_inputs(b, t, h, kh, d, dev):
-    """K4's bf16 (q, k, v) and SDPA's (B, heads, T, D) views of them."""
+def _k4_inputs(b, t, s, h, kh, d, dev):
+    """K4's bf16 (q, k, v) and SDPA's (B, heads, T or S, D) views of them."""
     bf = torch.bfloat16
     q = _rand((b, t, h, d), 7, bf, dev)
-    k = _rand((b, t, kh, d), 8, bf, dev)
-    v = _rand((b, t, kh, d), 9, bf, dev)
+    k = _rand((b, s, kh, d), 8, bf, dev)
+    v = _rand((b, s, kh, d), 9, bf, dev)
     return (q, k, v) + tuple(x.transpose(1, 2) for x in (q, k, v))
 
 
@@ -3303,43 +3381,46 @@ def _k5_inputs(b, h, kh, s, d, index, window, dev):
             v.transpose(1, 2), bias.to(bf)[:, None, None, :])
 
 
-def _k4_library(qt, kt, vt, window: int):
-    """The library call beside K4: causal ``F.scaled_dot_product_attention``
-    on SDPA's (B, heads, T, D) views. Only where ``window`` masks nothing
-    past the causal mask (0, or at least T) is that the same function."""
+def _k4_library(qt, kt, vt, causal: bool, window: int):
+    """The library call beside K4: ``F.scaled_dot_product_attention`` on
+    SDPA's (B, heads, T or S, D) views, causal or unmasked as K4's call.
+    Only where ``window`` masks nothing past the causal mask (0, or at
+    least T) is that the same function."""
     import torch.nn.functional as F
 
     if window and window < qt.shape[2]:
         raise ValueError(f"window {window} < T {qt.shape[2]}: the causal "
                          f"library call would compute another function")
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
 
 
 def phase_attn_times(fk, dk, dev):
     """K4 and K5 at the serving paths' shapes and one long shape each, in
     bf16, beside the plain version, the bound and one library call. K4's
     windows cover the whole context (``_k4_library``), so the library
-    call's causal mask is the same function."""
+    call's causal (or absent) mask is the same function."""
     import torch.nn.functional as F
 
     rows = {}
-    for label, (b, t, h, kh, d), window, iters in K4_TIMED:
-        q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
-        lib = _k4_library(qt, kt, vt, window)
-        ms = _time_ms(lambda: fk.flash_attention(q, k, v, True, window),
+    for label, (b, t, s, h, kh, d), causal, window, iters in K4_TIMED:
+        q, k, v, qt, kt, vt = _k4_inputs(b, t, s, h, kh, d, dev)
+        lib = _k4_library(qt, kt, vt, causal, window)
+        ms = _time_ms(lambda: fk.flash_attention(q, k, v, causal, window),
                       iters)
         plain_ms = _time_ms(lambda: fk.flash_attention_plain(
-            q, k, v, True, window), iters)
+            q, k, v, causal, window), iters)
         lib_ms = _time_ms(lib, iters)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        ops = 4 * b * h * d * _attn_pairs(t, t, True, window)
+        ops = 4 * b * h * d * _attn_pairs(t, s, causal, window)
         bound_ms, bound_by = _bound(nbytes, ops, BF16_OPS_PER_S)
         (dev_ms, calls), (lib_dev_ms, _) = (
             DEVICE[("flash_attention", label)],
             DEVICE[("flash_attention library", label)])
-        print(f"time flash_attention {label} (B,T,H,K,D)="
-              f"{(b, t, h, kh, d)} causal window={window} bf16: kernel "
+        print(f"time flash_attention {label} (B,T,S,H,K,D)="
+              f"{(b, t, s, h, kh, d)} "
+              f"{'causal' if causal else 'non-causal'} window={window} "
+              f"bf16: kernel "
               f"{ms:.5f} ms "
               f"({ops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e9:.3f} TB/s,"
               f" {100 * bound_ms / ms:.1f}% of the bound), plain "
@@ -3490,13 +3571,13 @@ def phase_device_times(vk, fk, dk, lk, dev) -> None:
              KERNEL_EVENTS["vtrace"])
         keep(("loss_vtrace", (t, b, a)), lambda: vk.loss_vtrace(*inp),
              KERNEL_EVENTS["loss_vtrace"])
-    for label, (b, t, h, kh, d), window, _ in K4_TIMED:
-        q, k, v, qt, kt, vt = _k4_inputs(b, t, h, kh, d, dev)
+    for label, (b, t, s, h, kh, d), causal, window, _ in K4_TIMED:
+        q, k, v, qt, kt, vt = _k4_inputs(b, t, s, h, kh, d, dev)
         keep(("flash_attention", label),
-             lambda: fk.flash_attention(q, k, v, True, window),
+             lambda: fk.flash_attention(q, k, v, causal, window),
              KERNEL_EVENTS["flash_attention"])
         keep(("flash_attention library", label),
-             _k4_library(qt, kt, vt, window), None)
+             _k4_library(qt, kt, vt, causal, window), None)
     for label, (b, h, kh, s, d), index, window, _ in K5_TIMED:
         q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
                                                      window, dev)
@@ -3563,7 +3644,237 @@ def phase_serve_config(lk, fk, dk, arch: str, ctx: int, layers: int,
     if k3:
         phase_serve_split(run, "decode_attention", k5 // NEW_SERVE_STEPS)
         phase_prefill_split(run, k3)
+    if run.arch.family == "moe":
+        phase_moe_layers(run)
+    if arch == MOE_SPLIT:
+        phase_serve_split(run, "decode_attention", k5 // NEW_SERVE_STEPS)
+        phase_moe_split(run)
     del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 14: MoE, cross-attention and enc-dec
+
+
+def phase_moe_layers(run) -> Tuple[float, int]:
+    """Each MoE layer of the first batch's prefill against the plain route
+    on the same input: the kernel route's own hidden state, layer by
+    layer. A block's update (its output less its input) on the kernel
+    route and on the plain route is held to ``LOGITS_RTOL`` of the plain
+    one's largest magnitude, and the tokens whose top-k expert sets the
+    two routes' routers chose differently are counted. Returns (the worst
+    error over its bar's scale, tokens routed differently in all)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import embed, torch_dtype
+    from repro_torch.params import tree_map
+
+    cfg, params = run.arch, run.params
+    toks = run.first_batch["tokens"]
+    b, t = toks.shape
+    positions = torch.arange(t, device=toks.device).expand(b, t)
+    routes = []
+    real_route = moe_lib.route
+
+    def recorded(p, xr, c):
+        out = real_route(p, xr, c)
+        routes.append(out[1])
+        return out
+
+    worst, moved, lines = 0.0, 0, []
+    moe_lib.route = recorded
+    try:
+        with torch.no_grad():
+            x = embed(params["embed"], toks, torch_dtype(cfg.dtype))
+            for gi in range(tfm.num_groups(cfg)):
+                p = tree_map(lambda a: a[gi], params["stack"]["scan"])["l0"]
+                routes.clear()
+                ys = [tfm.apply_block(p, x, positions, cfg, "moe",
+                                      mode="prefill", cache=None,
+                                      impl=impl)[0]
+                      for impl in ("auto", "ref")]
+                got, want = (y.float() - x.float() for y in ys)
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                picked = [torch.sort(r, dim=-1).values for r in routes]
+                differ = int((picked[0] != picked[1]).any(-1).sum())
+                if not err <= LOGITS_RTOL * scale:
+                    raise AssertionError(
+                        f"{cfg.name} MoE layer {gi}: max abs err {err:.3e} "
+                        f"> {LOGITS_RTOL} x max |update| {scale:.3e}; "
+                        f"{differ} of {b * t} tokens routed differently")
+                worst, moved = max(worst, err / scale), moved + differ
+                lines.append(f"{gi}: {100 * err / scale:.3f}%/{differ}")
+                x = ys[0]
+    finally:
+        moe_lib.route = real_route
+    print(f"{cfg.name} MoE layers vs the plain route on the kernel route's "
+          f"own input (prefill, {b * t} tokens, top-"
+          f"{cfg.moe.num_experts_per_tok} of {cfg.moe.num_experts}): worst "
+          f"{100 * worst:.3f}% of the update's max (bar "
+          f"{100 * LOGITS_RTOL:.0f}%), {moved} token-layers routed "
+          f"differently; layer: err/tokens {' '.join(lines)}")
+    return worst, moved
+
+
+def phase_moe_split(run) -> None:
+    """Where an MoE layer's time goes in a decode step, at the served
+    shape: layer 0's FFN on a (B, 1, d) bf16 input, whole and by parts,
+    each timed with CUDA events (the call) and from a profiler trace (the
+    card's busy time, ``_device_ms``): the router (``route``), the f32 ->
+    bf16 casts of the expert kernels (each layer casts them at every
+    step), the three expert products on cast kernels, and the rest (the
+    dispatch's bookkeeping and index writes, the combine), the whole less
+    those."""
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.params import tree_map
+
+    cfg = run.arch
+    m = cfg.moe
+    bf = torch.bfloat16
+    dev = torch.device("cuda", 0)
+    p = tree_map(lambda a: a[0], run.params["stack"]["scan"])["l0"]["ffn"]
+    b = run.first_batch["tokens"].shape[0]
+    x = _rand((b, 1, cfg.d_model), 31, bf, dev)
+    cap = 2 * moe_lib._capacity(b, cfg)
+    names = ("up", "gate", "down")
+    w = {n: p[n]["kernel"].to(bf) for n in names}
+    disp = _rand((1, m.num_experts, cap, cfg.d_model), 32, bf, dev)
+    act = common.activation("gelu" if cfg.activation == "geglu" else "silu")
+
+    def products():
+        up = torch.einsum("recd,edf->recf", disp, w["up"])
+        h = act(torch.einsum("recd,edf->recf", disp, w["gate"])) * up
+        return torch.einsum("recf,efd->recd", h, w["down"])
+
+    parts = [("whole", lambda: moe_lib.apply_moe(p, x, cfg)),
+             ("router", lambda: moe_lib.route(p, x.reshape(1, b, -1), cfg)),
+             ("casts", lambda: [p[n]["kernel"].to(bf) for n in names]),
+             ("products", products)]
+    got = {}
+    with torch.no_grad():
+        for name, fn in parts:
+            got[name] = (_time_ms(fn, 50), _device_ms(fn, None, 20)[0])
+    rest = tuple(got["whole"][i] - sum(got[n][i] for n in
+                                       ("router", "casts", "products"))
+                 for i in (0, 1))
+    cast_bytes = 6 * sum(p[n]["kernel"].numel() for n in names)
+    print(f"{cfg.name} MoE layer in a decode step (B={b}, {m.num_experts} "
+          f"experts, top-{m.num_experts_per_tok}, capacity {cap}), call / "
+          f"device ms: " + ", ".join(
+              f"{n} {c:.5f} / {d:.5f}" for n, (c, d) in got.items())
+          + f", rest (dispatch and combine) {rest[0]:.5f} / {rest[1]:.5f};"
+          f" the casts move {cast_bytes / 1e9:.3f} GB "
+          f"({cast_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); {_card_line()}")
+
+
+def phase_cross_config(lk, fk, dk, arch: str, layers: int, params: int,
+                       want: Tuple[int, int, int]):
+    """Phases 23c-23d: llama-3.2-vision-11b or whisper-small at full width
+    and all its layers through the backbone API (the server sends tokens
+    only): the server's weights (random, seed 0, its vocab of at least
+    4096 and 18 actions), ``CROSS_BATCH`` streams of ``CROSS_CTX`` tokens
+    and the stub frontend's embeddings (bf16, from a seeded generator on
+    the card), ``apply_prefill`` and ``NEW_SERVE_STEPS`` sampled
+    ``apply_decode(batch=)`` steps. The launches of (K3, K4, K5) over
+    exactly that must equal ``want`` (the cached encoder keys win, so no
+    decode step reruns the encoder or K4); every logit finite and of its
+    shape; then the logits against the plain route (phase 12). Returns
+    the launches."""
+    import numpy as np
+
+    from repro_torch import params as params_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import NUM_ACTIONS
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, 4096))
+    a = NUM_ACTIONS
+    specs = bb.backbone_specs(cfg, a)
+    count = common.param_count(specs)
+    weights = params_lib.from_jax(common.init_params(specs, 0, dev), dev,
+                                  requires_grad=False)
+    key = "image_embed" if cfg.family == "vlm" else "enc_embed"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn((CROSS_BATCH, cfg.encoder_seq_len, cfg.d_model),
+                      generator=gen, device=dev).to(torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (CROSS_BATCH, CROSS_CTX))).to(dev)
+    batch = {"tokens": toks, key: emb}
+    kernels = {"linear_scan": lk.linear_scan,
+               "flash_attention": fk.flash_attention,
+               "decode_attention": dk.decode_attention}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+        fn.shapes.clear()
+
+    def mark():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    actions = []
+    with torch.no_grad():
+        marks = [mark()]
+        out = bb.apply_prefill(weights, batch, cfg, a)
+        marks.append(mark())
+        logits, cache, tok = [out.policy_logits], out.cache, toks[:, -1:]
+        for i in range(NEW_SERVE_STEPS):
+            out = bb.apply_decode(weights, tok, cache, CROSS_CTX + i, cfg, a,
+                                  batch=batch)
+            cache = out.cache
+            action = torch.multinomial(
+                torch.softmax(out.policy_logits[:, 0], dim=-1), 1,
+                generator=gen)
+            tok = action % cfg.vocab_size
+            marks.append(mark())
+            logits.append(out.policy_logits)
+            actions.append(action)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, fn in kernels.items():
+        PATH_SHAPES[name] |= fn.shapes
+    peak = torch.cuda.max_memory_allocated()
+    want = dict(zip(kernels, want))
+    if (cfg.num_layers, count) != (layers, params) or launches != want:
+        raise AssertionError(f"{arch} through the backbone API: (layers, "
+                             f"params) {(cfg.num_layers, count)}, launches "
+                             f"{launches}; expected {(layers, params)}, "
+                             f"launches {want}")
+    for i, lg in enumerate(logits):
+        if tuple(lg.shape) != (CROSS_BATCH, 1, a) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch} logits {i}: {tuple(lg.shape)}, "
+                                 f"finite {bool(torch.isfinite(lg).all())}")
+    decode_ms = sorted(m0.elapsed_time(m1)
+                       for m0, m1 in zip(marks[1:], marks[2:]))
+    print(f"backbone API: {arch} {count:,} params, {cfg.num_layers} layers"
+          f" (+{cfg.encoder_layers} encoder), d_model {cfg.d_model}, "
+          f"{key} {tuple(emb.shape)} bf16, batch {CROSS_BATCH}, ctx "
+          f"{CROSS_CTX}; launches K3 {launches['linear_scan']} K4 "
+          f"{launches['flash_attention']} K5 {launches['decode_attention']}")
+    print(f"backbone API: {arch} prefill {marks[0].elapsed_time(marks[1]):.3f}"
+          f" ms, decode step {decode_ms[len(decode_ms) // 2]:.3f} ms (median "
+          f"of {len(decode_ms)}), peak allocated {peak / 1e9:.2f} GB "
+          f"({held / 1e9:.2f} GB of it held before the run); "
+          f"{_card_line()}")
+    run = types.SimpleNamespace(
+        params=weights, arch=cfg, num_actions=a,
+        first_batch={"tokens": toks, "actions": actions, "logits": logits,
+                     "ctx": {key: emb}})
+    phase_serve_logits(run)
+    del run, weights, cache, out, emb, batch
     torch.cuda.empty_cache()
     return launches
 
@@ -3784,6 +4095,17 @@ def main() -> int:
         for name, count in got.items():
             launches[name] += count
         lap(f"{20 + n} ({arch})")
+    for letter, (arch, ctx, layers, params, want) in zip("ab", MOE_SERVES):
+        got = phase_serve_config(lk, fk, dk, arch, ctx, layers, params,
+                                 want)
+        for name, count in got.items():
+            launches[name] += count
+        lap(f"23{letter} ({arch})")
+    for letter, (arch, layers, params, want) in zip("cd", CROSS_RUNS):
+        got = phase_cross_config(lk, fk, dk, arch, layers, params, want)
+        for name, count in got.items():
+            launches[name] += count
+        lap(f"23{letter} ({arch})")
     e3, e4, e5 = phase_serve_path_shapes(lk, fk, dk, dev)
     err_k3, err_k4, err_k5 = (max(err_k3, e3), max(err_k4, e4),
                               max(err_k5, e5))

@@ -1,9 +1,9 @@
 """Configuration dataclasses (the port's own copy of ``repro.configs.base``).
 
 ``ArchConfig`` keeps only the fields the ported paths read: those of the
-conv-LSTM agents, of the dense token decoders, of the Mamba-2 SSM stack
-and of the RG-LRU hybrid (the MoE, enc-dec and VLM fields join with those
-blocks).
+conv-LSTM agents and of every token backbone (dense, MoE, SSM, RG-LRU
+hybrid, enc-dec audio and cross-attention VLM). It leaves out the JAX
+package's scan/remat switches, which only shape XLA's program.
 ``ImpalaConfig`` has every field of the reference but ``seed``, which
 no code reads: the runs take their seed as an argument.
 """
@@ -11,6 +11,16 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss_coef: float = 0.01
+    # 'dense_einsum' (GSPMD auto) or 'shard_map_a2a' (explicit all_to_all)
+    dispatch_impl: str = "dense_einsum"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +47,8 @@ class RGLRUConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # impala_cnn | dense | ssm | hybrid
+    # dense | moe | ssm | hybrid | audio | vlm | impala_cnn
+    family: str
     num_layers: int
     d_model: int
     num_heads: int
@@ -52,6 +63,12 @@ class ArchConfig:
     rope_theta: float = 10000.0
     use_rope: bool = True
     sliding_window: int = 0       # 0 = full attention
+    # encoder-decoder (whisper): encoder layer count; 0 = decoder-only
+    encoder_layers: int = 0
+    encoder_seq_len: int = 0      # stub frontend's length (frames/patches)
+    # VLM: insert a cross-attention layer every k layers (0 = none)
+    cross_attn_every: int = 0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # IMPALA conv nets (paper Fig. 3)

@@ -1,11 +1,12 @@
 """Architecture config registry: ``get_config(name)`` / ``list_configs()``.
 
-The paper's two conv-LSTM agents, the dense decoders (mistral-nemo-12b,
-gemma-7b, qwen1.5-4b, stablelm-1.6b), the SSM stack mamba2-1.3b and the
-RG-LRU hybrid recurrentgemma-2b are ported. The other token backbones of
-the JAX registry are known by name, so asking for one ends the run with
-a pointer to the roadmap item that ports them instead of a bare
-``KeyError``.
+Every architecture of the JAX registry is ported: the paper's two
+conv-LSTM agents, the dense decoders (mistral-nemo-12b, gemma-7b,
+qwen1.5-4b, stablelm-1.6b), the MoE decoders (granite-moe-1b-a400m,
+olmoe-1b-7b), the SSM stack mamba2-1.3b, the RG-LRU hybrid
+recurrentgemma-2b, the VLM llama-3.2-vision-11b and the enc-dec
+whisper-small. Each module defines ``CONFIG`` (the published widths) and
+``smoke_config()`` (the reduced variant of the CPU tests).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES = ["impala_shallow", "impala_deep", "mistral_nemo_12b",
                  "mamba2_1_3b", "gemma_7b", "qwen1_5_4b", "stablelm_1_6b",
-                 "recurrentgemma_2b"]
+                 "recurrentgemma_2b", "granite_moe_1b_a400m", "olmoe_1b_7b",
+                 "llama_3_2_vision_11b", "whisper_small"]
 
 _ALIASES = {
     "impala-shallow": "impala_shallow",
@@ -25,23 +27,14 @@ _ALIASES = {
     "qwen1.5-4b": "qwen1_5_4b",
     "stablelm-1.6b": "stablelm_1_6b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "whisper-small": "whisper_small",
 }
-
-# the JAX registry's token backbones (names and module names)
-_TOKEN_ARCHS = {
-    "granite-moe-1b-a400m", "whisper-small", "llama-3.2-vision-11b",
-    "olmoe-1b-7b",
-}
-_TOKEN_ARCHS |= {n.replace("-", "_").replace(".", "_") for n in _TOKEN_ARCHS}
-
-NOT_PORTED_TOKEN = ("this token backbone is not ported yet (ROADMAP.md, "
-                    "Queue 1 item 14: the MoE, cross-attention and enc-dec "
-                    "backbones)")
 
 
 def _module(name: str):
-    if name in _TOKEN_ARCHS:
-        raise SystemExit(f"--arch {name}: {NOT_PORTED_TOKEN}")
     mod = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod not in _ARCH_MODULES:
         raise KeyError(f"unknown architecture {name!r}; "

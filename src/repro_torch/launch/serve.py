@@ -22,6 +22,19 @@ The kernels on the card, per family:
   local-attention layer; each decode step runs K5 once a local-attention
   layer, against its ring buffer of ``min(ctx, window)`` slots, and
   launches no K3 (the recurrent layers update their states in place).
+* ``moe`` (``--arch granite-moe-1b-a400m``, ``olmoe-1b-7b``): as dense,
+  K4 once a layer each prefill and K5 once a layer each decode step; the
+  top-k router, the capacity dispatch, the expert products and the
+  combine between them are PyTorch calls, as the reference computes them
+  outside any kernel.
+
+The ``vlm`` and ``audio`` backbones (llama-3.2-vision-11b, whisper-small)
+are not served: the server sends tokens only, and they need the stub
+frontend's image or frame embeddings. They run through
+``repro_torch.models.backbone`` (``apply_prefill`` with
+``batch["image_embed"]`` or ``batch["enc_embed"]``, then
+``apply_decode``). Asked for one, the server stops before it draws a
+weight; the JAX server fails at its first prefill (``KeyError``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
@@ -30,6 +43,8 @@ The kernels on the card, per family:
       --arch gemma-7b          # or qwen1.5-4b, stablelm-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch recurrentgemma-2b --ctx 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch olmoe-1b-7b       # or granite-moe-1b-a400m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
       --requests 4 --batch 2 --ctx 16 --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
@@ -60,6 +75,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.train import resolve_device
 
 NUM_ACTIONS = 18        # the Atari action set, as the JAX server uses
+# the batch key of the stub frontends' embeddings, by family
+_CTX_KEY = {"vlm": "image_embed", "audio": "enc_embed"}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -73,7 +90,9 @@ def _parser() -> argparse.ArgumentParser:
                         "layer, K5 each decode layer), mamba2-1.3b (ssm: "
                         "K3 each prefill layer) or recurrentgemma-2b "
                         "(hybrid: K3 each recurrent prefill layer, K4/K5 "
-                        "each local-attention layer)")
+                        "each local-attention layer), granite-moe-1b-a400m "
+                        "or olmoe-1b-7b (moe: K4 each prefill layer, K5 "
+                        "each decode layer)")
     p.add_argument("--smoke", action="store_true",
                    help="use the reduced smoke config of --arch")
     p.add_argument("--batch", type=int, default=16)
@@ -122,6 +141,13 @@ def serve(argv: Optional[List[str]] = None) -> ServeRun:
         raise SystemExit(f"--arch {args.arch}: the server runs token "
                          f"backbones; the conv-LSTM agents act inside "
                          f"repro_torch.launch.train")
+    if arch.family in ("vlm", "audio"):
+        raise SystemExit(
+            f"--arch {args.arch}: the server sends tokens only, and this "
+            f"{arch.family} backbone needs the stub frontend's "
+            f"{'image' if arch.family == 'vlm' else 'frame'} embeddings; "
+            f"run it through repro_torch.models.backbone (apply_prefill "
+            f"with batch['{_CTX_KEY[arch.family]}'], then apply_decode)")
     arch = arch.replace(vocab_size=max(arch.vocab_size, 4096))
     a = NUM_ACTIONS
     specs = bb.backbone_specs(arch, a)

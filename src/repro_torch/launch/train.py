@@ -443,10 +443,13 @@ def train(argv: Optional[List[str]] = None,
     env = make_env(args.env)
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if arch.family != "impala_cnn":
+        runs = ("runs through repro_torch.models.backbone (apply_prefill "
+                "and apply_decode, with the stub frontend's embeddings)"
+                if arch.family in ("vlm", "audio") else
+                "serves through repro_torch.launch.serve")
         raise SystemExit(f"--arch {args.arch}: training a token backbone is "
                          f"not ported yet (ROADMAP.md, Queue 1 item 14: "
-                         f"token training); it serves through "
-                         f"repro_torch.launch.serve")
+                         f"token training); it {runs}")
     arch = arch.replace(image_hw=env.image_hw)
     icfg = ImpalaConfig(
         num_actions=env.num_actions, unroll_length=args.unroll,

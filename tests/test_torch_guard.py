@@ -52,7 +52,12 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.models.rglru', 'repro_torch.configs.gemma_7b', "
         "'repro_torch.configs.qwen1_5_4b', "
         "'repro_torch.configs.stablelm_1_6b', "
-        "'repro_torch.configs.recurrentgemma_2b'}\n"
+        "'repro_torch.configs.recurrentgemma_2b', "
+        "'repro_torch.models.moe', "
+        "'repro_torch.configs.granite_moe_1b_a400m', "
+        "'repro_torch.configs.olmoe_1b_7b', "
+        "'repro_torch.configs.llama_3_2_vision_11b', "
+        "'repro_torch.configs.whisper_small'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
@@ -90,8 +95,8 @@ _ASYNC = ["--runtime", "async"]
     (["--learner-mode", "spmd"], "requires --runtime async"),
     (["--arch", "gemma-7b"], "token training"),
     (["--arch", "recurrentgemma-2b"], "token training"),
-    (["--arch", "olmoe-1b-7b"], "item 14"),
-    (["--arch", "whisper-small"], "item 14"),
+    (["--arch", "olmoe-1b-7b"], "token training"),
+    (["--arch", "whisper-small"], "token training"),
     (["--arch", "mistral-nemo-12b"], "token training"),
     (["--arch", "mamba2-1.3b"], "token training"),
     (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
@@ -103,6 +108,23 @@ _ASYNC = ["--runtime", "async"]
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
         train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("arch,key", [
+    ("llama-3.2-vision-11b", "image_embed"), ("whisper-small", "enc_embed")])
+def test_server_refuses_the_vlm_and_audio_backbones(monkeypatch, arch, key):
+    """The server sends tokens only; the vlm and audio backbones need the
+    stub frontend's embeddings, so it stops, before any weight is drawn,
+    and names the backbone API that runs them."""
+    from repro_torch.models import common
+
+    def drawn(*args, **kw):
+        raise AssertionError("a weight was drawn")
+
+    monkeypatch.setattr(common, "init_params", drawn)
+    with pytest.raises(SystemExit, match=rf"sends tokens only.*"
+                       rf"repro_torch\.models\.backbone.*{key}"):
+        serve_lib.serve(["--device", "cpu", "--arch", arch])
 
 
 class _Reached(Exception):
@@ -421,7 +443,9 @@ def test_kernels_match_plain_on_the_card(t, b, a):
 @pytest.mark.parametrize("b,t,s,h,kh,d,causal,window", [
     (16, 128, 128, 32, 8, 128, True, 0), (2, 100, 160, 32, 8, 128, True, 0),
     (2, 160, 100, 8, 8, 64, False, 0), (1, 300, 300, 4, 1, 32, True, 64),
-    (2, 128, 128, 16, 16, 256, True, 0), (1, 300, 300, 10, 1, 256, True, 128)])
+    (2, 128, 128, 16, 16, 256, True, 0), (1, 300, 300, 10, 1, 256, True, 128),
+    # cross-attention: non-causal with S > T, ragged on both sides
+    (2, 100, 1600, 32, 8, 128, False, 0), (2, 37, 1500, 12, 12, 64, False, 0)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_matches_plain_on_the_card(b, t, s, h, kh, d, causal,
                                                    window, dtype):
@@ -444,7 +468,9 @@ def test_flash_attention_matches_plain_on_the_card(b, t, s, h, kh, d, causal,
 @pytest.mark.parametrize("b,h,kh,s,d,index,window", [
     (16, 32, 8, 128, 128, 160, 0), (4, 32, 8, 1000, 128, 300, 0),
     (4, 32, 8, 1024, 128, 2000, 256), (3, 8, 8, 130, 64, 100, 0),
-    (2, 16, 16, 128, 256, 135, 0), (2, 10, 1, 512, 256, 700, 512)])
+    (2, 16, 16, 128, 256, 135, 0), (2, 10, 1, 512, 256, 700, 512),
+    # cross-attention decode: every one of 1,500 or 1,600 keys valid
+    (4, 12, 12, 1500, 64, 1500, 0), (4, 32, 8, 1600, 128, 1600, 0)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_attention_matches_plain_on_the_card(b, h, kh, s, d, index,
                                                     window, dtype):

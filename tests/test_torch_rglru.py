@@ -257,12 +257,13 @@ def test_hybrid_stack_prefill_matches_jax_with_its_tail():
     b, t = 2, 10
     x = _normal((b, t, j_cfg.d_model), 19)
     pos = np.arange(t)[None].repeat(b, 0)
-    want, want_c, _ = j_tfm.apply_stack(jp["stack"], jnp.asarray(x),
-                                        jnp.asarray(pos), j_cfg,
-                                        mode="prefill")
-    got, got_c = transformer.apply_stack(tp["stack"], torch.from_numpy(x),
-                                         torch.from_numpy(pos), t_cfg,
-                                         mode="prefill")
+    want, want_c, want_aux = j_tfm.apply_stack(jp["stack"], jnp.asarray(x),
+                                               jnp.asarray(pos), j_cfg,
+                                               mode="prefill")
+    got, got_c, got_aux = transformer.apply_stack(
+        tp["stack"], torch.from_numpy(x), torch.from_numpy(pos), t_cfg,
+        mode="prefill")
+    assert float(got_aux) == float(want_aux) == 0.0     # no MoE layer
     assert sorted(got_c) == ["scan", "tail0", "tail1"]
     _close(want, got)
     _close_tree(want_c, got_c)
