@@ -244,7 +244,9 @@ exception and a nonzero exit:
 14. Times with CUDA events: K4 and K5 at the serving path's shapes, at
     gemma-7b's and recurrentgemma-2b's (phases 20 and 23), at
     llama-3.2-vision-11b's cross-attention and whisper-small's encoder and
-    cross-attention (phases 23c-23d), and at one long shape each, beside the plain version, the bound (bytes over
+    cross-attention (phases 23c-23d), K5 at the token actor's shape
+    (phase 25: stablelm-1.6b, 32 envs, a cache of 21 slots), and at one
+    long shape each, beside the plain version, the bound (bytes over
     3.35 TB/s, operations over 989 TFLOP/s bf16) and one library call,
     ``F.scaled_dot_product_attention``, that the port never calls; with
     the achieved TFLOP/s (K4) or TB/s (K5) and the share of the bound;
@@ -252,6 +254,10 @@ exception and a nonzero exit:
 15. K3 (the linear scan) against its plain version on the card, with h0
     and without: small and ragged shapes, the mamba2 serving path's
     cross-chunk pass (8, 8388608) and the RG-LRU prefill's (2048, 40960).
+    Its gradient (``LinearScanFn``: K3, then K3 on reversed time) against
+    autograd through the plain loop at the training shapes
+    (``K3_BWD_SHAPES``: recurrentgemma-2b's (21, 81920), mamba2-1.3b's
+    (1, 16777216), and (8, 1048576) with h0), one launch each way.
 16. The SSM serving path: ``repro_torch.launch.serve --arch mamba2-1.3b
     --ctx 2048`` (full width and all 48 layers, otherwise the CLI's
     defaults) on the card. K3 must launch once a layer at each prefill and
@@ -265,7 +271,8 @@ exception and a nonzero exit:
     beside the plain version and the bound (bytes over 3.35 TB/s,
     operations over 67 TFLOP/s fp32), and its device time from phase 2a;
     no single PyTorch call computes the recurrence, so there is no
-    library time.
+    library time. Then its forward and its backward at the training
+    shapes, each beside its bound.
 20-23. The dense configs and the RG-LRU hybrid at their published widths
     and all their layers (``NEW_SERVES``): ``repro_torch.launch.serve
     --arch gemma-7b``, ``qwen1.5-4b``, ``stablelm-1.6b`` (ctx 128) and
@@ -304,6 +311,28 @@ exception and a nonzero exit:
     launched K3, K4 or K5 (each wrapper's ``shapes``) and that phases 9,
     10 and 15 left out, held against the plain version as those phases
     hold theirs; its errors join the kernels' ``max_abs_err``.
+25. Token training, the main path of slice 15: ``repro_torch.launch.train
+    --arch stablelm-1.6b`` at full width and all 24 layers (catch, the
+    CLI's 32 envs x unroll 20, ``TRAIN_STEPS`` steps), every kernel count
+    zeroed just before and read just after: K5 once a layer a decode step
+    (4 x 20 x 24 = 1,920), K2 once a step, K1, K3 and K4 never. Every
+    parameter leaf moved, the loss finite. Prints frames/s, the peak
+    allocated memory, one actor unroll's and one learner step's ms, and a
+    profiled learner step's busy share.
+25a. Kernel route against plain route: one learner step of 25's model on
+    its last batch and params, K2 and ``impl='auto'`` against
+    ``vtrace_impl='scan'`` and ``impl='ref'``: the loss, the global
+    gradient norm and each leaf's gradient (cosine, relative norm) held
+    to the ``ROUTE_*`` bars; a NaN fails it.
+25b. The other families at full width (``TRAIN_FAMILIES``): one actor
+    unroll and one learner step each through ``build_actor`` and
+    ``build_train_step``: granite-moe-1b-a400m (its aux loss in the
+    loss), mamba2-1.3b (K3 48 + 48), recurrentgemma-2b (K3 18 + 18, K5 8
+    a step) and whisper-small (one learner step on a batch of 8 with stub
+    frame embeddings); counts zeroed just before and read just after,
+    every leaf moved, the loss finite, K3's shapes among phase 15's.
+25c. K5 at every shape a token actor launched it at (phases 25 and 25b),
+    against its plain version at each cache index of an unroll.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -442,13 +471,15 @@ OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 # thread shot at update SUP_THREAD_KILL_AT of SUP_STEPS; process and
 # remote children SIGKILLed at SUP_KILL_AT of SUP_PROC_STEPS and
 # SUP_REMOTE_STEPS, the process run's updates paced by SUP_PACE_S from
-# the respawn until the
-# reborn child delivers (the remote run does not wait for it); the remote
-# slots' heartbeat deadline SUP_HEARTBEAT_S. 6z: supervised groups of
+# the respawn until the reborn child delivers (the remote run does not
+# wait for it): the 23 paced updates after the respawn give a child 23 s
+# to start and deliver (7.71-9.62 s seen, PRs 24-25; at 0.5 s a pace the
+# 11.5 s window was outrun on a host 1.33x slower than PR 24's); the
+# remote slots' heartbeat deadline SUP_HEARTBEAT_S. 6z: supervised groups of
 # two, full checkpoints every SUP_GROUP_CKPT rounds, a worker SIGKILLed
 # once learner 1 has SUP_GROUP_KILL_AT updates, SUP_GROUP_STEPS rounds
 SUP_STEPS, SUP_THREAD_KILL_AT = 24, 14
-SUP_PROC_STEPS, SUP_REMOTE_STEPS, SUP_KILL_AT, SUP_PACE_S = 30, 14, 6, 0.5
+SUP_PROC_STEPS, SUP_REMOTE_STEPS, SUP_KILL_AT, SUP_PACE_S = 30, 14, 6, 1.0
 SUP_HEARTBEAT_S = 1.0
 SUP_GROUP_STEPS, SUP_GROUP_CKPT, SUP_GROUP_KILL_AT = 12, 3, 5
 SUP_PROC_ARGV = _async_argv("catch", SUP_PROC_STEPS, "--actor-backend",
@@ -568,6 +599,12 @@ TRACE_TRIES, TRACE_RETRY_PAUSE_S = 6, 2.0
 TRACE_PAD_S = 0.05
 # the device-time traces that lost events and were taken again
 TRACES_RETAKEN = []
+# the pads' scale in a trace taken again: x4 a retake, up to 1 s a pad.
+# Late in a long run a busy-share trace has lost one launch of the port's
+# kernel in take after take (my chip runs, PR 25: phases 13, 23 and 23b,
+# 850-1,050 s in), where the same trace in a fresh process lost none; a
+# wider window rules out a stamp pushed past either end
+_PAD_SCALE = [1.0]
 # the async windows' pad less the largest shift allowed for: the busy
 # time leaves out what the actors launched in it
 ASYNC_SKIP_US = (TRACE_PAD_S - 0.01) * 1e6
@@ -590,7 +627,8 @@ K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 0, 200),
             ("gemma", (16, 16, 16, 128, 256), 135, 0, 200),
             ("recurrentgemma", (16, 10, 1, 2048, 256), 2055, 2048, 200),
             ("llama cross", (16, 32, 8, 1600, 128), 1600, 0, 200),
-            ("whisper cross", (16, 12, 12, 1500, 64), 1500, 0, 200)]
+            ("whisper cross", (16, 12, 12, 1500, 64), 1500, 0, 200),
+            ("stablelm actor", (32, 32, 32, 21, 64), 19, 0, 200)]
 SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
 SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
 SERVE_PARAMS = 11_576_791_059
@@ -640,6 +678,44 @@ CROSS_RUNS = [
 # ``shapes``, read after each serving run), held in phase 24
 PATH_SHAPES = {"linear_scan": set(), "flash_attention": set(),
                "decode_attention": set()}
+# K3's gradient checks (phase 15): (T, N, with h0) at the training paths'
+# shapes at 32 envs x unroll 20 (T + 1 = 21 tokens): recurrentgemma-2b's
+# RG-LRU over (21, 32 x 2560) and mamba2-1.3b's cross-chunk pass over one
+# chunk of 21, (1, 32 x 64 x 64 x 128); and a multi-step scan with h0
+K3_TRAIN_SHAPES = [(21, 81920, False), (1, 16777216, False)]
+K3_BWD_SHAPES = K3_TRAIN_SHAPES + [(8, 1048576, True)]
+# phase 25: token training through the CLI at full width and depth, the
+# CLI's 32 envs x unroll 20 on catch; K5 once an attention layer a decode
+# step, K2 once a learner step
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_LAYERS = "stablelm-1.6b", 4, 24
+TRAIN_ARGV = ["--device", "cuda", "--arch", TRAIN_ARCH, "--env", "catch",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+# phase 25a: one learner step's kernel route (K2, impl='auto') against its
+# plain route (vtrace_impl='scan', impl='ref'), on one batch and one
+# parameter set. The forward is the same on both routes (training reaches
+# no attention kernel and stablelm has no scan), so the two differ by K2's
+# f32 loss and d_logits against the reverse loop's, a few f32 ulps; in the
+# bf16 backward such a difference flips an element's rounding now and then
+# (one bf16 ulp, 2^-8 relative), so each leaf's gradient is held to a
+# cosine of at least ROUTE_COS and a norm within ROUTE_LEAF_RTOL, the
+# global norm within ROUTE_NORM_RTOL, the loss within ROUTE_LOSS_RTOL
+ROUTE_LOSS_RTOL, ROUTE_NORM_RTOL = 1e-5, 1e-3
+ROUTE_COS, ROUTE_LEAF_RTOL = 0.999, 1e-2
+# phase 25b: the other families at full width, one actor unroll (32 envs x
+# unroll 20, catch) and one learner step each: (arch, layers, learner
+# batch, launches of K3 (forward + backward) and K5). whisper-small's
+# learner batch carries stub frame embeddings and is cut to 8 trajectories:
+# its encoder's dense train-mode scores are (B, 12, 1500, 1500) f32 a layer
+# (3.5 GB at 32), kept for the backward in each of its 12 layers
+TRAIN_FAMILIES = [
+    ("granite-moe-1b-a400m", 24, 32, (0, 24 * 20)),
+    ("mamba2-1.3b", 48, 32, (2 * 48, 0)),
+    ("recurrentgemma-2b", 26, 32, (2 * 18, 8 * 20)),
+    ("whisper-small", 12, 8, (0, 0)),
+]
+# the (B, H, K, S, D, dtype) the token actors launched K5 at (phases 25
+# and 25b), held at every cache index of an unroll in phase 25c
+ACTOR_K5_SHAPES = set()
 
 
 def _card_line() -> str:
@@ -763,7 +839,7 @@ def phase_main(vk, dev):
     # K1 on the path: the plain V-trace kernel's loss on the last batch
     batch = run.last_batch
     with torch.no_grad():
-        logits, values = learner_lib.forward_trajectory(
+        logits, values, _ = learner_lib.forward_trajectory(
             run.params, batch, run.arch, run.env.num_actions)
     loss_batch = {k: batch[k] for k in ("actions", "rewards", "discounts",
                                         "behaviour_logprob")}
@@ -2876,9 +2952,9 @@ def phase_path_shapes(vk, dev):
 
 
 def _trace_pad() -> None:
-    """Idle host time at either end of a profiled window (``TRACE_PAD_S``).
-    """
-    time.sleep(TRACE_PAD_S)
+    """Idle host time at either end of a profiled window (``TRACE_PAD_S``,
+    times ``_PAD_SCALE`` while ``_traced`` takes a trace again)."""
+    time.sleep(TRACE_PAD_S * _PAD_SCALE[0])
 
 
 def _device_busy(events, skip_us: float = 0.0):
@@ -3239,23 +3315,47 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
 
 def _traced(what: str, take, kernel=None, launches: int = 0):
     """``take()``'s profiler trace, taken again (up to ``TRACE_TRIES``
-    traces, ``TRACE_RETRY_PAUSE_S`` apart) while it holds another number
-    than ``launches`` of ``kernel``'s launches: such a trace lost device
-    events. ``_print_busy`` then holds the last one to the same count."""
-    for attempt in range(1, TRACE_TRIES + 1):
-        prof = take()
-        if kernel is None or attempt == TRACE_TRIES:
-            return prof
-        name = KERNEL_EVENTS[kernel][0]
-        _, _, whole = _device_busy(prof.events())
-        got = sum(c for event, (_, c) in whole.items() if name in event)
-        if got == launches:
-            return prof
-        print(f"{what}: trace {attempt} of {TRACE_TRIES} holds {got} "
-              f"{name} launches where {launches} ran; traced again after "
-              f"{TRACE_RETRY_PAUSE_S} s")
-        TRACES_RETAKEN.append({name: got})
-        time.sleep(TRACE_RETRY_PAUSE_S)
+    traces, ``TRACE_RETRY_PAUSE_S`` apart, each with wider pads,
+    ``_PAD_SCALE``) while it holds another number than ``launches`` of
+    ``kernel``'s launches: such a trace lost device events. Each retake
+    prints where the kernel's kept launches and all device events sit in
+    the trace. ``_print_busy`` then holds the last one to the same
+    count."""
+    try:
+        for attempt in range(1, TRACE_TRIES + 1):
+            prof = take()
+            if kernel is None or attempt == TRACE_TRIES:
+                return prof
+            name = KERNEL_EVENTS[kernel][0]
+            _, _, whole = _device_busy(prof.events())
+            got = sum(c for event, (_, c) in whole.items() if name in event)
+            if got == launches:
+                return prof
+            _PAD_SCALE[0] = min(4.0 ** attempt, 1.0 / TRACE_PAD_S)
+            print(f"{what}: trace {attempt} of {TRACE_TRIES} holds {got} "
+                  f"{name} launches where {launches} ran ({_where(prof, name)});"
+                  f" traced again after {TRACE_RETRY_PAUSE_S} s with "
+                  f"{TRACE_PAD_S * _PAD_SCALE[0]:.2f} s pads")
+            TRACES_RETAKEN.append({name: got})
+            time.sleep(TRACE_RETRY_PAUSE_S)
+    finally:
+        _PAD_SCALE[0] = 1.0
+
+
+def _where(prof, name: str) -> str:
+    """Where a trace's device events and ``name``'s kept launches sit, in
+    us from its first event of any kind."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    mine = sorted(e.time_range.start for e in dev if name in e.name)
+    if not dev or not mine:
+        return "no device events of it"
+    return (f"device events {min(e.time_range.start for e in dev) - t0:.0f}"
+            f"-{max(e.time_range.end for e in dev) - t0:.0f} us, the "
+            f"launches kept {mine[0] - t0:.0f}-{mine[-1] - t0:.0f} us")
 
 
 def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
@@ -3504,7 +3604,38 @@ def phase_k3(lk, dev) -> float:
               f"without {errs[1]:.3e}")
         worst = max(worst, *errs)
         del a, b, h0
+    for t, n, init in K3_BWD_SHAPES:
+        worst = max(worst, _k3_backward_check(lk, t, n, init, dev))
     return worst
+
+
+def _k3_backward_check(lk, t: int, n: int, init: bool, dev) -> float:
+    """K3's gradient (``LinearScanFn``: K3 forward, K3 on reversed time
+    backward) against autograd through the plain loop, under one random
+    cotangent: da, db and dh0 each held to ATOL (1e-5; the same
+    multiplies and adds in the same order, bit for bit expected), and one
+    kernel launch each way."""
+    a, b, h0 = _scan_inputs(t, n, 7 * t + n, dev)
+    ins = [a, b] + ([h0] if init else [])
+    for x in ins:
+        x.requires_grad_(True)
+    ct = _scan_inputs(t, n, 11 * t + n, dev)[1]
+    before = lk.linear_scan.launches
+    got = torch.autograd.grad(
+        (lk.linear_scan(a, b, h0 if init else None) * ct).sum(), ins)
+    launched = lk.linear_scan.launches - before
+    want = torch.autograd.grad(
+        (lk.linear_scan_plain(a, b, h0 if init else None) * ct).sum(), ins)
+    torch.cuda.synchronize()
+    if launched != 2:
+        raise AssertionError(f"K3 gradient (T,N)={(t, n)}: {launched} "
+                             f"launches, expected one forward and one "
+                             f"backward")
+    err = _check(f"K3 gradient (T,N)={(t, n)} h0={init}", got, want)
+    print(f"K3 gradient (T,N)={(t, n)} h0={init}: da, db"
+          + (", dh0" if init else "") + f" max abs err {err:.3e} against "
+          f"autograd through the plain loop")
+    return err
 
 
 def phase_serve_ssm(lk, fk, dk):
@@ -3618,6 +3749,28 @@ def phase_scan_times(lk, dev):
             rows["linear_scan"] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by)
         del a, b
+    for t, n, _ in K3_TRAIN_SHAPES:
+        a, b, _ = _scan_inputs(t, n, 5, dev)
+        g = _scan_inputs(t, n, 6, dev)[1]           # dL/dh, (T, N)
+        h = lk.linear_scan(a, b)
+        ctx = types.SimpleNamespace(saved_tensors=(a, h, None))
+        ms = _time_ms(lambda: lk.linear_scan(a, b), 50)
+        bwd_ms = _time_ms(lambda: lk.LinearScanFn.backward(ctx, g), 50)
+        ag, bg = (x.detach().requires_grad_(True) for x in (a, b))
+        plain_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+            lk.linear_scan_plain(ag, bg), (ag, bg), g), 5, 1)
+        # forward: a, b read, h written; backward: a, h and g read, da and
+        # db written, the reversed scan's multiply and add and da's product
+        bound_ms, bound_by = _bound(3 * t * n * 4, 2 * t * n)
+        bwd_bound, bwd_by = _bound(5 * t * n * 4, 3 * t * n)
+        print(f"time linear_scan train (T,N)={(t, n)} f32: forward "
+              f"{ms:.5f} ms (bound {bound_ms:.7f} ms, {bound_by}; "
+              f"{100 * bound_ms / ms:.1f}%), backward (LinearScanFn: "
+              f"reversed inputs, K3, da) {bwd_ms:.5f} ms (bound "
+              f"{bwd_bound:.7f} ms, {bwd_by}; {100 * bwd_bound / bwd_ms:.1f}"
+              f"%), plain forward and backward {plain_bwd_ms:.5f} ms; "
+              f"library: none")
+        del a, b, g, h, ctx, ag, bg
     return rows
 
 
@@ -3819,16 +3972,11 @@ def phase_cross_config(lk, fk, dk, arch: str, layers: int, params: int,
         fn.launches = 0
         fn.shapes.clear()
 
-    def mark():
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
     actions = []
     with torch.no_grad():
-        marks = [mark()]
+        marks = [_mark()]
         out = bb.apply_prefill(weights, batch, cfg, a)
-        marks.append(mark())
+        marks.append(_mark())
         logits, cache, tok = [out.policy_logits], out.cache, toks[:, -1:]
         for i in range(NEW_SERVE_STEPS):
             out = bb.apply_decode(weights, tok, cache, CROSS_CTX + i, cfg, a,
@@ -3838,7 +3986,7 @@ def phase_cross_config(lk, fk, dk, arch: str, layers: int, params: int,
                 torch.softmax(out.policy_logits[:, 0], dim=-1), 1,
                 generator=gen)
             tok = action % cfg.vocab_size
-            marks.append(mark())
+            marks.append(_mark())
             logits.append(out.policy_logits)
             actions.append(action)
     torch.cuda.synchronize()
@@ -3932,6 +4080,403 @@ def phase_serve_path_shapes(lk, fk, dk, dev):
     torch.cuda.synchronize()
     return (errs["linear_scan"], errs["flash_attention"],
             errs["decode_attention"])
+
+
+# ---------------------------------------------------------------------------
+# slice 15: token training
+
+
+def _kernel_fns(vk, lk, fk, dk):
+    return {"vtrace": vk.vtrace, "loss_vtrace": vk.loss_vtrace,
+            "linear_scan": lk.linear_scan,
+            "flash_attention": fk.flash_attention,
+            "decode_attention": dk.decode_attention}
+
+
+def _zero_counts(kernels) -> None:
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def _unmoved(params, init, skip=()) -> list:
+    """The leaves of ``params`` equal to their initial values, but those
+    whose names end with one of ``skip``."""
+    from repro_torch import params as params_lib
+
+    now, then = params_lib.flatten(params), params_lib.flatten(init)
+    return [k for k in now if not k.endswith(tuple(skip)) and
+            torch.equal(now[k].detach(), then[k])]
+
+
+def _below_rounding(leaf, gmax: float, clip: float, icfg) -> bool:
+    """Whether one RMSProp step from a zero ``ms`` (``lr * g /
+    sqrt((1 - decay) g^2 + eps)``, largest at the leaf's largest clipped
+    |g|, ``gmax * clip``) is under half the float32 spacing of the
+    leaf's smallest |value|: then no element can move in that step."""
+    g = gmax * clip
+    step = icfg.learning_rate * g / math.sqrt(
+        (1 - icfg.rmsprop_decay) * g * g + icfg.rmsprop_eps)
+    low = float(leaf.detach().abs().min())
+    spacing = (2.0 ** math.floor(math.log2(low)) *
+               torch.finfo(torch.float32).eps) if low > 0 else 0.0
+    return step < spacing / 2
+
+
+def _ms_since(event) -> float:
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    end.synchronize()
+    return event.elapsed_time(end)
+
+
+def _mark():
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+
+def phase_token_train(vk, lk, fk, dk, dev):
+    """Phase 25: ``train --arch stablelm-1.6b`` on the card at full width
+    and all 24 layers, the CLI's 32 envs x unroll 20 on catch, for
+    ``TRAIN_STEPS`` steps, every count zeroed just before and read just
+    after: K5 once a layer a decode step, K2 once a step, K1, K3 and K4
+    never. Every leaf moved from its initial value, the loss finite. Then
+    one actor unroll and one learner step timed, and one more learner step
+    profiled for the card's busy share. Returns (launches, the run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import params as params_lib
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dk.decode_attention.shapes.clear()
+    _zero_counts(kernels)
+    t0 = time.perf_counter()
+    run = train_lib.train(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ACTOR_K5_SHAPES.update(dk.decode_attention.shapes)
+    unroll_len, envs = run.icfg.unroll_length, run.last_batch[
+        "actions"].shape[0]
+    want = {"vtrace": 0, "loss_vtrace": TRAIN_STEPS, "linear_scan": 0,
+            "flash_attention": 0,
+            "decode_attention": TRAIN_STEPS * unroll_len * TRAIN_LAYERS}
+    count = common.param_count(bb.backbone_specs(run.arch,
+                                                 run.env.num_actions))
+    if run.arch.num_layers != TRAIN_LAYERS or launches != want or \
+            (envs, unroll_len) != (MAIN_B, MAIN_T):
+        raise AssertionError(
+            f"token training {' '.join(TRAIN_ARGV)}: {run.arch.num_layers} "
+            f"layers, {envs} envs x unroll {unroll_len}, launches "
+            f"{launches}; expected {TRAIN_LAYERS}, {MAIN_B} x {MAIN_T}, "
+            f"launches {want}")
+    loss = float(run.metrics["loss/total"])
+    if not math.isfinite(loss):
+        raise AssertionError(f"token training: final loss {loss}")
+    with torch.no_grad():
+        init = init_params(run.arch, run.env.num_actions, 0, dev)
+        stuck = _unmoved(run.params, init)
+    del init
+    tree_names = params_lib.flatten(run.params)
+    if stuck:
+        raise AssertionError(f"token training: {len(stuck)} leaves did not "
+                             f"move: {stuck[:8]}")
+    toks = run.last_batch["obs_token"]
+    print(f"token training: {TRAIN_ARCH} {count:,} params, "
+          f"{run.arch.num_layers} layers, d_model {run.arch.d_model}, "
+          f"vocab {run.arch.vocab_size}, {envs} envs x unroll {unroll_len} "
+          f"(obs_token {tuple(toks.shape)}), {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; launches K2 {launches['loss_vtrace']} K5 "
+          f"{launches['decode_attention']} (K1, K3, K4 0); final loss "
+          f"{loss:.4f}; every one of {len(tree_names)} leaves moved")
+    print(f"token training: frames/s {run.fps:.1f} (steps 2-{TRAIN_STEPS}),"
+          f" peak allocated {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held "
+          f"before the run); {_card_line()}")
+
+    # where a step's time goes: one unroll and one learner step, each to a
+    # synchronise, then one learner step profiled
+    init_fn, unroll = actor_lib.build_actor(run.env, run.arch, run.icfg,
+                                            envs, dev)
+    train_step, opt = learner_lib.build_train_step(run.arch, run.icfg,
+                                                   run.env.num_actions)
+    params, opt_state = run.params, opt.init(run.params)
+    start = _mark()
+    _, batch = unroll(params, init_fn(1))
+    actor_ms = _ms_since(start)
+    start = _mark()
+    params, opt_state, _ = train_step(params, opt_state, TRAIN_STEPS, batch)
+    learner_ms = _ms_since(start)
+    print(f"token training split: actor unroll {actor_ms:.3f} ms "
+          f"({unroll_len} decode steps, {unroll_len * TRAIN_LAYERS} K5 "
+          f"launches), learner step {learner_ms:.3f} ms (CUDA events to a "
+          f"synchronise); {100 * actor_ms / (actor_ms + learner_ms):.1f}% "
+          f"acting")
+
+    def take():
+        # device activity only: reading a trace of ~7,000 launches back
+        # with its host events costs seconds
+        nonlocal params, opt_state
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _trace_pad()
+            params, opt_state, _ = train_step(params, opt_state,
+                                              TRAIN_STEPS + 1, batch)
+            torch.cuda.synchronize()
+            _trace_pad()
+        return prof
+
+    prof = _traced("token learner step", take, "loss_vtrace", 1)
+    _print_busy("token learner step", prof, 1, learner_ms, "loss_vtrace")
+    del opt_state, batch, prof
+    torch.cuda.empty_cache()
+    return launches, run
+
+
+def phase_train_routes(run) -> None:
+    """Phase 25a: one learner step of phase 25's model, on its last batch
+    and its final params, through the kernel route (K2, ``impl='auto'``)
+    and the plain route (``vtrace_impl='scan'``, ``impl='ref'``): the
+    losses, the global gradient norms and each leaf's gradient (cosine,
+    relative norm) held to the ROUTE_* bars; a NaN anywhere fails it.
+    These launches compare routes and are not counted."""
+    from repro_torch import params as params_lib
+    from repro_torch.core import learner as learner_lib
+
+    batch, n_act = run.last_batch, run.env.num_actions
+    outs = {}
+    for route, kw in (("kernel", {}),
+                      ("plain", dict(vtrace_impl="scan", impl="ref"))):
+        loss_fn = learner_lib.build_loss_fn(run.arch, run.icfg, n_act, **kw)
+        grads, metrics = learner_lib._grad_fn(loss_fn)(run.params, batch)
+        outs[route] = (grads, float(metrics["loss/total"]))
+    (gk, lk_), (gp, lp) = outs["kernel"], outs["plain"]
+    names = list(params_lib.flatten(run.params))
+    bad = [n for grads in (gk, gp) for n, g in zip(names, grads)
+           if not bool(torch.isfinite(g).all())]
+    if bad or not (math.isfinite(lk_) and math.isfinite(lp)):
+        raise AssertionError(f"routes: non-finite loss ({lk_}, {lp}) or "
+                             f"gradients {bad[:8]}")
+    norm_k = math.sqrt(sum(float(g.double().square().sum()) for g in gk))
+    norm_p = math.sqrt(sum(float(g.double().square().sum()) for g in gp))
+    worst_cos, worst_rel, where = 1.0, 0.0, None
+    for name, a, b in zip(names, gk, gp):
+        a, b = a.double().flatten(), b.double().flatten()
+        na, nb = float(a.norm()), float(b.norm())
+        if na == nb == 0.0:
+            continue
+        cos = float(a @ b) / max(na * nb, 1e-300)
+        rel = abs(na / max(nb, 1e-300) - 1.0)
+        if cos < worst_cos:
+            worst_cos, where = cos, name
+        worst_rel = max(worst_rel, rel)
+    loss_err = abs(lk_ - lp) / max(abs(lp), 1e-12)
+    norm_err = abs(norm_k / norm_p - 1.0)
+    print(f"routes: {run.arch.name} learner step, kernel (K2) against plain "
+          f"(scan, impl='ref'): loss {lk_:.6f} vs {lp:.6f} (rel "
+          f"{loss_err:.3e}, bar {ROUTE_LOSS_RTOL:.0e}), global grad norm "
+          f"{norm_k:.6e} vs {norm_p:.6e} (rel {norm_err:.3e}, bar "
+          f"{ROUTE_NORM_RTOL:.0e}); over {len(names)} leaves the worst "
+          f"cosine {worst_cos:.7f} (bar {ROUTE_COS}) and norm ratio off by "
+          f"{worst_rel:.3e} (bar {ROUTE_LEAF_RTOL:.0e}); the lowest cosine "
+          f"at {where}")
+    if not (loss_err <= ROUTE_LOSS_RTOL and norm_err <= ROUTE_NORM_RTOL
+            and worst_cos >= ROUTE_COS and worst_rel <= ROUTE_LEAF_RTOL):
+        raise AssertionError("routes: the kernel route's learner step "
+                             "is off the plain route's")
+    del outs, gk, gp
+    torch.cuda.empty_cache()
+
+
+def _stub_batch(cfg, b: int, t: int, n_act: int, dev):
+    """A learner batch of ``b`` trajectories of ``t`` steps for a
+    backbone the envs cannot feed: tokens, actions, rewards, discounts
+    and behaviour log-probs from a seeded generator on the card, and the
+    stub frontend's embeddings (B, encoder_seq_len, d_model) in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    key = "image_embed" if cfg.family == "vlm" else "enc_embed"
+    return {
+        "obs_token": torch.randint(0, cfg.vocab_size, (b, t + 1),
+                                   generator=gen, device=dev),
+        "actions": torch.randint(0, n_act, (b, t), generator=gen,
+                                 device=dev),
+        "rewards": torch.randn((b, t), generator=gen, device=dev),
+        "discounts": torch.full((b, t), 0.99, device=dev),
+        "behaviour_logprob": -torch.rand((b, t), generator=gen,
+                                         device=dev) - 0.5,
+        key: torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16),
+    }
+
+
+def phase_train_family(vk, lk, fk, dk, dev, arch: str, layers: int,
+                       batch_b: int, want: Tuple[int, int]):
+    """Phase 25b: ``arch`` at full width and all its layers through
+    ``build_actor`` (one unroll of 32 envs x 20 on catch; none for the
+    audio backbone, which the envs cannot feed) and ``build_train_step``
+    (one learner step, its two halves ``build_grad_apply_steps``, of
+    which ``build_train_step``'s step is the composition, so the
+    gradients can be read; the audio backbone's on ``_stub_batch``),
+    every count zeroed just before and read just after: (K3 forward +
+    backward, K5) equal to ``want``, K4 and K1 never, K2 once. Every
+    leaf's gradient is finite and nonzero (but a cross-attention key
+    bias: the softmax over keys ignores a shift of every score alike, so
+    its gradient is 0 in exact arithmetic), and every leaf moved but
+    those whose one step is under float32 rounding (``_below_rounding``:
+    a ones-initialised scale or ``a_log`` whose gradient, clipped to the
+    global norm of 40, is small); the loss finite, and an MoE backbone's
+    aux term in it. Returns the launches."""
+    from repro_torch import params as params_lib
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.data.envs import make_env
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    env = make_env("catch")
+    cfg = get_config(arch)
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, env.vocab_size))
+    n_act = env.num_actions
+    icfg = ImpalaConfig(num_actions=n_act, unroll_length=MAIN_T)
+    count = common.param_count(bb.backbone_specs(cfg, n_act))
+    params = init_params(cfg, n_act, 0, dev)
+    grad_step, apply_step, opt = learner_lib.build_grad_apply_steps(
+        cfg, icfg, n_act)
+    opt_state = opt.init(params)
+    lk.linear_scan.shapes.clear()
+    dk.decode_attention.shapes.clear()
+    _zero_counts(kernels)
+    start = _mark()
+    actor_ms = 0.0
+    if cfg.family in ("vlm", "audio"):
+        batch = _stub_batch(cfg, batch_b, MAIN_T, n_act, dev)
+    else:
+        init_fn, unroll = actor_lib.build_actor(env, cfg, icfg, batch_b,
+                                                dev)
+        _, batch = unroll(params, init_fn(1))
+        actor_ms = _ms_since(start)
+        start = _mark()
+    grads, metrics = grad_step(params, batch)
+    gmax = [float(g.abs().max()) for g in grads]
+    params, opt_state, step_metrics = apply_step(params, opt_state, 0, grads)
+    learner_ms = _ms_since(start)
+    del grads
+    metrics.update(step_metrics)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    ACTOR_K5_SHAPES.update(dk.decode_attention.shapes)
+    k3_shapes = set(lk.linear_scan.shapes)
+    expect = {"vtrace": 0, "loss_vtrace": 1, "linear_scan": want[0],
+              "flash_attention": 0, "decode_attention": want[1]}
+    if cfg.num_layers != layers or launches != expect:
+        raise AssertionError(f"training {arch}: {cfg.num_layers} layers, "
+                             f"launches {launches}; expected {layers}, "
+                             f"{expect}")
+    checked = {(t, n, h0) for t, n, h0 in K3_TRAIN_SHAPES}
+    checked |= {c + ("bwd",) for c in checked}
+    if not k3_shapes <= checked:
+        raise AssertionError(f"training {arch}: K3 launched at "
+                             f"{sorted(k3_shapes, key=str)}, not all held "
+                             f"to their plain versions in phase 15 "
+                             f"({sorted(checked, key=str)})")
+    loss = float(metrics["loss/total"])
+    aux = metrics.get("loss/moe_aux")
+    if not math.isfinite(loss) or (cfg.moe is not None) != (aux is not None) \
+            or (aux is not None and not math.isfinite(float(aux))):
+        raise AssertionError(f"training {arch}: loss {loss}, moe aux {aux}")
+    del opt_state, batch
+    names = list(params_lib.flatten(params))
+    skip = ("xattn/k/bias",)
+    blind = [n for n, g in zip(names, gmax)
+             if not (math.isfinite(g) and (g > 0 or n.endswith(skip)))]
+    if blind:
+        raise AssertionError(f"training {arch}: gradients zero or not "
+                             f"finite at {blind[:8]}")
+    clip = min(1.0, icfg.grad_clip_norm /
+               max(float(metrics["opt/grad_norm"]), 1e-30))
+    with torch.no_grad():
+        init = init_params(cfg, n_act, 0, dev)
+        stuck = _unmoved(params, init, skip)
+    del init
+    leaves = params_lib.flatten(params)
+    rounded = {n: gmax[names.index(n)] for n in stuck
+               if _below_rounding(leaves[n], gmax[names.index(n)], clip,
+                                  icfg)}
+    if set(stuck) - set(rounded):
+        raise AssertionError(f"training {arch}: leaves did not move: "
+                             f"{sorted(set(stuck) - set(rounded))[:8]}")
+    print(f"training {arch}: {count:,} params, {cfg.num_layers} layers"
+          + (f" (+{cfg.encoder_layers} encoder)" if cfg.encoder_layers
+             else "")
+          + f", learner batch {batch_b} x {MAIN_T}; launches K3 "
+          f"{launches['linear_scan']} at {sorted(k3_shapes, key=str)}, K5 "
+          f"{launches['decode_attention']}, K2 1, K1 and K4 0; loss "
+          f"{loss:.4f}" + (f", moe aux {float(aux):.4f} (aux_coef 0.01 x "
+                          f"B*T in the loss)" if aux is not None else "")
+          + f"; every one of {len(names)} leaves has a finite nonzero "
+          f"gradient" + (" (cross-attention key biases aside)"
+                         if cfg.encoder_layers or cfg.family == "vlm"
+                         else "")
+          + " and moved"
+          + (f", but {len(rounded)} whose one step is under float32 "
+             f"rounding (max |grad|, then scaled by {clip:.3e} in the clip "
+             f"to the global norm of {icfg.grad_clip_norm:g}: "
+             + ", ".join(f"{n} {g:.3e}" for n, g in sorted(rounded.items()))
+             + ")" if rounded else ""))
+    acted = (f"actor unroll {actor_ms:.3f} ms" if actor_ms else
+             "no actor (a stub batch)")
+    print(f"training {arch}: {acted}, learner step "
+          f"{learner_ms:.3f} ms (the first of the process at these shapes),"
+          f" peak allocated {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB held "
+          f"before); {_card_line()}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_actor_k5(dk, dev) -> float:
+    """Phase 25c: every (B, H, K, S, D, dtype) a token actor launched K5 at
+    (``ACTOR_K5_SHAPES``), against its plain version at each cache index
+    0..S-2 of an unroll, with the decode path's bias (slots 0..index
+    valid; under recurrentgemma's window of 2048 the ring of S = 21 slots
+    never wraps in an unroll, so its bias is the same). Returns the worst
+    error."""
+    from repro_torch.models.attention import decode_bias
+
+    worst = 0.0
+    for n, (b, h, kh, s, d, dt) in enumerate(sorted(ACTOR_K5_SHAPES,
+                                                   key=str)):
+        q = _rand((b, h, d), 700 + 3 * n, dt, dev)
+        k = _rand((b, s, kh, d), 701 + 3 * n, dt, dev)
+        v = _rand((b, s, kh, d), 702 + 3 * n, dt, dev)
+        errs = [_attn_check(f"K5 actor {(b, h, kh, s, d, dt)} index {i}",
+                            dk.decode_attention(q, k, v, bias),
+                            dk.decode_attention_plain(q, k, v, bias))
+                for i in range(s - 1)
+                for bias in (decode_bias(i, s, 0, b, dev),)]
+        torch.cuda.synchronize()
+        print(f"K5 actor shape (B,H,K,S,D)={(b, h, kh, s, d)} {dt}: cache "
+              f"indices 0..{s - 2}, max abs err {max(errs):.3e}")
+        worst = max(worst, *errs)
+    if not ACTOR_K5_SHAPES:
+        raise AssertionError("phase 25c: no token actor launched K5")
+    return worst
 
 
 class _Laps:
@@ -4110,6 +4655,23 @@ def main() -> int:
     err_k3, err_k4, err_k5 = (max(err_k3, e3), max(err_k4, e4),
                               max(err_k5, e5))
     lap("24")
+
+    train_launches, train_run = phase_token_train(vk, lk, fk, dk, dev)
+    for name, count in train_launches.items():
+        launches[name] += count
+    lap("25")
+    phase_train_routes(train_run)
+    del train_run
+    torch.cuda.empty_cache()
+    lap("25a")
+    for arch, layers, batch_b, want in TRAIN_FAMILIES:
+        got = phase_train_family(vk, lk, fk, dk, dev, arch, layers, batch_b,
+                                 want)
+        for name, count in got.items():
+            launches[name] += count
+        lap(f"25b ({arch})")
+    err_k5 = max(err_k5, phase_actor_k5(dk, dev))
+    lap("25c")
     print(f"times above: {card}")
 
     meta = {

@@ -43,11 +43,15 @@ def small_arch(env) -> ArchConfig:
 
 def init_params(arch: ArchConfig, num_actions: int, seed: int = 0,
                 device="cuda") -> Dict:
-    """The agent's initial params from ``seed``: the JAX package's draw,
-    as the port's tensors on ``device``."""
+    """The agent's initial params from ``seed``, as the port's tensors on
+    ``device``: the conv-LSTM agents drawn on the CPU (the same numbers on
+    either device), the token backbones on ``device`` itself, as the
+    server draws them (a full-width tree stays off the host)."""
     specs = bb.backbone_specs(arch, num_actions)
-    return params_lib.from_jax(common.init_params(specs, seed),
-                               torch.device(device))
+    device = torch.device(device)
+    draw_on = "cpu" if arch.family == "impala_cnn" else device
+    return params_lib.from_jax(common.init_params(specs, seed, draw_on),
+                               device)
 
 
 def sync_loop(env, arch: ArchConfig, icfg: ImpalaConfig, num_envs: int,

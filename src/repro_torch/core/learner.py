@@ -1,5 +1,7 @@
 """The IMPALA learner: batched V-trace actor-critic updates (paper §3, §4.2),
-``repro.core.learner`` for the f32 conv-LSTM agents.
+``repro.core.learner``, for the f32 conv-LSTM agents and the token
+backbones. For an MoE backbone the loss adds ``aux_coef`` times the
+routers' load-balancing loss times B*T (``loss/moe_aux``).
 
 ``build_train_step`` returns ``train_step(params, opt_state, step, batch)``
 and ``build_replay_train_step`` its replay-path twin, which also takes the
@@ -27,26 +29,47 @@ Tree = Any
 
 
 def forward_trajectory(params, batch: Dict, arch_cfg: ArchConfig,
-                       num_actions: int):
-    """Run the backbone over the T+1 trajectory observations.
+                       num_actions: int, impl: str = "auto"):
+    """Run the backbone over the T+1 trajectory observations: the images
+    and the LSTM's inputs, or the tokens ``obs_token`` (B, T+1) with the
+    stub frontend's ``enc_embed``/``image_embed`` where the batch has
+    them. ``impl`` is the route of the backbone's kernels (``ops``).
 
-    Returns (logits (B,T+1,A), values (B,T+1))."""
-    model_batch = {
-        "image": batch["obs_image"],
-        "last_action": batch["last_action"],
-        "last_reward": batch["last_reward"],
-        "done": batch["done_in"],
-        "lstm_state": batch.get("lstm_state"),
-    }
-    out = bb.apply_train(params, model_batch, arch_cfg, num_actions)
-    return out.policy_logits, out.values
+    Returns (logits (B,T+1,A), values (B,T+1), aux)."""
+    if arch_cfg.family == "impala_cnn":
+        model_batch = {
+            "image": batch["obs_image"],
+            "last_action": batch["last_action"],
+            "last_reward": batch["last_reward"],
+            "done": batch["done_in"],
+            "lstm_state": batch.get("lstm_state"),
+        }
+    else:
+        model_batch = {"tokens": batch["obs_token"]}
+        for k in ("enc_embed", "image_embed"):
+            if k in batch:
+                model_batch[k] = batch[k]
+    out = bb.apply_train(params, model_batch, arch_cfg, num_actions, impl)
+    return out.policy_logits, out.values, out.aux_loss
+
+
+def _add_moe_aux(arch_cfg: ArchConfig, aux_coef: float, total, metrics,
+                 aux, batch):
+    """The MoE backbones' loss: ``aux_coef * aux * B * T`` added to the
+    summed V-trace loss, and ``loss/moe_aux`` reported."""
+    if arch_cfg.moe is None:
+        return total
+    b, t = batch["actions"].shape[:2]
+    metrics["loss/moe_aux"] = aux
+    return total + aux_coef * aux * (b * t)
 
 
 def build_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
-                  num_actions: int, vtrace_impl: str = "auto"):
+                  num_actions: int, vtrace_impl: str = "auto",
+                  aux_coef: float = 0.01, impl: str = "auto"):
     def loss_fn(params, batch):
-        logits, values = forward_trajectory(params, batch, arch_cfg,
-                                            num_actions)
+        logits, values, aux = forward_trajectory(params, batch, arch_cfg,
+                                                 num_actions, impl)
         loss_batch = {
             "actions": batch["actions"],
             "rewards": batch["rewards"],
@@ -54,8 +77,11 @@ def build_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
             "behaviour_logprob": batch["behaviour_logprob"],
             "bootstrap_value": values[:, -1],
         }
-        return losses_lib.impala_loss(cfg, logits[:, :-1], values[:, :-1],
-                                      loss_batch, impl=vtrace_impl)
+        total, metrics = losses_lib.impala_loss(
+            cfg, logits[:, :-1], values[:, :-1], loss_batch,
+            impl=vtrace_impl)
+        return _add_moe_aux(arch_cfg, aux_coef, total, metrics, aux,
+                            batch), metrics
 
     return loss_fn
 
@@ -70,10 +96,14 @@ def _rmsprop(cfg: ImpalaConfig, optimizer):
 def _grad_fn(loss_fn):
     """``grad_step(params, *loss_args) -> (grad leaves, metrics)``: the
     gradient of ``loss_fn(params, *loss_args)`` through ``params`` only,
-    as a list in the tree's flatten order (``tree_leaves``)."""
+    as a list in the tree's flatten order (``tree_leaves``). A leaf the
+    loss does not reach gets zeros, as ``jax.grad`` gives."""
     def grad_step(params, *loss_args):
         loss, metrics = loss_fn(params, *loss_args)
-        grads = list(torch.autograd.grad(loss, tree_leaves(params)))
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     return grad_step
@@ -118,19 +148,22 @@ def _step_fn(cfg: ImpalaConfig, optimizer, loss_fn):
 def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
                      num_actions: int,
                      optimizer: opt_lib.Optimizer = None,
-                     vtrace_impl: str = "auto",
+                     vtrace_impl: str = "auto", impl: str = "auto",
                      ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
                                 opt_lib.Optimizer]:
     """vtrace_impl: 'auto' picks the fused kernel (K2) for CUDA params and
     the reverse loop for CPU params (``losses.resolve_vtrace_impl``);
-    'fused' / 'pallas' / 'scan' / 'reference' pin an implementation."""
+    'fused' / 'pallas' / 'scan' / 'reference' pin an implementation.
+    ``impl`` is the route of the backbone's kernels (K3's, ``ops``)."""
     optimizer = _rmsprop(cfg, optimizer)
-    loss_fn = build_loss_fn(arch_cfg, cfg, num_actions, vtrace_impl)
+    loss_fn = build_loss_fn(arch_cfg, cfg, num_actions, vtrace_impl,
+                            impl=impl)
     return _step_fn(cfg, optimizer, loss_fn), optimizer
 
 
 def build_replay_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
-                         num_actions: int, vtrace_impl: str = "auto"):
+                         num_actions: int, vtrace_impl: str = "auto",
+                         aux_coef: float = 0.01):
     """Replay-aware loss: ``loss_fn(params, target_params, batch)``.
 
     ``batch['replay_mask']`` (B,) flags replayed rows. The IMPACT recipe:
@@ -144,11 +177,11 @@ def build_replay_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     the fused one (K2) assumes the correction baseline is the trained
     values."""
     def loss_fn(params, target_params, batch):
-        logits, values = forward_trajectory(params, batch, arch_cfg,
-                                            num_actions)
+        logits, values, aux = forward_trajectory(params, batch, arch_cfg,
+                                                 num_actions)
         with torch.no_grad():
-            _, tvalues = forward_trajectory(target_params, batch, arch_cfg,
-                                            num_actions)
+            _, tvalues, _ = forward_trajectory(target_params, batch,
+                                               arch_cfg, num_actions)
         mask = batch["replay_mask"]
         corr_values = corrections.replay_baseline_mix(
             values[:, :-1], tvalues[:, :-1], mask)
@@ -161,10 +194,12 @@ def build_replay_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
             "behaviour_logprob": batch["behaviour_logprob"],
             "bootstrap_value": values[:, -1],
         }
-        return losses_lib.impala_loss(
+        total, metrics = losses_lib.impala_loss(
             cfg, logits[:, :-1], values[:, :-1], loss_batch,
             impl=vtrace_impl, corr_values=corr_values,
             corr_bootstrap=corr_bootstrap, per_traj=True)
+        return _add_moe_aux(arch_cfg, aux_coef, total, metrics, aux,
+                            batch), metrics
 
     return loss_fn
 

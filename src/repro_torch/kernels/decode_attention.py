@@ -12,7 +12,8 @@ tensors it was given lie on the CPU; on CUDA tensors it launches the
 kernel or raises. ``decode_attention.launches`` counts the kernel's
 launches, and nothing else; ``decode_attention.shapes`` is the set of
 (B, H, K, S, D, dtype) it launched at, which ``reset_launch_counts``
-leaves as it is.
+leaves as it is. Like K4 it has no backward, and raises on inputs that
+require grad while grad mode is on (``refuse_grad``).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (check_attention_inputs,
-                                                 check_kernel_layout)
+                                                 check_kernel_layout,
+                                                 refuse_grad)
 from repro_torch.kernels.ref import decode_attention_ref
 
 # K5's plain version is the oracle itself: dense softmax in f32
@@ -62,6 +64,7 @@ def decode_attention(q, k, v, bias) -> torch.Tensor:
     """q (B, H, D), k/v (B, S, K, D), bias (B, S) float32.
     Returns (B, H, D) in q's dtype."""
     check_attention_inputs("decode_attention", q, k, v, 3)
+    refuse_grad("decode_attention", q, k, v)
     b, s = k.shape[0], k.shape[1]
     if bias.dtype != torch.float32 or tuple(bias.shape) != (b, s) or \
             bias.device != q.device or not bias.is_contiguous():

@@ -12,7 +12,10 @@ the tensors it was given lie on the CPU; on CUDA tensors it launches the
 kernel or raises. ``flash_attention.launches`` counts the kernel's
 launches, and nothing else; ``flash_attention.shapes`` is the set of
 (B, T, S, H, K, D, causal, window, dtype) it launched at, which
-``reset_launch_counts`` leaves as it is.
+``reset_launch_counts`` leaves as it is. The kernel has no backward: the
+wrapper raises, on every device, where grad mode is on and q, k or v
+requires grad (``refuse_grad``), so that no route cuts a graph on the
+card that its plain version keeps on the CPU.
 """
 from __future__ import annotations
 
@@ -53,6 +56,17 @@ def check_attention_inputs(name: str, q, k, v, q_dims: int) -> None:
             raise ValueError(f"{name}: {tname} must be contiguous")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward of the kernel: grad mode
+    on and an input requiring grad. The kernels write their output through
+    a raw pointer, which a graph cannot see through."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            f"grad; run it under torch.no_grad(), or train through the "
+            f"models' plain attention (mode='train')")
+
+
 def check_kernel_layout(name: str, tensors, d: int) -> None:
     """What only the CUDA kernel needs: an instantiated head dim, and
     16-byte aligned rows (it reads 16 bytes a thread)."""
@@ -68,6 +82,7 @@ def flash_attention(q, k, v, causal: bool = True,
     """q (B, T, H, D), k/v (B, S, K, D); ``window`` 0 means none.
     Returns (B, T, H, D) in q's dtype."""
     check_attention_inputs("flash_attention", q, k, v, 4)
+    refuse_grad("flash_attention", q, k, v)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if not build.on_cuda(q.device, "flash attention"):

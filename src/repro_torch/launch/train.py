@@ -84,9 +84,22 @@ nothing, as in the JAX CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --runtime async --learners 2 --supervise --smoke --steps 30
 
+``--arch`` takes the token backbones too (token training): the actor
+decodes one token a step against a decode cache of ``unroll + 1`` slots
+(K5 on the card), the learner runs the backbone's train mode over the
+T+1 tokens, and an MoE backbone adds its routers' aux loss. The vlm and
+audio backbones need the stub frontend's embeddings, which the envs do
+not give: the CLI stops before a weight is drawn and names the backbone
+API that trains them (``apply_train`` with the embeddings in the batch):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --smoke --arch stablelm-1.6b --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
+      --arch stablelm-1.6b --steps 4
+
 Values of the JAX CLI's flags whose paths are not ported yet (the SPMD
-learner, token training) end the run with a ``SystemExit`` that names the
-ROADMAP.md Queue 1 item.
+learner) end the run with a ``SystemExit`` that names the ROADMAP.md
+Queue 1 item.
 """
 from __future__ import annotations
 
@@ -442,15 +455,18 @@ def train(argv: Optional[List[str]] = None,
 
     env = make_env(args.env)
     arch = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if arch.family != "impala_cnn":
-        runs = ("runs through repro_torch.models.backbone (apply_prefill "
-                "and apply_decode, with the stub frontend's embeddings)"
-                if arch.family in ("vlm", "audio") else
-                "serves through repro_torch.launch.serve")
-        raise SystemExit(f"--arch {args.arch}: training a token backbone is "
-                         f"not ported yet (ROADMAP.md, Queue 1 item 14: "
-                         f"token training); it {runs}")
-    arch = arch.replace(image_hw=env.image_hw)
+    if arch.family in ("vlm", "audio"):
+        key = "image_embed" if arch.family == "vlm" else "enc_embed"
+        raise SystemExit(
+            f"--arch {args.arch}: this {arch.family} backbone needs the stub "
+            f"frontend's embeddings, which the envs do not give; train it "
+            f"through repro_torch.models.backbone (apply_train with "
+            f"batch['{key}']) and repro_torch.core.learner "
+            f"(build_train_step, with '{key}' in the batch)")
+    if arch.family == "impala_cnn":
+        arch = arch.replace(image_hw=env.image_hw)
+    elif arch.vocab_size < env.vocab_size:
+        arch = arch.replace(vocab_size=env.vocab_size)
     icfg = ImpalaConfig(
         num_actions=env.num_actions, unroll_length=args.unroll,
         learning_rate=args.lr, entropy_cost=args.entropy_cost,

@@ -18,9 +18,10 @@ apply paths of the ported families.
   cache). The vlm and audio backbones read the stub frontends'
   embeddings from the batch: ``batch["image_embed"]`` (B, 1600, d), or
   ``batch["enc_embed"]`` (B, 1500, d), which the bidirectional encoder
-  runs over first. ``aux_loss`` is the MoE routers' load-balancing loss
-  summed over the layers, and 0 for every other family. Token training
-  is not ported yet.
+  runs over first. ``apply_train`` runs them over a whole (B, T)
+  trajectory for the learner, with a gradient (the mixers' train modes).
+  ``aux_loss`` is the MoE routers' load-balancing loss summed over the
+  layers, and 0 for every other family.
 """
 from __future__ import annotations
 
@@ -90,10 +91,18 @@ def _apply_heads(params, x, cfg: ArchConfig):
     return logits, values
 
 
-def apply_train(params, batch: Dict, cfg: ArchConfig,
-                num_actions: int) -> AgentOutput:
-    """batch: image (B,T,H,W,C) uint8, last_action (B,T) int, last_reward
-    (B,T) f32, done (B,T) bool, lstm_state ((B,W),(B,W)) or None."""
+def apply_train(params, batch: Dict, cfg: ArchConfig, num_actions: int,
+                impl: str = "auto") -> AgentOutput:
+    """The conv-LSTM agents: batch image (B,T,H,W,C) uint8, last_action
+    (B,T) int, last_reward (B,T) f32, done (B,T) bool, lstm_state
+    ((B,W),(B,W)) or None; the output's cache is the final LSTM state.
+
+    The token backbones: batch["tokens"] (B, T) int, and for vlm and audio
+    the stub frontend's embeddings (``_cross_ctx``); logits and values at
+    every step, the aux loss, no cache. ``impl`` picks the route of the
+    kernels on that path (K3's, ``ops``)."""
+    if cfg.family != "impala_cnn":
+        return _apply_train_tokens(params, batch, cfg, impl)
     img = batch["image"]
     b, t = img.shape[:2]
     flat = img.reshape((b * t,) + tuple(img.shape[2:]))
@@ -121,14 +130,17 @@ def apply_train(params, batch: Dict, cfg: ArchConfig,
 # Cross-modal context (stub frontends)
 
 
-def _cross_ctx(params, batch: Dict, cfg: ArchConfig, impl: str):
+def _cross_ctx(params, batch: Dict, cfg: ArchConfig, impl: str,
+               mode: str = "prefill"):
     """What the cross-attention layers attend to: the encoder's output
-    over ``batch["enc_embed"]`` (audio) or ``batch["image_embed"]``
-    itself (vlm), in ``cfg.dtype``; None for the other families."""
+    over ``batch["enc_embed"]`` (audio; the encoder run in ``mode``) or
+    ``batch["image_embed"]`` itself (vlm), in ``cfg.dtype``; None for the
+    other families."""
     dtype = torch_dtype(cfg.dtype)
     if cfg.family == "audio":
         return tfm.apply_encoder(params["encoder"],
-                                 batch["enc_embed"].to(dtype), cfg, impl)
+                                 batch["enc_embed"].to(dtype), cfg, impl,
+                                 mode)
     if cfg.family == "vlm":
         return batch["image_embed"].to(dtype)
     return None
@@ -145,7 +157,22 @@ def _lacks_cross_kv(cache, cfg: ArchConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Token backbones: serving paths
+# Token backbones
+
+
+def _apply_train_tokens(params, batch: Dict, cfg: ArchConfig,
+                        impl: str) -> AgentOutput:
+    """JAX's token ``apply_train``: embed, the stack in train mode over
+    positions 0..T-1 (the encoder too), the heads at every step."""
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    x = embed(params["embed"], tokens, torch_dtype(cfg.dtype))
+    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    cross = _cross_ctx(params, batch, cfg, impl, mode="train")
+    x, _, aux = tfm.apply_stack(params["stack"], x, positions, cfg,
+                                mode="train", cross_ctx=cross, impl=impl)
+    logits, values = _apply_heads(params, x, cfg)
+    return AgentOutput(logits, values, aux)
 
 
 def apply_prefill(params, batch: Dict, cfg: ArchConfig, num_actions: int,

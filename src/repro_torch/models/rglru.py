@@ -9,7 +9,8 @@ Recurrence (per channel):
 
 The JAX package carries the diagonal recurrence through a chunked
 ``lax.scan``; here ``rglru_core`` runs it as one ``ops.linear_scan`` over
-time-major (T, B*W) inputs (kernel K3 on the card).
+time-major (T, B*W) inputs (kernel K3 on the card), in the training mode
+too, where K3's gradient is K3 on reversed time.
 """
 from __future__ import annotations
 
@@ -93,11 +94,12 @@ def rglru_core_step(params, u: torch.Tensor, h: torch.Tensor):
 def apply_rglru(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 impl: str = "auto",
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Griffin recurrent block. x: (B,T,d_model).
 
     state = {'h': (B,W) f32, 'conv': (B, conv_width-1, W)}. Prefill ignores
-    any state given (as the JAX function does) and returns a new one.
+    any state given (as the JAX function does) and returns a new one;
+    train does the same with a gradient, and returns no state (None).
     Decode writes the step's h and conv states into ``state`` in place and
     returns it (the JAX function returns new arrays)."""
     dtype = torch_dtype(cfg.dtype)
@@ -125,8 +127,12 @@ def apply_rglru(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         if tail.shape[1] < cw - 1:
             tail = F.pad(tail, (0, 0, cw - 1 - tail.shape[1], 0))
         new_state = {"h": h_final, "conv": tail}
+    elif mode == "train":
+        y, _ = rglru_core(params, rec, impl=impl)
+        new_state = None
     else:
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
+        raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or "
+                         f"'decode'")
 
     y = y.to(dtype) * gate_branch
     out = dense(params["out"], y, dtype=dtype)

@@ -6,7 +6,10 @@ a diagonal linear recurrence on the (H, P, N) state. The JAX package
 carries that recurrence through a ``lax.scan`` over chunks; here
 ``ssd_chunked`` computes every chunk's decay and own state contribution
 at once and runs the whole cross-chunk pass as one ``ops.linear_scan``
-(kernel K3 on the card).
+(kernel K3 on the card). The training mode runs the same function with
+a gradient: the decay tensor is masked before its ``exp`` rather than
+filled in place after it, and K3's gradient is K3 on reversed time
+(``kernels/linear_scan.py``).
 
 Layouts, as in the JAX package: x (B, T, H, P); dt (B, T, H); B/C
 (B, T, N) (single group); the SSM state (B, H, P, N); the conv state
@@ -101,11 +104,19 @@ def ssd_chunked(x, dt, a_log, b, c, d_skip, chunk: int,
     # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) x_j.
     # Above the diagonal exp may overflow to inf: masked by a fill, never
     # by a product (inf * 0 is NaN)
-    gamma = (cum[..., :, None] - cum[..., None, :]).exp_()   # (B,nc,H,i,j)
+    decay = cum[..., :, None] - cum[..., None, :]      # (B,nc,H,i,j)
     mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=x.device))
-    gamma.masked_fill_(~mask, 0.0)
-    gamma.mul_(torch.einsum("bcin,bcjn->bcij", cc, bc_)[:, :, None])
+    scores = torch.einsum("bcin,bcjn->bcij", cc, bc_)[:, :, None]
+    if torch.is_grad_enabled() and decay.requires_grad:
+        # training: out of place, masked before the exp (0 there, with a
+        # zero gradient, where exp(decay) itself might be inf)
+        gamma = torch.exp(decay.masked_fill(~mask, float("-inf"))) * scores
+    else:
+        gamma = decay.exp_()
+        gamma.masked_fill_(~mask, 0.0)
+        gamma.mul_(scores)
+    del decay
     y = torch.matmul(gamma, xc)                        # (B,nc,H,L,P)
     # the large transients go as soon as they are read (gamma is 2.1 GB a
     # layer at batch 16, ctx 2048 at mamba2-1.3b's widths)
@@ -162,7 +173,12 @@ def apply_ssm(params, x, cfg: ArchConfig, *, mode: str,
 
     Prefill returns a new state. Decode writes the step's SSM and conv
     states into ``state`` in place and returns it (the JAX function returns
-    new arrays)."""
+    new arrays). Train runs over the whole sequence from a zero state
+    with a gradient and returns no state (None). Where T is shorter than
+    ``chunk_size`` it runs one chunk of length T: JAX pads the sequence
+    to one chunk with dt = 0, which changes neither the first T outputs
+    nor the final state, so the function is the same and the decay tensor
+    is (T/chunk)^2 of the padded one's size."""
     dtype = torch_dtype(cfg.dtype)
     s = cfg.ssm
     d_inner, h, p, n = _dims(cfg)
@@ -208,8 +224,14 @@ def apply_ssm(params, x, cfg: ArchConfig, *, mode: str,
                     new_conv_state,
                     (0, 0, w - 1 - new_conv_state.shape[1], 0))
         new_state = {"ssm": final, "conv": new_conv_state}
+    elif mode == "train":
+        y, _ = ssd_chunked(xh, dt, params["a_log"]["w"], b_, c_,
+                           params["d_skip"]["w"], min(s.chunk_size, t),
+                           impl=impl)
+        new_state = None
     else:
-        raise ValueError(f"mode {mode!r}: the port serves (prefill, decode)")
+        raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or "
+                         f"'decode'")
 
     y = y.reshape(bsz, t, d_inner).to(dtype)
     y = y * F.silu(z)

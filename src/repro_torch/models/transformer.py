@@ -16,10 +16,13 @@ the group's params and caches carries a leading group axis, as the JAX
 package stacks them for ``lax.scan``; what the pattern leaves over (the
 hybrid's 26 layers are 8 groups of three and 2 more) are unrolled
 ``tail<i>`` blocks of their own. ``apply_stack`` walks the groups in a
-Python loop, indexing each group's params and caches (views, no copies),
-then the tail. Only prefill and decode are ported: ``mode='train'``
-raises in the mixers and names token training (ROADMAP.md, Queue 1 item
-14).
+Python loop over each group's params and caches (views, no copies), then
+the tail. The params are split into their groups once, by ``unbind``,
+whose backward stacks the groups' gradients in one pass; indexing each
+group (``a[gi]``) would give each group's gradient its own zero-filled
+copy of the whole stacked leaf, L fills and L adds of it in all. Three modes, as in JAX: ``train`` (the whole trajectory,
+with a gradient, no caches), ``prefill`` (the whole context, building
+the caches) and ``decode`` (one step against them).
 """
 from __future__ import annotations
 
@@ -122,7 +125,8 @@ def apply_block(params, x: torch.Tensor, positions: torch.Tensor,
     """Returns (x, new_cache, aux). ``cache`` is ``{"kv": {...}, "index":
     i}`` (attention; ``enc_dec`` adds ``"cross_kv"``), ``{"cross_kv":
     {...}}``, ``{"rglru": {...}}`` or ``{"ssm": {...}}`` in decode and None
-    in prefill. ``aux`` is the MoE router's load-balancing loss, and None
+    in prefill and train (whose new cache is of no use: ``apply_stack``
+    drops it). ``aux`` is the MoE router's load-balancing loss, and None
     for the other kinds (where the JAX function returns a zero)."""
     if kind not in KINDS:
         raise ValueError(f"block kind {kind!r}")
@@ -198,11 +202,12 @@ def apply_stack(params, x: torch.Tensor, positions: torch.Tensor,
     returns it. ``cross_ctx`` (B, S, d) is what the cross-attention layers
     attend to: the encoder's output or the image embeddings. total_aux is
     the sum of the MoE layers' aux losses, a float32 scalar (0 without
-    MoE layers)."""
+    MoE layers). ``mode='train'`` returns no caches (None)."""
     group, leftover = layer_plan(cfg)
     per_group, auxes = [], []
+    groups = tree_map(torch.unbind, params["scan"])
     for gi in range(num_groups(cfg)):
-        p_g = tree_map(lambda a: a[gi], params["scan"])
+        p_g = tree_map(lambda a: a[gi], groups)
         c_g = None if caches is None else \
             tree_map(lambda a: a[gi], caches["scan"])
         new = {}
@@ -226,6 +231,8 @@ def apply_stack(params, x: torch.Tensor, positions: torch.Tensor,
            torch.zeros((), dtype=torch.float32, device=x.device))
     if mode == "decode":
         return x, caches, aux
+    if mode == "train":
+        return x, None, aux
     return x, {"scan": tree_map(lambda *xs: torch.stack(xs), *per_group),
                **tails}, aux
 
@@ -239,16 +246,19 @@ def encoder_specs(cfg: ArchConfig) -> Dict:
 
 
 def apply_encoder(params, embeds: torch.Tensor, cfg: ArchConfig,
-                  impl: str = "auto") -> torch.Tensor:
+                  impl: str = "auto", mode: str = "prefill") -> torch.Tensor:
     """embeds: (B, T_enc, d), the stub frontend's output. Each layer is an
-    ``enc`` block over the whole sequence (K4, ``causal=False``), run in
-    the prefill mode, whose cache is dropped: JAX runs it in its train
-    mode, which computes the same function. No final norm."""
+    ``enc`` block over the whole sequence. Serving runs it in the prefill
+    mode (K4, ``causal=False``), whose cache is dropped: JAX runs it in
+    its train mode, which computes the same function. ``mode='train'``
+    is that train mode, with a gradient (the dense path, every key
+    valid). No final norm."""
     b, t, _ = embeds.shape
     positions = torch.arange(t, device=embeds.device).expand(b, t)
     x = embeds
+    layers = tree_map(torch.unbind, params["scan"])
     for gi in range(cfg.encoder_layers):
-        p = tree_map(lambda a: a[gi], params["scan"])
-        x, _, _ = apply_block(p, x, positions, cfg, "enc", mode="prefill",
+        p = tree_map(lambda a: a[gi], layers)
+        x, _, _ = apply_block(p, x, positions, cfg, "enc", mode=mode,
                               cache=None, impl=impl)
     return x

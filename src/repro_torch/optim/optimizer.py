@@ -47,12 +47,16 @@ def rmsprop(decay: float = 0.99, eps: float = 0.1,
         del params
         ms = tree_map(lambda m, g: decay * m + (1 - decay) * g * g,
                       state["ms"], grads)
-        scaled = tree_map(lambda g, m: g * torch.rsqrt(m + eps), grads, ms)
         if momentum:
+            scaled = tree_map(lambda g, m: g * torch.rsqrt(m + eps), grads,
+                              ms)
             mom = tree_map(lambda mo, s: momentum * mo + lr * s,
                            state["mom"], scaled)
             return tree_map(lambda m: -m, mom), {"ms": ms, "mom": mom}
-        return tree_map(lambda s: -lr * s, scaled), {"ms": ms}
+        # the same products, leaf by leaf: no whole tree of scaled
+        # gradients is held (a full-width model's is gigabytes)
+        return tree_map(lambda g, m: -lr * (g * torch.rsqrt(m + eps)),
+                        grads, ms), {"ms": ms}
 
     return Optimizer(init, update)
 

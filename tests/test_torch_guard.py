@@ -93,12 +93,6 @@ _ASYNC = ["--runtime", "async"]
 
 @pytest.mark.parametrize("argv,match", [
     (["--learner-mode", "spmd"], "requires --runtime async"),
-    (["--arch", "gemma-7b"], "token training"),
-    (["--arch", "recurrentgemma-2b"], "token training"),
-    (["--arch", "olmoe-1b-7b"], "token training"),
-    (["--arch", "whisper-small"], "token training"),
-    (["--arch", "mistral-nemo-12b"], "token training"),
-    (["--arch", "mamba2-1.3b"], "token training"),
     (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
      "keeps ONE learner process"),
     (_ASYNC + ["--actor-backend", "remote", "--transport", "socket",
@@ -108,6 +102,34 @@ _ASYNC = ["--runtime", "async"]
 def test_unported_paths_exit_with_the_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):
         train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",
+                                  "olmoe-1b-7b", "mistral-nemo-12b",
+                                  "mamba2-1.3b", "whisper-small"])
+def test_token_archs_train_through_the_cli(monkeypatch, arch):
+    """Token training: one ``--smoke`` step on the CPU for each token
+    family the CLI trains; the audio backbone (like the vlm one) needs the
+    stub frontend's embeddings, so the CLI stops before any weight is
+    drawn and names the backbone API that trains it."""
+    argv = ["--device", "cpu", "--smoke", "--arch", arch, "--steps", "1",
+            "--num-envs", "2", "--unroll", "4"]
+    if arch == "whisper-small":
+        from repro_torch.models import common
+
+        def drawn(*args, **kw):
+            raise AssertionError("a weight was drawn")
+
+        monkeypatch.setattr(common, "init_params", drawn)
+        with pytest.raises(SystemExit, match=r"repro_torch\.models\."
+                           r"backbone \(apply_train with "
+                           r"batch\['enc_embed'\]\)"):
+            train_lib.train(argv)
+        return
+    run = train_lib.train(argv)
+    assert run.arch.name == arch
+    assert np.isfinite(float(run.metrics["loss/total"]))
+    assert tuple(run.last_batch["obs_token"].shape) == (2, 5)
 
 
 @pytest.mark.parametrize("arch,key", [
@@ -383,6 +405,48 @@ def test_attention_wrappers_refuse_what_the_kernel_does_not_take():
         dk.decode_attention(q, k, v, bias)
 
 
+@pytest.mark.parametrize("which", ["flash", "decode"])
+def test_attention_kernels_refuse_a_graph_they_would_cut(which):
+    """K4 and K5 have no backward and write through a raw pointer: the
+    route that launches them (``impl='pallas'``) raises on inputs that
+    require grad while grad mode is on, on the CPU as on the card, and
+    runs under ``torch.no_grad()``."""
+    from repro_torch.kernels import ops
+    q, k, v = _attn_inputs(2, 9, 9, 4, 2, 16, 4)
+    if which == "decode":
+        q = q[:, 0].contiguous()
+        bias = decode_bias(5, 9, 0, 2, "cpu")
+
+        def call():
+            return ops.decode_attention(q, k, v, bias, impl="pallas")
+    else:
+        def call():
+            return ops.flash_attention(q, k, v, True, 0, impl="pallas")
+    for x in (q, k, v):
+        x.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            assert call().grad_fn is None
+        x.requires_grad_(False)
+    assert call().grad_fn is None
+
+
+def test_linear_scan_wrapper_keeps_the_graph_through_its_function():
+    """K3 goes through its autograd Function where an input requires
+    grad: the output has a grad_fn and the gradients reach a, b and h0."""
+    a, b, h0 = _scan_inputs(7, 5, 5)
+    for x in (a, b, h0):
+        x.requires_grad_(True)
+    h = lk.linear_scan(a, b, h0)
+    assert type(h.grad_fn).__name__.startswith("LinearScanFn")
+    h.sum().backward()
+    assert all(x.grad is not None and bool(x.grad.abs().sum() > 0)
+               for x in (a, b, h0))
+    with torch.no_grad():
+        assert lk.linear_scan(a, b, h0).grad_fn is None
+
+
 @pytest.mark.parametrize("b,kh,s,sms,want", [
     (16, 8, 128, 132, (1, 128)),        # the serving path: one pass
     (8, 8, 32768, 132, (17, 1984)),     # decode_32k: ~8 blocks an SM
@@ -508,6 +572,30 @@ def test_linear_scan_matches_plain_on_the_card(t, n, with_h0):
     want = lk.linear_scan_plain(a, b, h0)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert lk.linear_scan.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,n", [(1, 16 * 64 * 64 * 128), (21, 81920),
+                                 (37, 1000)])
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_linear_scan_backward_matches_plain_on_the_card(t, n, with_h0):
+    """K3's gradient (K3 on reversed time) against autograd through the
+    plain loop: 1e-5 absolute, one launch each way. (1, 16777216) is
+    mamba2-1.3b's training pass at 32 envs (one chunk of T = 21), (21,
+    81920) recurrentgemma-2b's RG-LRU at 32 envs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    a, b, h0 = _scan_inputs(t, n, t + n, "cuda")
+    h0 = h0 if with_h0 else None
+    ct = torch.randn(t, n, device="cuda")
+    ins = [x.requires_grad_(True) for x in (a, b, h0) if x is not None]
+    lk.reset_launch_counts()
+    got = torch.autograd.grad((lk.linear_scan(a, b, h0) * ct).sum(), ins)
+    assert lk.linear_scan.launches == 2
+    want = torch.autograd.grad((lk.linear_scan_plain(a, b, h0) * ct).sum(),
+                               ins)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -213,7 +213,7 @@ def test_forward_trajectory_full_width_shallow_on_catch_matches_jax():
     tree = _jax_params(j_bb.backbone_specs(arch_j, 3), seed=8)
     batch = _trajectory_batch(4, 5, (10, 5, 3), 3, 256, seed=9)
     lj, vj, _ = j_learner.forward_trajectory(tree, _to_jax(batch), arch_j, 3)
-    lt, vt = learner.forward_trajectory(P.from_jax(tree),
+    lt, vt, _ = learner.forward_trajectory(P.from_jax(tree),
                                            _to_torch(batch), arch_t, 3)
     assert tuple(lt.shape) == (4, 6, 3) and tuple(vt.shape) == (4, 6)
     _close(lj, lt, atol=1e-4, rtol=1e-4)
@@ -226,7 +226,7 @@ def test_forward_trajectory_deep_at_72x96_matches_jax():
     tree = _jax_params(j_bb.backbone_specs(arch_j, 4), seed=10)
     batch = _trajectory_batch(2, 2, (72, 96, 3), 4, 32, seed=11)
     lj, vj, _ = j_learner.forward_trajectory(tree, _to_jax(batch), arch_j, 4)
-    lt, vt = learner.forward_trajectory(P.from_jax(tree),
+    lt, vt, _ = learner.forward_trajectory(P.from_jax(tree),
                                            _to_torch(batch), arch_t, 4)
     _close(lj, lt, atol=1e-4, rtol=1e-4)
     _close(vj, vt, atol=1e-4, rtol=1e-4)
