@@ -10,15 +10,18 @@ exception and a nonzero exit:
 1. Card: ``nvidia-smi --query-gpu=name,power.limit``.
 2. Build: compile ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` with nvcc.
 2a. Device times, first, in a process that has traced nothing yet: each
-   kernel at every shape phases 8, 14 and 19 time, and the library call
-   beside K4 and K5, from a ``torch.profiler`` trace of ``DEVICE_CALLS``
-   calls. Only the kernel's own device events count (``KERNEL_EVENTS``:
-   its launch, and K5's combine pass), over its launches. Every trace has
-   idle host time at both ends (``TRACE_PAD_S``): the profiler drops a
-   device event stamped outside its window, and now and then stamps the
-   card's events milliseconds early. A trace that still lacks some of
-   its calls' events is taken again, up to ``DEVICE_TRIES`` times, and
-   then fails the run.
+   kernel at every shape phases 8, 14 and 19 time (K3 also forward and
+   backward at the training shapes), and the library call beside K4 and
+   K5, from a ``torch.profiler`` trace of ``DEVICE_CALLS`` calls. Only
+   the kernel's own device events count (``KERNEL_EVENTS``: its launch,
+   and K5's combine pass), over its launches. Every trace has idle host
+   time at both ends (``TRACE_PAD_S``): the profiler drops a device
+   event stamped outside its window, and now and then stamps the card's
+   events milliseconds early. Every profiled window opens with a lead-in
+   of spin kernels that no count or busy time reads (``_trace_lead_in``):
+   a trace can lose its first device records. A trace that still lacks
+   some of its calls' events is taken again, up to ``DEVICE_TRIES``
+   times, and then fails the run.
 3. K1 (V-trace recurrence) against its plain PyTorch version, on the card,
    at the replay learner's batches of 2 and 4 trajectories too.
 4. K2 (fused loss + V-trace) against its plain version, forward and the
@@ -70,9 +73,9 @@ exception and a nonzero exit:
    (params, optimizer state, version), resumed with its versions
    continuing. Restored trees equal the saved ones bit for bit, on the
    card and loaded on the CPU.
-6g. Envs on the card: rooms, tmaze and chase, 32 envs each, 200 steps
-   from the same actions and draws on the card and on the CPU; every
-   state, token, image, reward and done equal.
+6g. Envs on the card: rooms, tmaze and chase, 32 envs each,
+   ``ENV_STEPS`` steps from the same actions and draws on the card and
+   on the CPU; every state, token, image, reward and done equal.
 6h. Chase at full width through the sync CLI (impala-shallow, 32 envs,
    unroll 20) for ``CHASE_SYNC_STEPS`` steps: K2 once a step at (20, 32,
    5) and K1 never; frames/s beside catch's from phase 5.
@@ -96,8 +99,8 @@ exception and a nonzero exit:
 6l. Multi-task: ``train_multitask`` on catch+bandit+tmaze at full width,
    8 envs a task, ``MULTITASK_STEPS`` steps (K2 at (16, 24, 4)), and each
    task's expert; every score and the mean capped normalised scores.
-6m. PBT: ``run_pbt`` (pop 4, 2 rounds of 20 steps, catch+bandit, full
-   width): a member that copied in round 0 trains on its copy in round 1
+6m. PBT: ``run_pbt`` (pop 4, 2 rounds of ``PBT_STEPS`` steps,
+   catch+bandit, full width): a member that copied in round 0 trains on its copy in round 1
    while the member it copied from stays bit for bit as it was; and a
    forced exploit's copy, trained one step, leaves its source untouched.
 6n. Process actors at full width: 6a's settings with ``--actor-backend
@@ -117,10 +120,10 @@ exception and a nonzero exit:
    its process half: smoke impala-shallow, ``BAR_STEPS`` updates): last
    100 above the first 500 by more than 0.15 and above -0.3, trajectories
    over the wire.
-6q. Remote actors over loopback TCP: unroll mode, inference mode and
-   unroll mode with ``--wire-codec bf16``, each at full width for
-   ``REMOTE_STEPS`` updates with K2 once an update; no decode error and
-   no torn tail, and the bf16 wire carries under 1/1.5 of the raw bytes.
+6q. Remote actors over loopback TCP: unroll mode with ``--wire-codec
+   bf16`` and inference mode, each at full width for ``REMOTE_STEPS``
+   updates with K2 once an update; no decode error and no torn tail, and
+   the bf16 wire carries under 1/1.5 of the raw bytes.
 6r. A learner group at full width: ``--runtime async --learners 2`` on
    catch with impala-shallow (32 envs, unroll 20, 2 actor threads, one a
    learner, batches of up to 4) for ``GROUP_STEPS`` rounds: identical
@@ -130,15 +133,13 @@ exception and a nonzero exit:
    shipped back), K1 never; each learner's frames/s, their sum and the
    reduce wait beside 6a's single learner, and ``nvidia-smi``'s compute
    pids while the group runs (at most this process and the two workers).
-6s. 6r with ``--replay-fraction 0.5 --replay-reuse 2`` for
-   ``GROUP_REPLAY_STEPS`` rounds: K1 once a round in each learner, K2
-   never, identical replicas.
-6t. 6r with ``--actor-backend process --transport shm`` for
-   ``GROUP_PROC_STEPS`` rounds: none of the workers' children (the
-   actors) holds a CUDA context. With ``--metrics-port``: a thread polls
-   the group's one port while it runs and must see
-   ``repro_learner_updates`` for ``learner="0"`` and ``learner="1"`` and
-   a /healthz of 200.
+6s-6t. One run: 6r with ``--replay-fraction 0.5 --replay-reuse 2`` and
+   ``--actor-backend process --transport shm`` for ``GROUP_PROC_STEPS``
+   rounds: K1 once a round in each learner, K2 never, identical
+   replicas, replay sampled; none of the workers' children (the actors)
+   holds a CUDA context. With ``--metrics-port``: a thread polls the
+   group's one port while it runs and must see ``repro_learner_updates``
+   for ``learner="0"`` and ``learner="1"`` and a /healthz of 200.
 6u. The JAX group learning bar (tests/test_group.py::
    test_two_learner_group_learns_catch: smoke impala-shallow, 2 learners,
    4 actor threads, ``GROUP_BAR_STEPS`` rounds): last 100 above the first
@@ -229,10 +230,10 @@ exception and a nonzero exit:
     20-23, the hybrid's ring (G = 10, D = 256, S = 2048) past its wrap and
     before it; every one of 1,600 (G = 4, D = 128) or 1,500 (G = 1, D =
     64) keys valid, as in cross-attention decode (phases 23c-23d).
-11. The serving path: ``repro_torch.launch.serve`` at its defaults
-    (mistral-nemo-12b at full width and depth, 64 requests, batch 16, ctx
-    128, 32 decode steps) on the card. K4 must launch once a layer at each
-    prefill, K5 once a layer at each decode step and K3 never; counts are
+11. The serving path: ``repro_torch.launch.serve`` at its defaults but
+    one batch (mistral-nemo-12b at full width and depth, 16 requests,
+    batch 16, ctx 128, 32 decode steps) on the card. K4 must launch once
+    a layer at each prefill, K5 once a layer at each decode step and K3 never; counts are
     zeroed just before and read just after. Prints actions/s, step
     latency, prefill and decode-step ms and the card's peak allocated
     memory, with the card's name and power limit.
@@ -240,7 +241,10 @@ exception and a nonzero exit:
     sampled actions replayed through ``ops``'s ``impl='ref'`` route on the
     same params; prefill logits and every decode step's logits compared.
 13. Where a decode step's time goes: a ``torch.profiler`` trace of a few
-    decode steps, the card's busy time against the unprofiled step.
+    decode steps, the card's busy time against the unprofiled step. Every
+    busy-share trace of a serving or sync path (7, 13, 18, 23, 23b, 25,
+    25d) traces the card's activity alone and must hold every launch of
+    the port's kernel that ran, by the wrapper's own count (``_traced``).
 14. Times with CUDA events: K4 and K5 at the serving path's shapes, at
     gemma-7b's and recurrentgemma-2b's (phases 20 and 23), at
     llama-3.2-vision-11b's cross-attention and whisper-small's encoder and
@@ -259,9 +263,9 @@ exception and a nonzero exit:
     (``K3_BWD_SHAPES``: recurrentgemma-2b's (21, 81920), mamba2-1.3b's
     (1, 16777216), and (8, 1048576) with h0), one launch each way.
 16. The SSM serving path: ``repro_torch.launch.serve --arch mamba2-1.3b
-    --ctx 2048`` (full width and all 48 layers, otherwise the CLI's
-    defaults) on the card. K3 must launch once a layer at each prefill and
-    K4/K5 never; counts are zeroed just before and read just after.
+    --ctx 2048 --requests 16`` (full width and all 48 layers, one batch,
+    otherwise the CLI's defaults) on the card. K3 must launch once a
+    layer at each prefill and K4/K5 never; counts are zeroed just before and read just after.
     Prints actions/s, step latency, prefill and decode-step ms and the
     card's peak allocated memory.
 17. Its served logits against the plain route (as phase 12).
@@ -333,6 +337,19 @@ exception and a nonzero exit:
     every leaf moved, the loss finite, K3's shapes among phase 15's.
 25c. K5 at every shape a token actor launched it at (phases 25 and 25b),
     against its plain version at each cache index of an unroll.
+25d. The mixed-precision learner step (``build_train_step(...,
+    mixed_precision=True)``: bf16 live params, the f32 master in the
+    optimizer state), at full width and depth, each run's counts zeroed
+    just before and read just after: (i) stablelm-1.6b on phase 25's last
+    batch and final params, the f32 step and the mixed one, a warm-up and
+    a timed step each (CUDA events), their peaks, the loss gap within
+    ``_loss_gap``'s bar, K2 once a step, every live leaf bf16(master),
+    then one mixed step traced for its busy share beside phase 25's; (ii)
+    qwen1.5-4b (3.56 B parameters, params and master drawn on the card),
+    its mixed step's ms and peak; (iii) mamba2-1.3b, one mixed step: K3
+    48 forward and 48 backward, every master leaf moved or under f32
+    rounding; (iv) impala-shallow on an actor batch of 32 x 20, the conv
+    on bf16 params, the loss gap within the bar.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -382,7 +399,7 @@ ATTN_BF16_ATOL = 1e-5
 # to the other bf16 neighbour at its cast before the gate, in some of the
 # 48 layers: sqrt(48) * 2^-8 = 2.7% at most
 LOGITS_RTOL = 0.05
-MAIN_STEPS = 200
+MAIN_STEPS = 100
 BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
 # the full-width async runs (phases 6a, 6c, 6i, 6j, 6n, 6o: unroll mode,
@@ -423,8 +440,8 @@ CKPT_EVERY = 10
 # tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 # slice 8: the new envs, chase at full width, inference mode, multi-task
-ENV_B, ENV_STEPS = 32, 200
-CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 100, ASYNC_STEPS
+ENV_B, ENV_STEPS = 32, 100
+CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 40, ASYNC_STEPS
 CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
                                 "--replay-fraction", "0.5",
                                 "--replay-reuse", "2")
@@ -434,27 +451,28 @@ PROC_ARGV = ASYNC_ARGV + ["--actor-backend", "process", "--transport", "shm"]
 PROC_INFER_ARGV = PROC_ARGV + ["--actor-mode", "inference"]
 REMOTE_ARGV = _async_argv("catch", REMOTE_STEPS, "--actor-backend",
                           "remote", "--transport", "socket")
-REMOTE_RUNS = [("remote unroll", REMOTE_ARGV),
+# two runs, mostly the children's start-up: the unroll mode on the bf16
+# wire, the inference mode on the plain one (6y's supervised remote run
+# drives the unroll mode on the plain wire)
+REMOTE_RUNS = [("remote unroll bf16", REMOTE_ARGV + ["--wire-codec",
+                                                     "bf16"]),
                ("remote inference", REMOTE_ARGV + ["--actor-mode",
-                                                   "inference"]),
-               ("remote unroll bf16", REMOTE_ARGV + ["--wire-codec",
-                                                     "bf16"])]
+                                                   "inference"])]
 # the bf16 wire's raw bytes over its wire bytes must pass this
 WIRE_DIET = 1.5
 # slice 10: learner groups at full width, one actor thread a learner
-GROUP_LEARNERS, GROUP_STEPS, GROUP_PROC_STEPS = 2, 100, 30
-GROUP_REPLAY_STEPS = 50
+GROUP_LEARNERS, GROUP_STEPS, GROUP_PROC_STEPS = 2, 40, 30
 GROUP_ARGV = _async_argv("catch", GROUP_STEPS, "--learners", "2")
-GROUP_REPLAY_ARGV = _async_argv("catch", GROUP_REPLAY_STEPS, "--learners",
-                                "2", "--replay-fraction", "0.5",
-                                "--replay-reuse", "2")
+# 6s-6t: one run, mostly its workers' start-up: process actors, replay at
+# the paper's half and the group's metrics port
 GROUP_PROC_ARGV = _async_argv("catch", GROUP_PROC_STEPS, "--learners", "2",
                               "--actor-backend", "process", "--transport",
-                              "shm")
+                              "shm", "--replay-fraction", "0.5",
+                              "--replay-reuse", "2")
 # tests/test_group.py::test_two_learner_group_learns_catch: 240 rounds
 GROUP_BAR_STEPS = 240
 # the rounds a group resumed from the bar run's checkpoint takes (6v)
-GROUP_RESUMED = 10
+GROUP_RESUMED = 5
 # slice 11: the flight recorder. 6w: 6a's settings for OBS_STEPS updates,
 # one trajectory in OBS_TRACE_EVERY an actor traced, /metrics read after
 # update OBS_SCRAPE_AT, torch.profiler over updates OBS_PROFILE (both
@@ -488,8 +506,10 @@ SUP_REMOTE_ARGV = _async_argv("catch", SUP_REMOTE_STEPS, "--actor-backend",
                               "remote", "--transport", "socket",
                               "--heartbeat-timeout-s", str(SUP_HEARTBEAT_S))
 MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
-    ("catch", "bandit", "tmaze"), 60, 8)
-PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 20
+    ("catch", "bandit", "tmaze"), 10, 8)
+PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 5
+# the time a plain version's timing loop aims at (``_time_plain``)
+PLAIN_BUDGET_MS = 100.0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
@@ -597,14 +617,17 @@ TRACE_TRIES, TRACE_RETRY_PAUSE_S = 6, 2.0
 # conversion puts a kernel up to 3.9 ms before its own launch
 # (``tools/trace_clock.py``)
 TRACE_PAD_S = 0.05
+# the lead-in of each profiled window (``_trace_lead_in``): short spin
+# kernels (``torch.cuda._sleep``, ~1 us of cycles each) and one of ~20 ms.
+# After some serving phases, a process's traces lose their first device
+# record in take after take, wide pads or not: a busy-share trace then
+# lacked one launch of the port's kernel, a device-time trace one call's
+# first kernels; with the lead-in they lose spin kernels instead, up to
+# 55 of 257 seen on an H100 (PERF.md, section 7)
+LEAD_IN_SPINS, LEAD_IN_CYCLES, LEAD_IN_LONG_CYCLES = 1024, 1000, 40_000_000
+LEAD_IN_EVENT = "spin_kernel"
 # the device-time traces that lost events and were taken again
 TRACES_RETAKEN = []
-# the pads' scale in a trace taken again: x4 a retake, up to 1 s a pad.
-# Late in a long run a busy-share trace has lost one launch of the port's
-# kernel in take after take (my chip runs, PR 25: phases 13, 23 and 23b,
-# 850-1,050 s in), where the same trace in a fresh process lost none; a
-# wider window rules out a stamp pushed past either end
-_PAD_SCALE = [1.0]
 # the async windows' pad less the largest shift allowed for: the busy
 # time leaves out what the actors launched in it
 ASYNC_SKIP_US = (TRACE_PAD_S - 0.01) * 1e6
@@ -629,8 +652,9 @@ K5_TIMED = [("main", (16, 32, 8, 128, 128), 160, 0, 200),
             ("llama cross", (16, 32, 8, 1600, 128), 1600, 0, 200),
             ("whisper cross", (16, 12, 12, 1500, 64), 1500, 0, 200),
             ("stablelm actor", (32, 32, 32, 21, 64), 19, 0, 200)]
-SERVE_ARGV = ["--device", "cuda"]              # the server's defaults
-SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 4, 32
+# the server's defaults but one batch of 16 requests
+SERVE_ARGV = ["--device", "cuda", "--requests", "16"]
+SERVE_LAYERS, SERVE_BATCHES, SERVE_STEPS = 40, 1, 32
 SERVE_PARAMS = 11_576_791_059
 # K3 checks: (T, N). (8, 8388608) is the mamba2 serving path's cross-chunk
 # pass (8 chunks of 256 at ctx 2048; batch 16 x 64 heads x P 64 x N 128);
@@ -638,7 +662,8 @@ SERVE_PARAMS = 11_576_791_059
 K3_SHAPES = [(1, 1), (33, 7), (257, 129), (512, 1024), (8, 8388608),
              (2048, 40960)]
 K3_MAIN, K3_LONG = (8, 8388608), (2048, 40960)
-SSM_ARGV = ["--device", "cuda", "--arch", "mamba2-1.3b", "--ctx", "2048"]
+SSM_ARGV = ["--device", "cuda", "--arch", "mamba2-1.3b", "--ctx", "2048",
+            "--requests", "16"]
 SSM_LAYERS, SSM_PARAMS = 48, 1_343_779_859
 # phases 20-23: the dense configs and the RG-LRU hybrid at full width, one
 # batch of 16 and 8 decode steps each; the dense three at the server's ctx
@@ -716,6 +741,20 @@ TRAIN_FAMILIES = [
 # the (B, H, K, S, D, dtype) the token actors launched K5 at (phases 25
 # and 25b), held at every cache index of an unroll in phase 25c
 ACTOR_K5_SHAPES = set()
+# phase 25d: the mixed-precision learner step. The gap between its loss
+# and the f32 step's on the same params: JAX's bar of 0.05
+# (tests/test_core.py, on a smoke loss of ~17.6: 0.28% of it), held for
+# impala-shallow; for stablelm-1.6b at full width, one bf16 ulp of the
+# loss (2^-7 of it) where that is larger: the summed loss of a
+# full-width batch of 32 x 20 is hundreds, and rounding the weights to
+# bf16 (2^-9 relative) moves it by ~0.25% (1.56 on 648 on an H100, and
+# 0.080 on -106.3 in later runs: PERF.md, section 6); qwen1.5-4b at
+# full width and depth (params with catch's 3 actions), its f32 step out
+# of reach on one card (about six f32 copies of 14.2 GB); mamba2-1.3b's K3
+# a pass (48 layers, forward, and as many backward)
+MIXED_LOSS_GAP, MIXED_LOSS_RGAP = 0.05, 2.0 ** -7
+MIXED_WIDE = ("qwen1.5-4b", 40, 3_561_423_364)
+MIXED_SCAN = ("mamba2-1.3b", 48)
 
 
 def _card_line() -> str:
@@ -1967,30 +2006,13 @@ def phase_group(vk, dev, single_before) -> int:
     return sum(k2)
 
 
-def phase_group_replay(vk, dev) -> int:
-    """6s: 6r with ``--replay-fraction 0.5 --replay-reuse 2``: K1 once a
-    round in each learner, K2 never. Returns K1's launches."""
-    from repro_torch.launch import train as train_lib
-
-    run = train_lib.train(GROUP_REPLAY_ARGV)
-    _no_actor_threads("learner group with replay")
-    tel, subs, k1, _k2 = _check_group("learner group replay", vk, run,
-                                      GROUP_REPLAY_STEPS, replay=True)
-    rp = tel["replay"]
-    if not (rp["sampled"] > 0 and rp["fresh_max"] == 2):
-        raise AssertionError(f"learner group replay: {rp}")
-    _group_rates("learner group replay", tel, subs)
-    print(f"learner group replay: sampled {rp['sampled']}, reuse_ratio "
-          f"{rp['reuse_ratio']:.4f}, target_syncs {rp['target_syncs']}, "
-          f"trained frames/s {rp['trained_frames_per_sec']:.0f}")
-    return sum(k1)
-
-
 def phase_group_process(vk, dev) -> int:
-    """6t: 6r with ``--actor-backend process --transport shm`` for
-    ``GROUP_PROC_STEPS`` rounds: no actor child holds a CUDA context. Its
+    """6s-6t: 6r with ``--actor-backend process --transport shm`` and
+    ``--replay-fraction 0.5 --replay-reuse 2`` for ``GROUP_PROC_STEPS``
+    rounds: K1 once a round in each learner, K2 never; replay sampled,
+    the fresh cap 2; no actor child holds a CUDA context. Its
     ``--metrics-port``, polled while it runs, shows both learners'
-    ``repro_learner_updates`` and a /healthz of 200. Returns K2's
+    ``repro_learner_updates`` and a /healthz of 200. Returns K1's
     launches."""
     from repro_torch.launch import train as train_lib
 
@@ -1999,8 +2021,15 @@ def phase_group_process(vk, dev) -> int:
         run = train_lib.train(GROUP_PROC_ARGV + ["--metrics-port",
                                                  str(port)])
     _no_actor_threads("learner group, process actors")
-    tel, subs, _k1, k2 = _check_group("learner group process", vk, run,
-                                      GROUP_PROC_STEPS)
+    tel, subs, k1, _k2 = _check_group("learner group process", vk, run,
+                                      GROUP_PROC_STEPS, replay=True)
+    rp = tel["replay"]
+    if not (rp["sampled"] > 0 and rp["fresh_max"] == 2):
+        raise AssertionError(f"learner group process, replay: {rp}")
+    print(f"learner group process: replay sampled {rp['sampled']}, "
+          f"reuse_ratio {rp['reuse_ratio']:.4f}, target_syncs "
+          f"{rp['target_syncs']}, trained frames/s "
+          f"{rp['trained_frames_per_sec']:.0f}")
     if scrape.labels != {"0", "1"} or 200 not in scrape.health:
         raise AssertionError(f"learner group process: the group's /metrics "
                              f"showed repro_learner_updates for learners "
@@ -2032,7 +2061,7 @@ def phase_group_process(vk, dev) -> int:
           f"the workers {sorted(seen.workers)}, only "
           f"{sorted(seen.on_card)} had the card's device node open: no "
           f"actor child holds a CUDA context")
-    return sum(k2)
+    return sum(k1)
 
 
 def _group_bar_args(dev):
@@ -2952,20 +2981,48 @@ def phase_path_shapes(vk, dev):
 
 
 def _trace_pad() -> None:
-    """Idle host time at either end of a profiled window (``TRACE_PAD_S``,
-    times ``_PAD_SCALE`` while ``_traced`` takes a trace again)."""
-    time.sleep(TRACE_PAD_S * _PAD_SCALE[0])
+    """Idle host time at either end of a profiled window."""
+    time.sleep(TRACE_PAD_S)
+
+
+def _trace_lead_in() -> None:
+    """The start of a profiled window: idle host time, ``LEAD_IN_SPINS``
+    short spin kernels and one of ``LEAD_IN_LONG_CYCLES`` on the current
+    stream, a synchronise, and idle host time again. A trace can lose its
+    first device records, in take after take, in a process that has
+    traced and served much before (PERF.md, section 7): these are its
+    first, and ``_device_busy`` leaves them out (``LEAD_IN_EVENT``)."""
+    _trace_pad()
+    for _ in range(LEAD_IN_SPINS):
+        torch.cuda._sleep(LEAD_IN_CYCLES)
+    torch.cuda._sleep(LEAD_IN_LONG_CYCLES)
+    torch.cuda.synchronize()
+    _trace_pad()
+
+
+def _lead_in_held(prof, what: str) -> None:
+    """Prints how many of a trace's lead-in spin kernels it holds, where
+    it lost some: the device records a trace loses are its first."""
+    from torch.autograd import DeviceType
+
+    held = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and LEAD_IN_EVENT in e.name)
+    if held != LEAD_IN_SPINS + 1:
+        print(f"{what}: the trace holds {held} of its {LEAD_IN_SPINS + 1} "
+              f"lead-in spin kernels, the first records it launched")
 
 
 def _device_busy(events, skip_us: float = 0.0):
     """(busy us, device events, {name: (us, count)}) of the device-side
     events of a profiler trace that start ``skip_us`` or more after it
-    does; busy is the union of their intervals."""
+    does, the lead-in's spin kernels left out (``_trace_lead_in``); busy
+    is the union of their intervals."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
     for e in events:
-        if e.device_type != DeviceType.CUDA or e.time_range.start < skip_us:
+        if e.device_type != DeviceType.CUDA or e.time_range.start < skip_us \
+                or LEAD_IN_EVENT in e.name:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -2989,7 +3046,7 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
     Then ``profiled`` more steps under ``torch.profiler``: the card's busy
     time per step against the unprofiled step time, and the device kernels
     that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.core import actor as actor_lib
     from repro_torch.core import learner as learner_lib
@@ -3016,11 +3073,10 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
           f"to a synchronise, mean of {steps} steps, {MAIN_B} envs x "
           f"unroll {MAIN_T})")
 
-    def take():
+    def take(activities):
         nonlocal carry, params, opt_state
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _trace_pad()
+        with profile(activities=activities) as prof:
+            _trace_lead_in()
             for step in range(profiled):
                 carry, batch = unroll(params, carry)
                 params, opt_state, _ = train_step(params, opt_state, step,
@@ -3034,6 +3090,8 @@ def phase_split(run, dev, steps: int = 20, profiled: int = 5) -> None:
 
 
 def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+    """ms a call of ``fn``: CUDA events around ``iters`` calls after
+    ``warmup`` more."""
     warmup = min(warmup, iters)
     for _ in range(warmup):
         fn()
@@ -3046,6 +3104,14 @@ def _time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _time_plain(fn, iters: int) -> float:
+    """A plain version's ms a call: ``_time_ms`` over at most ``iters``
+    calls, fewer where one call is slow (a plain loop of 5-120 ms), so
+    that its loop takes about ``PLAIN_BUDGET_MS``; one call warms up."""
+    once = _time_ms(fn, 1, 0)
+    return _time_ms(fn, max(3, min(iters, int(PLAIN_BUDGET_MS / once))), 1)
 
 
 def _bound(nbytes: int, ops: int, ops_per_s: float = FP32_OPS_PER_S):
@@ -3082,7 +3148,7 @@ def phase_times(vk, dev):
                 ("loss_vtrace", vk.loss_vtrace, vk.loss_vtrace_plain, inp,
                  _k2_cost(t, b, a))):
             ms = _time_ms(lambda: kern(*args))
-            plain_ms = _time_ms(lambda: plain(*args), 50)
+            plain_ms = _time_plain(lambda: plain(*args), 50)
             shape = (t, b) if name == "vtrace" else (t, b, a)
             dev_ms, calls = DEVICE[(name, shape)]
             bound_ms, bound_by = _bound(*cost)
@@ -3280,7 +3346,7 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
     must hold ``per_step`` launches of ``kernel`` a step (``_print_busy``).
     A trace that lost some of them is taken again from a new prefill
     (``_traced``)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.models import backbone as bb
 
@@ -3288,15 +3354,14 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
     toks = fb["tokens"]
     ctx = toks.shape[1]
 
-    def take():
+    def take(activities):
         with torch.no_grad():
             out = bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
                                    run.num_actions)
             cache, tok = out.cache, toks[:, -1:]
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _trace_pad()
+            with profile(activities=activities) as prof:
+                _trace_lead_in()
                 for i in range(profiled):
                     out = bb.apply_decode(run.params, tok, cache, ctx + i,
                                           run.arch, run.num_actions)
@@ -3313,49 +3378,78 @@ def phase_serve_split(run, kernel=None, per_step: int = 0,
                 kernel, per_step)
 
 
+def _wrapper(kernel: str):
+    """The wrapper of ``kernel``, a ``KERNEL_EVENTS`` key."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import linear_scan as lk
+    from repro_torch.kernels import vtrace as vk
+
+    return _kernel_fns(vk, lk, fk, dk)[kernel]
+
+
 def _traced(what: str, take, kernel=None, launches: int = 0):
-    """``take()``'s profiler trace, taken again (up to ``TRACE_TRIES``
-    traces, ``TRACE_RETRY_PAUSE_S`` apart, each with wider pads,
-    ``_PAD_SCALE``) while it holds another number than ``launches`` of
-    ``kernel``'s launches: such a trace lost device events. Each retake
-    prints where the kernel's kept launches and all device events sit in
-    the trace. ``_print_busy`` then holds the last one to the same
+    """``take(activities)``'s profiler trace of the card's activity,
+    taken again (up to ``TRACE_TRIES`` traces, ``TRACE_RETRY_PAUSE_S``
+    apart) while it holds another number than ``launches`` of
+    ``kernel``'s launches: such a trace lost device events. The wrapper's
+    own count over each take tells a lost event from a call that launched
+    another number (which fails at once); each retake prints where the
+    kernel's launches sit and how many of them the profiler's raw events
+    held (``_lost``). ``_print_busy`` then holds the last one to the same
     count."""
-    try:
-        for attempt in range(1, TRACE_TRIES + 1):
-            prof = take()
-            if kernel is None or attempt == TRACE_TRIES:
-                return prof
-            name = KERNEL_EVENTS[kernel][0]
-            _, _, whole = _device_busy(prof.events())
-            got = sum(c for event, (_, c) in whole.items() if name in event)
-            if got == launches:
-                return prof
-            _PAD_SCALE[0] = min(4.0 ** attempt, 1.0 / TRACE_PAD_S)
-            print(f"{what}: trace {attempt} of {TRACE_TRIES} holds {got} "
-                  f"{name} launches where {launches} ran ({_where(prof, name)});"
-                  f" traced again after {TRACE_RETRY_PAUSE_S} s with "
-                  f"{TRACE_PAD_S * _PAD_SCALE[0]:.2f} s pads")
-            TRACES_RETAKEN.append({name: got})
-            time.sleep(TRACE_RETRY_PAUSE_S)
-    finally:
-        _PAD_SCALE[0] = 1.0
+    from torch.profiler import ProfilerActivity
+
+    for attempt in range(1, TRACE_TRIES + 1):
+        fn = _wrapper(kernel) if kernel is not None else None
+        before = fn.launches if fn is not None else 0
+        prof = take([ProfilerActivity.CUDA])
+        _lead_in_held(prof, what)
+        if kernel is None:
+            return prof
+        ran = fn.launches - before
+        if ran != launches:
+            raise AssertionError(f"{what}: the traced call launched "
+                                 f"{kernel} {ran} times (its wrapper's "
+                                 f"count), not {launches}")
+        name = KERNEL_EVENTS[kernel][0]
+        _, _, whole = _device_busy(prof.events())
+        got = sum(c for event, (_, c) in whole.items() if name in event)
+        if got == launches or attempt == TRACE_TRIES:
+            return prof
+        print(f"{what}: trace {attempt} of {TRACE_TRIES} holds {got} "
+              f"{name} launches where its wrapper counted {ran} "
+              f"({_lost(prof, name)}); traced again after "
+              f"{TRACE_RETRY_PAUSE_S} s")
+        TRACES_RETAKEN.append({name: got})
+        time.sleep(TRACE_RETRY_PAUSE_S)
 
 
-def _where(prof, name: str) -> str:
-    """Where a trace's device events and ``name``'s kept launches sit, in
-    us from its first event of any kind."""
+def _lost(prof, name: str) -> str:
+    """Where a trace lost ``name``'s launches: how many the profiler's raw
+    (kineto) events hold, of the device kind or any, against the
+    ``FunctionEvent`` list it builds from them, with their distinct
+    correlation ids; and where the device events and the kept launches sit,
+    in us from the trace's start."""
     from torch.autograd import DeviceType
 
+    raw = prof.profiler.kineto_results.events()
+    start = prof.profiler.kineto_results.trace_start_ns()
+    mine_raw = [e for e in raw if name in e.name()]
+    dev_raw = [e for e in mine_raw if e.device_type() == DeviceType.CUDA]
     events = prof.events()
-    t0 = min(e.time_range.start for e in events)
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     mine = sorted(e.time_range.start for e in dev if name in e.name)
-    if not dev or not mine:
-        return "no device events of it"
-    return (f"device events {min(e.time_range.start for e in dev) - t0:.0f}"
-            f"-{max(e.time_range.end for e in dev) - t0:.0f} us, the "
-            f"launches kept {mine[0] - t0:.0f}-{mine[-1] - t0:.0f} us")
+    where = "no device events of it" if not dev or not mine else (
+        f"device events {min(e.time_range.start for e in dev):.0f}-"
+        f"{max(e.time_range.end for e in dev):.0f} us, the launches kept "
+        f"{mine[0]:.0f}-{mine[-1]:.0f} us")
+    early = sum(1 for e in dev_raw if e.start_ns() < start)
+    all_raw = sum(1 for e in raw if e.device_type() == DeviceType.CUDA)
+    return (f"raw events naming it {len(mine_raw)}, {len(dev_raw)} on the "
+            f"device with {len({e.correlation_id() for e in dev_raw})} "
+            f"correlation ids, {early} before the trace's start; device "
+            f"events raw {all_raw}, kept {len(dev)}; {where}")
 
 
 def _print_busy(what: str, prof, n: int, unprofiled_ms: float,
@@ -3418,11 +3512,13 @@ def _device_ms(fn, events, n: int = 20) -> Tuple[float, int]:
     torch.cuda.synchronize()
     for attempt in range(1, DEVICE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _trace_pad()
+            _trace_lead_in()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
             _trace_pad()
+        _lead_in_held(prof, "device time of " + (events[0] if events
+                                                  else "a library call"))
         busy_us, _, by_name = _device_busy(prof.events())
         if events is None:
             calls, us = n, busy_us
@@ -3441,12 +3537,38 @@ def _device_ms(fn, events, n: int = 20) -> Tuple[float, int]:
             return us / calls / 1e3, calls
         held = {name[:60]: c for name, (_, c) in sorted(by_name.items())[:4]}
         print(f"device time: trace {attempt} of {DEVICE_TRIES} of {n} calls "
-              f"lost events (it holds {held}); traced again")
+              f"lost events (it holds {held}; {_odd_events(prof, n)}); "
+              f"traced again")
         TRACES_RETAKEN.append(held)
     raise AssertionError(
         f"device time: {DEVICE_TRIES} profiler traces of {n} calls each "
         f"lost events: none holds {events[0] if events else 'a library'} "
         f"call's events {n} times over")
+
+
+def _odd_events(prof, n: int) -> str:
+    """The device events of a trace of ``n`` calls whose count is not a
+    multiple of ``n``: each one's count and the times of its first and
+    last occurrence, in us from the trace's first device event, beside a
+    call's length (the device span over ``n``)."""
+    from torch.autograd import DeviceType
+
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and LEAD_IN_EVENT not in e.name)
+    if not dev:
+        return "no device events"
+    t0 = dev[0][0]
+    counts, first, last = {}, {}, {}
+    for start, _, name in dev:
+        counts[name] = counts.get(name, 0) + 1
+        first.setdefault(name, start - t0)
+        last[name] = start - t0
+    odd = [f"{name[:60]} x{c} at {first[name]:.0f}-{last[name]:.0f}"
+           for name, c in counts.items() if c % n]
+    span = max(end for _, end, _ in dev) - t0
+    return (f"a call's length {span / n:.0f} us of {span:.0f}; the events "
+            f"not a multiple of the calls: " + "; ".join(odd))
 
 
 def _attn_pairs(t: int, s: int, causal: bool, window: int) -> int:
@@ -3508,7 +3630,7 @@ def phase_attn_times(fk, dk, dev):
         lib = _k4_library(qt, kt, vt, causal, window)
         ms = _time_ms(lambda: fk.flash_attention(q, k, v, causal, window),
                       iters)
-        plain_ms = _time_ms(lambda: fk.flash_attention_plain(
+        plain_ms = _time_plain(lambda: fk.flash_attention_plain(
             q, k, v, causal, window), iters)
         lib_ms = _time_ms(lib, iters)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
@@ -3540,8 +3662,8 @@ def phase_attn_times(fk, dk, dev):
         q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
                                                      window, dev)
         ms = _time_ms(lambda: dk.decode_attention(q, k, v, bias), iters)
-        plain_ms = _time_ms(lambda: dk.decode_attention_plain(q, k, v, bias),
-                            iters)
+        plain_ms = _time_plain(lambda: dk.decode_attention_plain(q, k, v,
+                                                                 bias), iters)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q4, kt, vt, attn_mask=mask, enable_gqa=True), iters)
         valid = int((bias == 0).sum())          # unmasked (row, slot) pairs
@@ -3653,17 +3775,16 @@ def phase_prefill_split(run, scans: int = SSM_LAYERS) -> None:
     median, and the device kernels that take most of it; the trace must
     hold the prefill's ``scans`` K3 launches, and one that lost some is
     taken again (``_traced``)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from repro_torch.models import backbone as bb
 
     toks = run.first_batch["tokens"]
 
-    def take():
+    def take(activities):
         with torch.no_grad():
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                _trace_pad()
+            with profile(activities=activities) as prof:
+                _trace_lead_in()
                 bb.apply_prefill(run.params, {"tokens": toks}, run.arch,
                                  run.num_actions)
                 torch.cuda.synchronize()
@@ -3680,49 +3801,67 @@ def phase_prefill_split(run, scans: int = SSM_LAYERS) -> None:
 DEVICE = {}
 
 
+def _keep_device_ms(key, fn, events) -> None:
+    """``DEVICE[key]``: ``fn``'s device ms over ``DEVICE_CALLS`` calls."""
+    DEVICE[key] = _device_ms(fn, events, DEVICE_CALLS)
+    ms, calls = DEVICE[key]
+    print(f"device time {key[0]} {key[1]}: {ms:.5f} ms a call, "
+          f"{calls} of {DEVICE_CALLS} calls traced")
+
+
 def phase_device_times(vk, fk, dk, lk, dev) -> None:
-    """2a: every kernel's device time at the shapes phases 8, 14 and 19
+    """2a: each kernel's device time at the shapes phases 8, 14 and 19
     time, and the library call's beside K4 and K5, each from a
     ``torch.profiler`` trace of ``DEVICE_CALLS`` calls (``_device_ms``),
     taken first, in a process that has traced nothing yet, and kept in
-    ``DEVICE`` for those phases."""
+    ``DEVICE`` for those phases; and K3's at its training shapes, forward
+    and backward."""
     import torch.nn.functional as F
-
-    def keep(key, fn, events):
-        DEVICE[key] = _device_ms(fn, events, DEVICE_CALLS)
-        ms, calls = DEVICE[key]
-        print(f"device time {key[0]} {key[1]}: {ms:.5f} ms a call, "
-              f"{calls} of {DEVICE_CALLS} calls traced")
 
     for t, b, a in VTRACE_TIMED:
         inp = _inputs(t, b, a, 5, dev)
         rho, c = _weights(_log_rhos(inp), 1.0, 1.0, 1.0)
         k1_args = (rho, c) + inp[3:]
-        keep(("vtrace", (t, b)), lambda: vk.vtrace(*k1_args),
-             KERNEL_EVENTS["vtrace"])
-        keep(("loss_vtrace", (t, b, a)), lambda: vk.loss_vtrace(*inp),
-             KERNEL_EVENTS["loss_vtrace"])
+        _keep_device_ms(("vtrace", (t, b)), lambda: vk.vtrace(*k1_args),
+                        KERNEL_EVENTS["vtrace"])
+        _keep_device_ms(("loss_vtrace", (t, b, a)),
+                        lambda: vk.loss_vtrace(*inp),
+                        KERNEL_EVENTS["loss_vtrace"])
     for label, (b, t, s, h, kh, d), causal, window, _ in K4_TIMED:
         q, k, v, qt, kt, vt = _k4_inputs(b, t, s, h, kh, d, dev)
-        keep(("flash_attention", label),
-             lambda: fk.flash_attention(q, k, v, causal, window),
-             KERNEL_EVENTS["flash_attention"])
-        keep(("flash_attention library", label),
-             _k4_library(qt, kt, vt, causal, window), None)
+        _keep_device_ms(("flash_attention", label),
+                        lambda: fk.flash_attention(q, k, v, causal, window),
+                        KERNEL_EVENTS["flash_attention"])
+        _keep_device_ms(("flash_attention library", label),
+                        _k4_library(qt, kt, vt, causal, window), None)
     for label, (b, h, kh, s, d), index, window, _ in K5_TIMED:
         q, k, v, bias, q4, kt, vt, mask = _k5_inputs(b, h, kh, s, d, index,
                                                      window, dev)
-        keep(("decode_attention", label),
-             lambda: dk.decode_attention(q, k, v, bias),
-             KERNEL_EVENTS["decode_attention"])
-        keep(("decode_attention library", label),
-             lambda: F.scaled_dot_product_attention(
-                 q4, kt, vt, attn_mask=mask, enable_gqa=True), None)
+        _keep_device_ms(("decode_attention", label),
+                        lambda: dk.decode_attention(q, k, v, bias),
+                        KERNEL_EVENTS["decode_attention"])
+        _keep_device_ms(("decode_attention library", label),
+                        lambda: F.scaled_dot_product_attention(
+                            q4, kt, vt, attn_mask=mask, enable_gqa=True),
+                        None)
     for label, (t, n) in (("main", K3_MAIN), ("long", K3_LONG)):
         a, b, _ = _scan_inputs(t, n, 3, dev)
-        keep(("linear_scan", label), lambda: lk.linear_scan(a, b),
-             KERNEL_EVENTS["linear_scan"])
+        _keep_device_ms(("linear_scan", label), lambda: lk.linear_scan(a, b),
+                        KERNEL_EVENTS["linear_scan"])
         del a, b
+    for t, n, _ in K3_TRAIN_SHAPES:
+        # the training forward, and the backward's K3 on reversed time
+        a, b, _ = _scan_inputs(t, n, 5, dev)
+        g = _scan_inputs(t, n, 6, dev)[1]
+        ctx = types.SimpleNamespace(saved_tensors=(a, lk.linear_scan(a, b),
+                                                   None))
+        _keep_device_ms(("linear_scan", ("train", t, n)),
+                        lambda: lk.linear_scan(a, b),
+                        KERNEL_EVENTS["linear_scan"])
+        _keep_device_ms(("linear_scan", ("train bwd", t, n)),
+                        lambda: lk.LinearScanFn.backward(ctx, g),
+                        KERNEL_EVENTS["linear_scan"])
+        del a, b, g, ctx
     torch.cuda.empty_cache()
 
 
@@ -3734,7 +3873,7 @@ def phase_scan_times(lk, dev):
                                  ("long", K3_LONG, 20)):
         a, b, _ = _scan_inputs(t, n, 3, dev)
         ms = _time_ms(lambda: lk.linear_scan(a, b), iters)
-        plain_ms = _time_ms(lambda: lk.linear_scan_plain(a, b), iters)
+        plain_ms = _time_plain(lambda: lk.linear_scan_plain(a, b), iters)
         # a and b read once, h written once; a multiply and an add each
         nbytes, ops = 3 * t * n * 4, 2 * t * n
         bound_ms, bound_by = _bound(nbytes, ops)
@@ -3763,13 +3902,19 @@ def phase_scan_times(lk, dev):
         # db written, the reversed scan's multiply and add and da's product
         bound_ms, bound_by = _bound(3 * t * n * 4, 2 * t * n)
         bwd_bound, bwd_by = _bound(5 * t * n * 4, 3 * t * n)
+        (dev_ms, calls), (dev_bwd, _) = (
+            DEVICE[("linear_scan", ("train", t, n))],
+            DEVICE[("linear_scan", ("train bwd", t, n))])
         print(f"time linear_scan train (T,N)={(t, n)} f32: forward "
               f"{ms:.5f} ms (bound {bound_ms:.7f} ms, {bound_by}; "
               f"{100 * bound_ms / ms:.1f}%), backward (LinearScanFn: "
               f"reversed inputs, K3, da) {bwd_ms:.5f} ms (bound "
               f"{bwd_bound:.7f} ms, {bwd_by}; {100 * bwd_bound / bwd_ms:.1f}"
               f"%), plain forward and backward {plain_bwd_ms:.5f} ms; "
-              f"library: none")
+              f"library: none; device time a launch (phase 2a, {calls} "
+              f"traced): forward {dev_ms:.5f} ms "
+              f"({100 * bound_ms / dev_ms:.1f}% of its bound), the "
+              f"backward's K3 on reversed time {dev_bwd:.5f} ms")
         del a, b, g, h, ctx, ag, bg
     return rows
 
@@ -4143,8 +4288,9 @@ def phase_token_train(vk, lk, fk, dk, dev):
     after: K5 once a layer a decode step, K2 once a step, K1, K3 and K4
     never. Every leaf moved from its initial value, the loss finite. Then
     one actor unroll and one learner step timed, and one more learner step
-    profiled for the card's busy share. Returns (launches, the run)."""
-    from torch.profiler import ProfilerActivity, profile
+    profiled for the card's busy share. Returns (launches, the run, the
+    learner step's busy share)."""
+    from torch.profiler import profile
 
     from repro_torch import params as params_lib
     from repro_torch.core import actor as actor_lib
@@ -4223,12 +4369,10 @@ def phase_token_train(vk, lk, fk, dk, dev):
           f"synchronise); {100 * actor_ms / (actor_ms + learner_ms):.1f}% "
           f"acting")
 
-    def take():
-        # device activity only: reading a trace of ~7,000 launches back
-        # with its host events costs seconds
+    def take(activities):
         nonlocal params, opt_state
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _trace_pad()
+        with profile(activities=activities) as prof:
+            _trace_lead_in()
             params, opt_state, _ = train_step(params, opt_state,
                                               TRAIN_STEPS + 1, batch)
             torch.cuda.synchronize()
@@ -4236,10 +4380,11 @@ def phase_token_train(vk, lk, fk, dk, dev):
         return prof
 
     prof = _traced("token learner step", take, "loss_vtrace", 1)
-    _print_busy("token learner step", prof, 1, learner_ms, "loss_vtrace")
+    busy = _print_busy("token learner step", prof, 1, learner_ms,
+                       "loss_vtrace")
     del opt_state, batch, prof
     torch.cuda.empty_cache()
-    return launches, run
+    return launches, run, busy
 
 
 def phase_train_routes(run) -> None:
@@ -4298,13 +4443,13 @@ def phase_train_routes(run) -> None:
 
 
 def _stub_batch(cfg, b: int, t: int, n_act: int, dev):
-    """A learner batch of ``b`` trajectories of ``t`` steps for a
-    backbone the envs cannot feed: tokens, actions, rewards, discounts
-    and behaviour log-probs from a seeded generator on the card, and the
-    stub frontend's embeddings (B, encoder_seq_len, d_model) in bf16."""
+    """A learner batch of ``b`` trajectories of ``t`` steps drawn on the
+    card, for a backbone the envs cannot feed or a step timed without an
+    actor: tokens, actions, rewards, discounts and behaviour log-probs
+    from a seeded generator, and for the vlm and audio backbones the stub
+    frontend's embeddings (B, encoder_seq_len, d_model) in bf16."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    key = "image_embed" if cfg.family == "vlm" else "enc_embed"
-    return {
+    batch = {
         "obs_token": torch.randint(0, cfg.vocab_size, (b, t + 1),
                                    generator=gen, device=dev),
         "actions": torch.randint(0, n_act, (b, t), generator=gen,
@@ -4313,9 +4458,12 @@ def _stub_batch(cfg, b: int, t: int, n_act: int, dev):
         "discounts": torch.full((b, t), 0.99, device=dev),
         "behaviour_logprob": -torch.rand((b, t), generator=gen,
                                          device=dev) - 0.5,
-        key: torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
-                         generator=gen, device=dev).to(torch.bfloat16),
     }
+    if cfg.family in ("vlm", "audio"):
+        key = "image_embed" if cfg.family == "vlm" else "enc_embed"
+        batch[key] = torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                                 generator=gen, device=dev).to(torch.bfloat16)
+    return batch
 
 
 def phase_train_family(vk, lk, fk, dk, dev, arch: str, layers: int,
@@ -4479,6 +4627,316 @@ def phase_actor_k5(dk, dev) -> float:
     return worst
 
 
+def _loss_gap(f32_loss: float, mixed_loss: float) -> Tuple[float, float]:
+    """(|mixed - f32|, its bar) at full width: ``MIXED_LOSS_GAP``, or
+    ``MIXED_LOSS_RGAP`` of the f32 loss where that is larger."""
+    return (abs(mixed_loss - f32_loss),
+            max(MIXED_LOSS_GAP, MIXED_LOSS_RGAP * abs(f32_loss)))
+
+
+def _mixed_state(master, opt):
+    """The mixed step's bf16 live tree and ``opt_state`` over the f32
+    ``master`` (whose leaves require grad, so the live ones do)."""
+    from repro_torch.models import common
+
+    return (common.cast(master, torch.bfloat16),
+            {"opt": opt.init(master), "master": master})
+
+
+def _check_mixed(what: str, live, master) -> None:
+    """Every master leaf f32 and finite, every live leaf bf16 and equal to
+    bf16(master), bit for bit."""
+    from repro_torch import params as params_lib
+
+    masters = params_lib.flatten(master)
+    bad = [n for n, m in masters.items() if m.dtype != torch.float32
+           or not bool(torch.isfinite(m).all())]
+    off = [n for n, p in params_lib.flatten(live).items()
+           if p.dtype != torch.bfloat16
+           or not torch.equal(p, masters[n].to(torch.bfloat16))]
+    if bad or off:
+        raise AssertionError(f"{what}: master leaves not f32 and finite "
+                             f"{bad[:8]}; live leaves not bf16(master) "
+                             f"{off[:8]}")
+
+
+def _steps_timed(what: str, kernels, step_fn, params, opt_state, batch,
+                 want: dict, first_step: int = 0):
+    """A warm-up step and a timed one of ``step_fn`` (CUDA events to a
+    synchronise), each from a clean peak-memory reset, the kernel counts
+    zeroed just before the two and read just after: they must equal
+    ``want``. Returns (params, opt_state, [(loss, ms, peak bytes
+    allocated)] a step)."""
+    _zero_counts(kernels)
+    out = []
+    for k in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = _mark()
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             first_step + k, batch)
+        ms = _ms_since(start)
+        out.append((float(metrics["loss/total"]), ms,
+                    torch.cuda.max_memory_allocated()))
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if launches != want or not all(math.isfinite(x[0]) for x in out):
+        raise AssertionError(f"{what}: launches {launches}, losses "
+                             f"{[x[0] for x in out]}; expected {want}")
+    return params, opt_state, out
+
+
+def phase_mixed_stablelm(vk, lk, fk, dk, run, f32_busy: float):
+    """25d (i): phase 25's model at full width and depth on its last batch
+    (32 x 21 tokens, catch): the f32 learner step and the mixed-precision
+    one (bf16 live params, the f32 master in the optimizer state), each a
+    warm-up and a timed step from phase 25's final params (the mixed one
+    from their bf16 cast with a copy as master). Their first losses, on
+    the same params, within ``_loss_gap``'s bar; K2 once a step, no other
+    kernel; then one mixed step traced for its busy share, printed beside
+    phase 25's f32 step's ``f32_busy``. Returns the launches."""
+    from torch.profiler import profile
+
+    from repro_torch import params as params_lib
+    from repro_torch.core import learner as learner_lib
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    want = {"vtrace": 0, "loss_vtrace": 2, "linear_scan": 0,
+            "flash_attention": 0, "decode_attention": 0}
+    n_act, rows, launches = run.env.num_actions, {}, dict.fromkeys(want, 0)
+    for mixed in (False, True):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step_fn, opt = learner_lib.build_train_step(
+            run.arch, run.icfg, n_act, mixed_precision=mixed)
+        params = params_lib.copy(run.params)
+        if mixed:
+            params, opt_state = _mixed_state(params, opt)
+        else:
+            opt_state = opt.init(params)
+        params, opt_state, out = _steps_timed(
+            f"mixed precision {run.arch.name}", kernels, step_fn, params,
+            opt_state, run.last_batch, want, TRAIN_STEPS)
+        for name in launches:
+            launches[name] += kernels[name].launches
+        rows[mixed] = out
+        (loss, _, peak0), (_, ms, peak) = out
+        print(f"mixed precision {run.arch.name}: "
+              f"{'mixed (bf16 live, f32 master)' if mixed else 'f32'} step "
+              f"{ms:.3f} ms (CUDA events to a synchronise, after a warm-up "
+              f"step), first loss {loss:.6f}; the step's own peak "
+              f"{(peak - base) / 1e9:.2f} GB (its params, state and "
+              f"transients; warm-up step {(peak0 - base) / 1e9:.2f} GB), "
+              f"peak allocated {peak / 1e9:.2f} GB with the "
+              f"{base / 1e9:.2f} GB held before")
+        if mixed:
+            _check_mixed(f"mixed precision {run.arch.name}", params,
+                         opt_state["master"])
+        else:
+            del params, opt_state
+    gap, bar = _loss_gap(rows[False][0][0], rows[True][0][0])
+    if not gap <= bar:
+        raise AssertionError(f"mixed precision {run.arch.name}: loss gap "
+                             f"{gap:.6f} > {bar:.6f}")
+    print(f"mixed precision {run.arch.name}: loss gap {gap:.6f} (bar "
+          f"{bar:.6f}, {100 * gap / abs(rows[False][0][0]):.3f}% of the f32 "
+          f"loss), every live leaf bf16(master), every master leaf finite; "
+          f"launches {launches}; {_card_line()}")
+
+    def take(activities):
+        nonlocal params, opt_state
+        with profile(activities=activities) as prof:
+            _trace_lead_in()
+            params, opt_state, _ = step_fn(params, opt_state,
+                                           TRAIN_STEPS + 2, run.last_batch)
+            torch.cuda.synchronize()
+            _trace_pad()
+        return prof
+
+    prof = _traced("mixed learner step", take, "loss_vtrace", 1)
+    share = _print_busy("mixed learner step", prof, 1, rows[True][1][1],
+                        "loss_vtrace")
+    print(f"mixed learner step busy {100 * share:.1f}% against phase 25's "
+          f"f32 learner step {100 * f32_busy:.1f}%")
+    del params, opt_state, prof
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mixed_config(vk, lk, fk, dk, dev, arch: str, layers: int,
+                       count: int, k3: int):
+    """25d (ii): ``arch`` at full width and all its layers, params
+    and master drawn on the card from seed 0, the mixed step on a
+    ``_stub_batch`` of 32 x 20 on catch's actions: a warm-up step and a
+    timed one (``_steps_timed``: K2 once and K3 ``k3`` times a step),
+    the master finite and every live leaf bf16(master); where K3 runs,
+    its shapes among phase 15's. Returns the launches."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.data.envs import make_env
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    env = make_env("catch")
+    cfg = get_config(arch)
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, env.vocab_size))
+    n_act = env.num_actions
+    got_count = common.param_count(bb.backbone_specs(cfg, n_act))
+    if (cfg.num_layers, got_count) != (layers, count):
+        raise AssertionError(f"mixed precision {arch}: {cfg.num_layers} "
+                             f"layers, {got_count:,} params; expected "
+                             f"{layers}, {count:,}")
+    icfg = ImpalaConfig(num_actions=n_act, unroll_length=MAIN_T)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    step_fn, opt = learner_lib.build_train_step(cfg, icfg, n_act,
+                                                mixed_precision=True)
+    live, opt_state = _mixed_state(init_params(cfg, n_act, 0, dev), opt)
+    batch = _stub_batch(cfg, MAIN_B, MAIN_T, n_act, dev)
+    lk.linear_scan.shapes.clear()
+    want = {"vtrace": 0, "loss_vtrace": 2, "linear_scan": 2 * k3,
+            "flash_attention": 0, "decode_attention": 0}
+    live, opt_state, out = _steps_timed(f"mixed precision {arch}", kernels,
+                                        step_fn, live, opt_state, batch,
+                                        want)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    _check_mixed(f"mixed precision {arch}", live, opt_state["master"])
+    checked = {(t, n, h0) for t, n, h0 in K3_TRAIN_SHAPES}
+    checked |= {c + ("bwd",) for c in checked}
+    if not set(lk.linear_scan.shapes) <= checked:
+        raise AssertionError(f"mixed precision {arch}: K3 launched at "
+                             f"{sorted(lk.linear_scan.shapes, key=str)}, "
+                             f"not all held in phase 15")
+    (_, _, peak0), (loss, ms, peak) = out
+    print(f"mixed precision {arch}: {count:,} params, {layers} layers, "
+          f"learner batch {MAIN_B} x {MAIN_T} (a stub batch); the mixed "
+          f"step {ms:.3f} ms after a warm-up step, loss {loss:.4f}; the "
+          f"step's own peak {(peak - base) / 1e9:.2f} GB (warm-up step "
+          f"{(peak0 - base) / 1e9:.2f} GB), peak allocated "
+          f"{peak / 1e9:.2f} GB with the {base / 1e9:.2f} GB held before; "
+          f"launches K2 "
+          f"{launches['loss_vtrace']} K3 {launches['linear_scan']}, K1 K4 "
+          f"K5 0; every live leaf bf16(master); {_card_line()}")
+    del live, opt_state, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mixed_moves(vk, lk, fk, dk, dev, arch: str, k3: int):
+    """25d (iii): one mixed step of ``arch`` at full width and depth on a
+    ``_stub_batch``, through its two halves (``_grad_fn``, then the leaf
+    by leaf ``_apply_fn``, which ``build_train_step`` composes): K3
+    ``k3`` times forward and as many backward, K2 once; the loss finite;
+    every master leaf moved from its initial value but those whose one
+    step is under float32 rounding (``_below_rounding``), every live
+    leaf bf16(master). Returns the launches."""
+    from repro_torch import params as params_lib
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.data.envs import make_env
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    env = make_env("catch")
+    cfg = get_config(arch)
+    cfg = cfg.replace(vocab_size=max(cfg.vocab_size, env.vocab_size))
+    n_act = env.num_actions
+    icfg = ImpalaConfig(num_actions=n_act, unroll_length=MAIN_T)
+    opt = learner_lib._optimizer(icfg, None)
+    grad_step = learner_lib._grad_fn(learner_lib.build_loss_fn(cfg, icfg,
+                                                               n_act))
+    apply_step = learner_lib._apply_fn(icfg, opt, mixed=True)
+    master = init_params(cfg, n_act, 0, dev)
+    init = params_lib.snapshot(master)
+    live, opt_state = _mixed_state(master, opt)
+    batch = _stub_batch(cfg, MAIN_B, MAIN_T, n_act, dev)
+    _zero_counts(kernels)
+    grads, metrics = grad_step(live, batch)
+    gmax = [float(g.abs().max()) for g in grads]
+    live, opt_state, step_metrics = apply_step(live, opt_state, 0, grads)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = {"vtrace": 0, "loss_vtrace": 1, "linear_scan": 2 * k3,
+            "flash_attention": 0, "decode_attention": 0}
+    loss = float(metrics["loss/total"])
+    if launches != want or not math.isfinite(loss):
+        raise AssertionError(f"mixed precision {arch}: launches "
+                             f"{launches}, loss {loss}; expected {want}")
+    _check_mixed(f"mixed precision {arch}", live, opt_state["master"])
+    clip = min(1.0, icfg.grad_clip_norm /
+               max(float(step_metrics["opt/grad_norm"]), 1e-30))
+    names = list(params_lib.flatten(master))
+    stuck = _unmoved(master, init)
+    leaves = params_lib.flatten(master)
+    rounded = [n for n in stuck if _below_rounding(
+        leaves[n], gmax[names.index(n)], clip, icfg)]
+    left = sorted(set(stuck) - set(rounded))
+    if left:
+        raise AssertionError(f"mixed precision {arch}: master leaves did "
+                             f"not move: {left[:8]}")
+    print(f"mixed precision {arch}: one mixed step, launches K3 "
+          f"{launches['linear_scan']} ({k3} forward + {k3} backward) K2 1, "
+          f"loss {loss:.4f}; every one of {len(names)} master leaves moved"
+          + (f", but {len(rounded)} whose one step is under float32 "
+             f"rounding ({', '.join(sorted(rounded))})" if rounded else "")
+          + "; every live leaf bf16(master)")
+    del live, opt_state, master, init, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mixed_conv(vk, lk, fk, dk, dev):
+    """25d (iv): impala-shallow at full width on catch, one actor unroll
+    of phase 5's 32 envs x 20, then the f32 learner step and the mixed one
+    on that batch from the same params: the bf16 params through the conv
+    (its kernel and bias cast to the frames' dtype), K2 once a step and no
+    other kernel, the losses within JAX's ``MIXED_LOSS_GAP``. Returns the
+    launches."""
+    from repro_torch import params as params_lib
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.data.envs import make_env
+
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    env = make_env("catch")
+    cfg = get_config("impala-shallow").replace(image_hw=env.image_hw)
+    n_act = env.num_actions
+    icfg = ImpalaConfig(num_actions=n_act, unroll_length=MAIN_T)
+    params = init_params(cfg, n_act, 0, dev)
+    init_fn, unroll = actor_lib.build_actor(env, cfg, icfg, MAIN_B, dev)
+    _, batch = unroll(params, init_fn(1))
+    _zero_counts(kernels)
+    losses = {}
+    for mixed in (False, True):
+        step_fn, opt = learner_lib.build_train_step(cfg, icfg, n_act,
+                                                    mixed_precision=mixed)
+        p = params_lib.copy(params)
+        p, state = _mixed_state(p, opt) if mixed else (p, opt.init(p))
+        p, state, metrics = step_fn(p, state, 0, batch)
+        losses[mixed] = float(metrics["loss/total"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = {"vtrace": 0, "loss_vtrace": 2, "linear_scan": 0,
+            "flash_attention": 0, "decode_attention": 0}
+    _check_mixed("mixed precision impala-shallow", p, state["master"])
+    gap, bar = abs(losses[True] - losses[False]), MIXED_LOSS_GAP
+    if launches != want or not gap <= bar:
+        raise AssertionError(f"mixed precision impala-shallow: launches "
+                             f"{launches}, losses {losses}; expected "
+                             f"{want}, a gap within {bar}")
+    print(f"mixed precision impala-shallow: {MAIN_B} envs x unroll "
+          f"{MAIN_T} on catch, losses f32 {losses[False]:.6f} mixed "
+          f"{losses[True]:.6f} (gap {gap:.6f}, bar {bar:.6f}), K2 once a "
+          f"step; the conv ran on bf16 params")
+    return launches
+
+
 class _Laps:
     """Prints each group of phases' wall time and the run's so far."""
 
@@ -4576,10 +5034,8 @@ def main() -> int:
     lap("6l-6m")
     launches["loss_vtrace"] += phase_group(vk, dev, async_before)
     lap("6r")
-    launches["vtrace"] += phase_group_replay(vk, dev)
-    lap("6s")
-    launches["loss_vtrace"] += phase_group_process(vk, dev)
-    lap("6t")
+    launches["vtrace"] += phase_group_process(vk, dev)
+    lap("6s-6t")
     group_ckpt = ROOT / "build" / "chip_smoke_group_ckpt"
     shutil.rmtree(group_ckpt, ignore_errors=True)
     try:
@@ -4614,16 +5070,19 @@ def main() -> int:
 
     err_k4 = phase_k4(fk, dev)
     err_k5 = phase_k5(dk, dev)
+    lap("9-10")
     serve_launches, serve_run = phase_serve(lk, fk, dk)
     launches.update(serve_launches)
     phase_serve_logits(serve_run)
     phase_serve_split(serve_run, "decode_attention", SERVE_LAYERS)
     del serve_run                     # the 46 GB of weights
     torch.cuda.empty_cache()
+    lap("11-13")
     rows.update(phase_attn_times(fk, dk, dev))
-    lap("9-14")
+    lap("14")
 
     err_k3 = phase_k3(lk, dev)
+    lap("15")
     ssm_launches, ssm_run = phase_serve_ssm(lk, fk, dk)
     launches["linear_scan"] += ssm_launches["linear_scan"]
     phase_serve_logits(ssm_run)
@@ -4631,8 +5090,9 @@ def main() -> int:
     phase_serve_split(ssm_run)
     del ssm_run
     torch.cuda.empty_cache()
+    lap("16-18")
     rows.update(phase_scan_times(lk, dev))
-    lap("15-19")
+    lap("19")
 
     for n, (arch, ctx, layers, params, want) in enumerate(NEW_SERVES):
         got = phase_serve_config(lk, fk, dk, arch, ctx, layers, params,
@@ -4656,14 +5116,25 @@ def main() -> int:
                               max(err_k5, e5))
     lap("24")
 
-    train_launches, train_run = phase_token_train(vk, lk, fk, dk, dev)
+    train_launches, train_run, train_busy = phase_token_train(vk, lk, fk,
+                                                              dk, dev)
     for name, count in train_launches.items():
         launches[name] += count
     lap("25")
     phase_train_routes(train_run)
+    lap("25a")
+    mixed = [phase_mixed_stablelm(vk, lk, fk, dk, train_run, train_busy)]
     del train_run
     torch.cuda.empty_cache()
-    lap("25a")
+    arch, layers, count = MIXED_WIDE
+    mixed.append(phase_mixed_config(vk, lk, fk, dk, dev, arch, layers, count,
+                                    0))
+    mixed.append(phase_mixed_moves(vk, lk, fk, dk, dev, *MIXED_SCAN))
+    mixed.append(phase_mixed_conv(vk, lk, fk, dk, dev))
+    for got in mixed:
+        for name, count in got.items():
+            launches[name] += count
+    lap("25d")
     for arch, layers, batch_b, want in TRAIN_FAMILIES:
         got = phase_train_family(vk, lk, fk, dk, dev, arch, layers, batch_b,
                                  want)

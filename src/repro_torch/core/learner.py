@@ -6,11 +6,19 @@ routers' load-balancing loss times B*T (``loss/moe_aux``).
 ``build_train_step`` returns ``train_step(params, opt_state, step, batch)``
 and ``build_replay_train_step`` its replay-path twin, which also takes the
 target network's params. Both run eagerly: PyTorch needs no ``jit``. The
-parameters are updated in place (``optim.apply_updates``).
+parameters are updated in place, one leaf at a time (``_apply_fn``).
 ``build_grad_apply_steps`` and ``build_replay_grad_apply_steps`` split the
 same update at the gradient, for a learner group's exchange: the fused
-step is the two halves composed. Mixed precision is not ported yet
-(ROADMAP.md, Queue 1 item 15).
+step is the two halves composed.
+
+``build_train_step(..., mixed_precision=True)`` is JAX's mixed-precision
+step: bf16 live params, ``opt_state = {"opt": <optimizer state>,
+"master": <f32 params>}``, the bf16 gradients cast to f32 and clipped by
+their global norm, the optimizer run on the master, and the live leaves
+set to ``bf16(master)``. Every step's apply half runs leaf by leaf
+(``_apply_fn``), so no whole f32 tree of clipped gradients or updates is
+held: that is what fits qwen1.5-4b's mixed step on one 80 GB card. The
+optimizer's state must therefore mirror the params (``_optimizer``).
 """
 from __future__ import annotations
 
@@ -86,11 +94,26 @@ def build_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     return loss_fn
 
 
-def _rmsprop(cfg: ImpalaConfig, optimizer):
-    if optimizer is not None:
-        return optimizer
-    return opt_lib.rmsprop(decay=cfg.rmsprop_decay, eps=cfg.rmsprop_eps,
-                           momentum=cfg.rmsprop_momentum)
+def _optimizer(cfg: ImpalaConfig, optimizer):
+    """``optimizer``, or the paper's RMSProp from ``cfg`` where it is
+    None. The apply step runs the optimizer one leaf at a time
+    (``_apply_fn``), so its state must be trees that mirror the params,
+    as RMSProp's is: one with other state, as Adam's step count, is
+    refused here, where JAX's learner takes any optimizer."""
+    if optimizer is None:
+        return opt_lib.rmsprop(decay=cfg.rmsprop_decay, eps=cfg.rmsprop_eps,
+                               momentum=cfg.rmsprop_momentum)
+    probe = {"a": torch.zeros(1), "b": torch.zeros(2)}
+    shapes = [x.shape for x in tree_leaves(probe)]
+    state = optimizer.init(probe)
+    odd = ([k for k, v in state.items() if not isinstance(v, dict)
+            or [x.shape for x in tree_leaves(v)] != shapes]
+           if isinstance(state, dict) else [type(state).__name__])
+    if odd:
+        raise ValueError(f"the learner applies the optimizer one leaf at a "
+                         f"time: its state must be trees that mirror the "
+                         f"params, as RMSProp's is; {odd} do not")
+    return optimizer
 
 
 def _grad_fn(loss_fn):
@@ -109,32 +132,64 @@ def _grad_fn(loss_fn):
     return grad_step
 
 
-def _apply_fn(cfg: ImpalaConfig, optimizer):
+def _leaf_slots(tree: Tree) -> list:
+    """(dict, key) of each leaf of a nested dict, in flatten order: where
+    a leaf can be replaced in the tree itself."""
+    return [slot for k in sorted(tree)
+            for slot in (_leaf_slots(tree[k]) if isinstance(tree[k], dict)
+                         else [(tree, k)])]
+
+
+def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False):
     """``apply_step(params, opt_state, step, grads) -> (params, opt_state,
     metrics)``: clip ``grads`` (leaves in flatten order, or a tree like
-    ``params``) by their global norm and apply the optimizer in place."""
+    ``params``) by their global norm and apply the optimizer, in place.
+
+    The global norm is taken over every gradient first (in f32, in
+    flatten order). Then one leaf at a time: its gradient cast to f32 and
+    scaled by the clip, the optimizer's state and update of that leaf, and
+    ``master += update``. The new state leaves replace the old ones in
+    the state's dicts, and each gradient leaves a ``grads`` list once
+    used, so no whole tree of clipped gradients, state or updates is held
+    beside the old one. ``mixed``: ``params`` is the bf16 live tree,
+    ``opt_state = {"opt": <optimizer state>, "master": <f32 tree>}``, and
+    each live leaf is then set to ``bf16(master)``; otherwise the master
+    is ``params`` and the state is ``opt_state``."""
     lr_fn = opt_lib.linear_schedule(cfg.learning_rate, 0.0,
                                     cfg.lr_anneal_steps)
 
     def apply_step(params, opt_state, step, grads):
-        if isinstance(grads, (list, tuple)):
-            grads = tree_unflatten_like(params, grads)
         lr = lr_fn(step)
-        grads, grad_norm = opt_lib.clip_by_global_norm(
-            grads, cfg.grad_clip_norm)
-        updates, opt_state = optimizer.update(grads, opt_state, params, lr)
-        params = opt_lib.apply_updates(params, updates)
+        if isinstance(grads, tuple):
+            grads = list(grads)
+        elif not isinstance(grads, list):
+            grads = tree_leaves(grads)
+        live = tree_leaves(params)
+        master = tree_leaves(opt_state["master"]) if mixed else live
+        state = opt_state["opt"] if mixed else opt_state
+        slots = {k: _leaf_slots(v) for k, v in state.items()}
+        grad_norm = opt_lib.global_norm(tree_unflatten_like(params, grads))
+        scale = opt_lib.clip_scale(grad_norm, cfg.grad_clip_norm)
+        for i, (p, m) in enumerate(zip(live, master)):
+            at = {k: s[i] for k, s in slots.items()}
+            g = grads[i].to(torch.float32) * scale
+            grads[i] = None
+            update, new = optimizer.update(
+                g, {k: d[key] for k, (d, key) in at.items()}, m, lr)
+            for k, (d, key) in at.items():
+                d[key] = new[k]
+            with torch.no_grad():
+                m.add_(update.to(m.dtype))
+                if mixed:
+                    p.copy_(m)
         return params, opt_state, {"opt/grad_norm": grad_norm, "opt/lr": lr}
 
     return apply_step
 
 
-def _step_fn(cfg: ImpalaConfig, optimizer, loss_fn):
-    """``step_fn(params, opt_state, step, *loss_args)``: ``_grad_fn``'s
-    half, then ``_apply_fn``'s, on the same tensors."""
-    grad_step = _grad_fn(loss_fn)
-    apply_step = _apply_fn(cfg, optimizer)
-
+def _step_fn(grad_step, apply_step):
+    """``step_fn(params, opt_state, step, *loss_args)``: ``grad_step``,
+    then ``apply_step``, on the same tensors."""
     def step_fn(params, opt_state, step, *loss_args):
         grads, metrics = grad_step(params, *loss_args)
         params, opt_state, ametrics = apply_step(params, opt_state, step,
@@ -149,16 +204,26 @@ def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
                      num_actions: int,
                      optimizer: opt_lib.Optimizer = None,
                      vtrace_impl: str = "auto", impl: str = "auto",
+                     mixed_precision: bool = False,
                      ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
                                 opt_lib.Optimizer]:
     """vtrace_impl: 'auto' picks the fused kernel (K2) for CUDA params and
     the reverse loop for CPU params (``losses.resolve_vtrace_impl``);
     'fused' / 'pallas' / 'scan' / 'reference' pin an implementation.
-    ``impl`` is the route of the backbone's kernels (K3's, ``ops``)."""
-    optimizer = _rmsprop(cfg, optimizer)
-    loss_fn = build_loss_fn(arch_cfg, cfg, num_actions, vtrace_impl,
-                            impl=impl)
-    return _step_fn(cfg, optimizer, loss_fn), optimizer
+    ``impl`` is the route of the backbone's kernels (K3's, ``ops``).
+
+    mixed_precision: ``train_step`` takes bf16 live ``params`` and
+    ``opt_state = {"opt": optimizer.init(master), "master": master}``
+    with the f32 ``master``, and returns them in that form: the live and
+    master leaves updated in place, the state's leaves replaced in its
+    dicts (``_apply_fn``). The live tree is
+    ``common.cast(master, torch.bfloat16)`` of a master whose leaves
+    require grad, as ``params.from_jax`` gives them."""
+    optimizer = _optimizer(cfg, optimizer)
+    grad_step = _grad_fn(build_loss_fn(arch_cfg, cfg, num_actions,
+                                       vtrace_impl, impl=impl))
+    return _step_fn(grad_step, _apply_fn(cfg, optimizer, mixed_precision)
+                    ), optimizer
 
 
 def build_replay_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,
@@ -214,9 +279,10 @@ def build_replay_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     update of the replay path. Gradients flow only through ``params``,
     updated in place; ``target_params`` is a read-only periodic snapshot
     that no update writes."""
-    optimizer = _rmsprop(cfg, optimizer)
-    step_fn = _step_fn(cfg, optimizer, build_replay_loss_fn(
-        arch_cfg, cfg, num_actions, vtrace_impl))
+    optimizer = _optimizer(cfg, optimizer)
+    grad_step = _grad_fn(build_replay_loss_fn(arch_cfg, cfg, num_actions,
+                                              vtrace_impl))
+    step_fn = _step_fn(grad_step, _apply_fn(cfg, optimizer))
 
     def train_step(params, target_params, opt_state, step, batch):
         return step_fn(params, opt_state, step, target_params, batch)
@@ -238,7 +304,7 @@ def build_grad_apply_steps(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     ``apply_step`` updates ``params`` and ``opt_state`` in place.
     Composing the halves locally is ``build_train_step``'s step, bit for
     bit: it is built from them."""
-    optimizer = _rmsprop(cfg, optimizer)
+    optimizer = _optimizer(cfg, optimizer)
     grad_step = _grad_fn(build_loss_fn(arch_cfg, cfg, num_actions,
                                        vtrace_impl))
     return grad_step, _apply_fn(cfg, optimizer), optimizer
@@ -250,7 +316,21 @@ def build_replay_grad_apply_steps(arch_cfg: ArchConfig, cfg: ImpalaConfig,
                                   vtrace_impl: str = "auto"):
     """The replay path's split: ``grad_step(params, target_params, batch)``
     and the same ``apply_step`` as ``build_grad_apply_steps``."""
-    optimizer = _rmsprop(cfg, optimizer)
+    optimizer = _optimizer(cfg, optimizer)
     grad_step = _grad_fn(build_replay_loss_fn(arch_cfg, cfg, num_actions,
                                               vtrace_impl))
     return grad_step, _apply_fn(cfg, optimizer), optimizer
+
+
+def opt_state_specs(param_specs: Tree, cfg: ImpalaConfig,
+                    mixed_precision: bool = False) -> Tree:
+    """The optimizer state's tree, mirroring ``param_specs`` (any tree:
+    specs, shapes or tensors), as ``repro.core.learner.opt_state_specs``
+    builds it: RMSProp's ``ms`` (and ``mom`` with momentum), under
+    ``opt`` beside the f32 ``master`` in mixed precision. A sharded
+    learner's PartitionSpecs are ROADMAP.md Queue 1 item 15B."""
+    inner = ({"ms": param_specs, "mom": param_specs}
+             if cfg.rmsprop_momentum else {"ms": param_specs})
+    if mixed_precision:
+        return {"opt": inner, "master": param_specs}
+    return inner

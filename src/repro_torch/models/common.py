@@ -77,6 +77,20 @@ def dense_specs(in_shape: Sequence[int], out_shape: Sequence[int],
     return specs
 
 
+def cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    """``tree`` with its floating leaves cast to ``dtype`` and the others
+    as they are (``repro.models.common.cast``). A cast leaf is a new
+    tensor, never an alias of its source (the port updates parameters in
+    place), and keeps its ``requires_grad``."""
+    def leaf(x):
+        if not torch.is_floating_point(x):
+            return x
+        return x.detach().to(dtype, copy=True).requires_grad_(
+            x.requires_grad)
+
+    return tree_map(leaf, tree)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """``ArchConfig.dtype`` / ``param_dtype`` names -> torch dtypes."""
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]

@@ -45,9 +45,11 @@ def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
 
 
 def _conv(params, x, stride: int):
-    w = params["kernel"]                       # (O, I, kh, kw)
+    """The kernel and bias in x's dtype, as the JAX ``_conv`` casts them
+    (bf16 params under mixed precision; f32 ones are passed as they are)."""
+    w = params["kernel"].to(x.dtype)           # (O, I, kh, kw)
     x = _pad_same(x, w.shape[2], w.shape[3], stride)
-    return F.conv2d(x, w, params["bias"], stride=stride)
+    return F.conv2d(x, w, params["bias"].to(x.dtype), stride=stride)
 
 
 def _maxpool(x, window: int = 3, stride: int = 2):

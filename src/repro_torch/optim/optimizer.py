@@ -89,10 +89,15 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` multiplies every leaf by."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[Tree, torch.Tensor]:
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale, grads), norm
 
 
