@@ -350,6 +350,34 @@ exception and a nonzero exit:
     48 forward and 48 backward, every master leaf moved or under f32
     rounding; (iv) impala-shallow on an actor batch of 32 x 20, the conv
     on bf16 params, the loss gap within the bar.
+26. The ported step builders (``repro_torch.launch.steps.build_steps``)
+    under ``Rules`` on a one-device mesh, at full width and depth from
+    seed 0, at the assigned shapes (``STEP_RUNS``), cut only where
+    printed: recurrentgemma-2b's serve step at ``decode_32k`` (B = 128,
+    its 2,048-slot ring, K5 8 a call) and ``long_500k`` (B = 1, cache
+    index 524,287); mamba2-1.3b's serve step at ``decode_32k`` (B = 128,
+    13.05 GB of state, no kernel) and its prefill at ``prefill_32k`` cut
+    to B = 1 (K3 48); stablelm-1.6b's prefill at ``prefill_32k`` cut to
+    B = 1 (K4 24 at T = S = 32,768), its serve step at ``decode_32k`` cut
+    to B = 8 (51.5 GB of cache, K5 24 at S = 32,768) and its train step
+    at ``train_4k`` cut to 2 x 2,048 (K2 once). Each step: a warm-up
+    call and one timed with CUDA events (one call's stream time, host
+    launch gaps included), its own peak; against ``launch.mesh.HW`` (the
+    H100 data sheet) the port's own count of the step (``eager_cost`` on
+    meta at the same shape, traced by a child on the CPU meanwhile),
+    whose bound the measured time is set over, and the JAX package's TPU
+    model (``roofline.flops_model.step_cost``, an estimate: it counts
+    f32 scores and remat the port does not have); the memory model's
+    total, the card's name and power limit; launches counted over both
+    calls; the serve steps' value and policy logits and the prefill
+    logits held to the plain route at ``LOGITS_RTOL`` (stablelm's prefill
+    at ``PREFILL_PLAIN_S``). Every kernel shape the steps launched at is
+    held to its plain version (K2 at (2047, 2, 18) as phase 4 holds it;
+    K4 at 32,768 on its last ``K4_ROW_CUT`` query rows over all keys),
+    K3-K5 also timed; the errors join the kernels line. Meanwhile a
+    child process runs ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_PAIR``: its record must say ``ok`` and hold
+    ``DRYRUN_WANT``, the JAX package's analytic figures for that pair.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -359,6 +387,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -372,6 +401,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.launch.mesh import HW  # noqa: E402  (after the path)
 
 # per element |got - want| <= ATOL, for K1, K2 and K2's d_logits. The
 # kernels are built with -fmad=false and the plain versions sum over the
@@ -510,9 +541,11 @@ MULTITASK_TASKS, MULTITASK_STEPS, MULTITASK_ENVS = (
 PBT_POP, PBT_ROUNDS, PBT_STEPS = 4, 2, 5
 # the time a plain version's timing loop aims at (``_time_plain``)
 PLAIN_BUDGET_MS = 100.0
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+# H100 SXM, NVIDIA data sheet: the port's HW table (launch/mesh.py), which
+# the dry run's roofline reads too
+HBM_BYTES_PER_S = HW["hbm_bw"]             # 3.35 TB/s
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+BF16_OPS_PER_S = HW["peak_flops_bf16"]     # bf16 tensor cores, dense
 CLIPS = [(1.0, 1.0, 1.0), (None, None, 1.0), (2.0, 1.0, 1.0),
          (1.0, 1.0, 0.9)]
 # (20, 64) and (20, 128): the replay learner's batches of 2 and 4
@@ -755,6 +788,44 @@ ACTOR_K5_SHAPES = set()
 MIXED_LOSS_GAP, MIXED_LOSS_RGAP = 0.05, 2.0 ** -7
 MIXED_WIDE = ("qwen1.5-4b", 40, 3_561_423_364)
 MIXED_SCAN = ("mamba2-1.3b", 48)
+# phase 26: the ported step builders (launch/steps.py) at full width and
+# depth, (step, arch, assigned shape, B, S, launches a call). B and S are
+# the shape's own but where cut: mamba2's and stablelm's prefill_32k to
+# one sequence of 32,768; stablelm's decode_32k to 8 sequences (a 51.5 GB
+# cache); its train_4k to the most tokens whose learner step fits the
+# card: 2 x 2048 (the dense train-mode attention keeps ~3.2 GB a layer a
+# sequence of 4,096 for the backward, 77 GB over 24 layers at B = 1)
+STEP_RUNS = [
+    ("serve", "recurrentgemma-2b", "decode_32k", 128, 32768,
+     {"decode_attention": 8}),
+    ("serve", "recurrentgemma-2b", "long_500k", 1, 524288,
+     {"decode_attention": 8}),
+    ("serve", "mamba2-1.3b", "decode_32k", 128, 32768, {}),
+    ("prefill", "mamba2-1.3b", "prefill_32k", 1, 32768, {"linear_scan": 48}),
+    ("prefill", "stablelm-1.6b", "prefill_32k", 1, 32768,
+     {"flash_attention": 24}),
+    ("serve", "stablelm-1.6b", "decode_32k", 8, 32768,
+     {"decode_attention": 24}),
+    ("train", "stablelm-1.6b", "train_4k", 2, 2048, {"loss_vtrace": 1}),
+]
+# the prefill length the plain route is held at where its dense f32
+# attention scores would not fit at the step's own (137 GB a layer at
+# 32,768); K4 at T = S = 32,768 itself is held on its last K4_ROW_CUT
+# query rows over all keys
+PREFILL_PLAIN_S = {"stablelm-1.6b": 4096}
+K4_ROW_CUT = 512
+# the dry run's child, on the CPU while the card works, and the figures
+# its record must hold: the JAX package's flops_model.step_cost at 256
+# devices and its memory model's total on the 16x16 mesh under the
+# baseline rules, for DRYRUN_PAIR (tests/test_torch_launch_roofline.py
+# holds these numbers to that package)
+DRYRUN_PAIR, DRYRUN_TIMEOUT_S = ("gemma-7b", "train_4k"), 300
+DRYRUN_WANT = {"flops_per_device": 284955242397696.0,
+               "bytes_per_device": 602396557312.0,
+               "memory_total": 22243623140.0}
+# the port's own count of each STEP_RUNS step (eager_cost on meta at the
+# step's cut shape), in a child on the CPU while the card works
+PORT_COSTS_TIMEOUT_S = 300
 
 
 def _card_line() -> str:
@@ -4937,6 +5008,467 @@ def phase_mixed_conv(vk, lk, fk, dk, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the step builders on the card
+
+
+def _normal_tree(tree, gen):
+    """Each leaf of ``tree`` filled in place with normals of std 0.5 (a
+    function, so that no loop variable keeps a leaf alive after it: one
+    stacked leaf of stablelm's 32,768-slot cache is 25.8 GB)."""
+    from repro_torch.params import tree_leaves
+
+    for leaf in tree_leaves(tree):
+        leaf.normal_(generator=gen).mul_(0.5)
+    return tree
+
+
+def _cut_text(shape, batch: int, seq: int) -> str:
+    cuts = []
+    if batch != shape.global_batch:
+        cuts.append(f"B {shape.global_batch} -> {batch}")
+    if seq != shape.seq_len:
+        cuts.append(f"S {shape.seq_len} -> {seq}")
+    return ", ".join(cuts) or "none"
+
+
+def _rel_check(name: str, got, want, scale=None) -> float:
+    """``got`` finite and within ``LOGITS_RTOL`` of ``scale`` (``want``'s
+    largest magnitude unless given: phases 20-23's bar); returns the
+    error over that scale."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: not finite")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max()) if scale is None else scale
+    if not err <= LOGITS_RTOL * scale:
+        raise AssertionError(f"{name}: max abs err {err:.3e} > "
+                             f"{LOGITS_RTOL} x {scale:.3e}")
+    return err / max(scale, 1e-30)
+
+
+def _timed_step(kernels, call, between=None):
+    """``call()`` once to warm up, ``between()`` (if given), then once
+    timed with CUDA events, the kernels counted over both calls (zeroed
+    just before, read just after). Returns (the timed call's result, its
+    ms, the timed call's own peak bytes, the launches)."""
+    _zero_counts(kernels)
+    call()
+    snap = between() if between else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = _mark()
+    out = call()
+    ms = _ms_since(start)
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    return out, ms, peak, launches, snap
+
+
+def _step_roofline(what: str, cfg, shape, rules, ms: float, peak: int,
+                   port: dict, card: str) -> None:
+    """Print the measured step beside two estimates at one device against
+    the H100's data sheet (``HW``): the JAX package's TPU model
+    (``flops_model.step_cost`` at n_devices = 1, model_axis = 1), which
+    counts stored f32 attention scores and, in train, a remat recompute
+    the port does not run, so it is no lower bound on the port; and the
+    port's own count of this step (``port``: ``eager_cost`` of
+    ``steps.trace_pair`` on meta at this shape), the larger of its FLOPs
+    over the bf16 peak and its bytes over the HBM rate. ``ms`` is one
+    call's stream time between two CUDA events, host launch gaps
+    included, not the device's busy time. The memory model's total is
+    printed beside the step's own peak."""
+    from repro_torch.launch.mesh import HW
+    from repro_torch.roofline import flops_model, memory_model
+
+    flops, nbytes = flops_model.step_cost(cfg, shape, 1, 1)
+    compute = flops / HW["peak_flops_bf16"] * 1e3
+    memory = nbytes / HW["hbm_bw"] * 1e3
+    est = max(compute, memory)
+    p_compute = port["flops"] / HW["peak_flops_bf16"] * 1e3
+    p_memory = port["bytes"] / HW["hbm_bw"] * 1e3
+    bound = max(p_compute, p_memory)
+    model = memory_model.estimate(cfg, shape, rules)["total"]
+    print(f"{what}: {ms:.3f} stream ms (one call between CUDA events "
+          f"after a warm-up, host launch gaps included); the step's own "
+          f"peak {peak / 1e9:.2f} GB; the port's own count at one device "
+          f"(eager_cost on meta at this shape): {port['flops']:.4e} FLOPs, "
+          f"{port['bytes']:.4e} bytes, compute {p_compute:.3f} ms, memory "
+          f"{p_memory:.3f} ms, bound {bound:.3f} ms "
+          f"({'compute' if p_compute >= p_memory else 'memory'}), measured "
+          f"/ bound {ms / bound:.2f}; the JAX package's TPU model at one "
+          f"device (an estimate, not a bound on the port): compute "
+          f"{compute:.3f} ms, memory {memory:.3f} ms, max {est:.3f} ms, "
+          f"measured / it {ms / est:.2f}, port FLOPs / its FLOPs "
+          f"{port['flops'] / flops:.3f}; memory model {model / 1e9:.2f} GB; "
+          f"{card}")
+
+
+def _k4_rows_plain(q, k, v, q0: int):
+    """``flash_attention_plain``'s arithmetic (f32 scores, the causal mask,
+    softmax in f32) for query rows at positions ``q0``.. of a causal call
+    over all of ``k``/``v``: the plain version on a cut of the queries,
+    since its scores over all of T = S = 32,768 would be 137 GB."""
+    b, t, h, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, kh, h // kh, d).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * d ** -0.5
+    qpos = torch.arange(q0, q0 + t, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    scores = torch.where(kpos <= qpos, scores, -1e30)
+    out = torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(scores, dim=-1),
+                       v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def _phase26_shapes(lk, fk, dk, dev, shapes, card):
+    """Every kernel shape phase 26's steps launched at, held against its
+    plain version (K4 at T = S = 32,768 on its last ``K4_ROW_CUT`` query
+    rows, all keys), each timed with CUDA events beside its bound. The
+    launches here are checks and are not counted. Returns the worst
+    errors (K3, K4, K5)."""
+    from repro_torch.models.attention import decode_bias
+
+    errs = {"linear_scan": 0.0, "flash_attention": 0.0,
+            "decode_attention": 0.0}
+    for t, n, init in sorted(shapes["linear_scan"], key=str):
+        a, b, h0 = _scan_inputs(t, n, t + n, dev)
+        h0 = h0 if init else None
+        errs["linear_scan"] = max(errs["linear_scan"], _check(
+            f"K3 phase 26 (T,N)={(t, n)} h0={init}",
+            [lk.linear_scan(a, b, h0)], [lk.linear_scan_plain(a, b, h0)]))
+        ms = _time_ms(lambda: lk.linear_scan(a, b, h0), 10, 2)
+        bound, by = _bound(4 * t * n * 3 + (4 * n if init else 0), 2 * t * n)
+        print(f"K3 (T,N)={(t, n)}: max abs err {errs['linear_scan']:.3e}; "
+              f"{ms:.5f} call ms, bound {bound:.5f} ms ({by}); {card}")
+    for n, (b, t, s, h, kh, d, causal, window, dt) in enumerate(
+            sorted(shapes["flash_attention"], key=str)):
+        gen = torch.Generator(device=dev).manual_seed(800 + n)
+        q = torch.randn((b, t, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dt)
+        out = fk.flash_attention(q, k, v, causal, window)
+        if t * s > 4096 * 4096:
+            cut = min(K4_ROW_CUT, t)
+            if not causal or window or t != s:
+                raise AssertionError(f"K4 {(b, t, s)}: no row cut for it")
+            what = f"its last {cut} query rows over all {s} keys"
+            got, want = out[:, -cut:], _k4_rows_plain(q[:, -cut:], k, v,
+                                                      t - cut)
+        else:
+            what = "whole"
+            got = out
+            want = fk.flash_attention_plain(q, k, v, causal, window)
+        err = _attn_check(f"K4 phase 26 {(b, t, s, h, kh, d, dt)} {what}",
+                          got, want)
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        del got, want, out
+        ms = _time_ms(lambda: fk.flash_attention(q, k, v, causal, window),
+                      5, 1)
+        pairs = _attn_pairs(t, s, causal, window)
+        bound, by = _bound(2 * (2 * b * t * h * d + 2 * b * s * kh * d),
+                           4 * b * h * pairs * d, BF16_OPS_PER_S)
+        print(f"K4 (B,T,S,H,K,D)={(b, t, s, h, kh, d)} causal={causal} "
+              f"{dt}: max abs err {err:.3e} ({what}); {ms:.5f} call ms, "
+              f"bound {bound:.5f} ms ({by}); {card}")
+        del q, k, v
+    for n, (b, h, kh, s, d, dt) in enumerate(sorted(
+            shapes["decode_attention"], key=str)):
+        gen = torch.Generator(device=dev).manual_seed(900 + n)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dt)
+        bias = decode_bias(s, s, 0, b, dev)
+        err = _attn_check(f"K5 phase 26 {(b, h, kh, s, d, dt)}",
+                          dk.decode_attention(q, k, v, bias),
+                          dk.decode_attention_plain(q, k, v, bias))
+        errs["decode_attention"] = max(errs["decode_attention"], err)
+        ms = _time_ms(lambda: dk.decode_attention(q, k, v, bias), 10, 2)
+        bound, by = _bound(2 * (2 * b * h * d + 2 * b * s * kh * d) +
+                           4 * b * s, 4 * b * h * s * d, BF16_OPS_PER_S)
+        print(f"K5 (B,H,K,S,D)={(b, h, kh, s, d)} {dt}: max abs err "
+              f"{err:.3e}; {ms:.5f} call ms, bound {bound:.5f} ms ({by}); "
+              f"{card}")
+        del q, k, v
+    torch.cuda.synchronize()
+    return (errs["linear_scan"], errs["flash_attention"],
+            errs["decode_attention"])
+
+
+def _dryrun_start(out_dir: Path):
+    """The dry run of ``DRYRUN_PAIR`` in a child process on the host's CPU
+    (it never initialises CUDA), started at once so that it runs while
+    the card works."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    arch, shape = DRYRUN_PAIR
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", str(out_dir)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _dryrun_finish(proc, out_dir: Path) -> None:
+    """Wait for the dry run; its record must say ``ok``, keep the
+    reference's keys, and hold ``DRYRUN_WANT``, the JAX package's
+    analytic figures for its pair."""
+    from repro_torch.launch.mesh import HW
+
+    out = _child_output(proc, DRYRUN_TIMEOUT_S, "dry run")
+    arch, shape = DRYRUN_PAIR
+    with open(out_dir / f"{arch}_{shape}_pod1_baseline.json") as f:
+        rec = json.load(f)
+    flops, nbytes = (DRYRUN_WANT["flops_per_device"],
+                     DRYRUN_WANT["bytes_per_device"])
+    want = {"flops_per_device": flops, "bytes_per_device": nbytes,
+            "compute_s": flops / HW["peak_flops_bf16"],
+            "memory_s": nbytes / HW["hbm_bw"]}
+    if rec["status"] != "ok" or rec["analytic"] != want or \
+            rec["memory_model"]["total"] != DRYRUN_WANT["memory_total"] or \
+            rec["collectives"] != {} or rec["memory"]["temp_bytes"] is not \
+            None or not rec["cost"]["flops_per_device"] > 0:
+        raise AssertionError(f"dry run record {rec.get('status')}: "
+                             f"analytic {rec.get('analytic')} against "
+                             f"{want}, memory model "
+                             f"{rec.get('memory_model')}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cost = rec["cost"]
+    print(f"dry run (a child on the CPU, CUDA never initialised): "
+          f"{out.strip()}; its analytic and memory-model figures equal the "
+          f"JAX package's models; eager count "
+          f"{cost['flops_per_device']:.4e} FLOPs, "
+          f"{cost['bytes_per_device']:.4e} bytes a device "
+          f"({rec['cost_view']})")
+
+
+def _child_output(proc, timeout: int, what: str) -> str:
+    """Wait for a child of this phase; it must exit 0. Returns its
+    output."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} over {timeout} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exit {proc.returncode}: {out[-2000:]}")
+    return out
+
+
+def _port_costs_start():
+    """``_port_costs_child`` in a child process on the host's CPU,
+    started at once so that it runs while the card works."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._port_costs_child()"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _port_costs_child() -> None:
+    """Print, as one JSON list, the port's own count of each
+    ``STEP_RUNS`` step at its cut shape: ``steps.trace_pair`` (the step
+    on meta tensors under ``eager_cost``) on a one-device mesh. CUDA is
+    never initialised."""
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape, MeshConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh, make_rules
+
+    mesh = make_mesh(MeshConfig(data_axis=1, model_axis=1))
+    rules = make_rules(mesh)
+    costs = []
+    for _, arch, shape_name, batch, seq, _ in STEP_RUNS:
+        shape = InputShape(shape_name, seq, batch,
+                           INPUT_SHAPES[shape_name].kind)
+        cost, _ = steps_lib.trace_pair(get_config(arch), shape, mesh, rules)
+        costs.append({"flops": cost["flops"],
+                      "bytes": cost["bytes accessed"]})
+    if torch.cuda.is_initialized():
+        raise AssertionError("the meta traces initialised CUDA")
+    print(json.dumps(costs))
+
+
+def phase_steps(vk, lk, fk, dk, dev):
+    """Phase 26: ``launch.steps.build_steps`` under ``Rules`` on a
+    one-device mesh, at full width and depth from seed 0 (each arch drawn
+    once and shared by its steps), for the (step, arch, shape) pairs of
+    ``STEP_RUNS`` at their assigned shapes, cut only where stated. Each
+    step: a warm-up call and a timed one (stream ms between CUDA events),
+    its own peak, the port's own count and the JAX package's TPU model at
+    one device and the memory model beside it (``_step_roofline``); the
+    kernels counted over both calls (zeroed just before, read just after)
+    against the run's ``want``; outputs finite; the serve steps' value and
+    policy logits and the prefill logits held to the plain route
+    (``impl='ref'``) at ``LOGITS_RTOL``, on the same inputs (stablelm's
+    prefill at ``PREFILL_PLAIN_S``, where the plain route's dense scores
+    fit). Then every kernel shape the steps launched at, held to its plain
+    version (K2 as phase 4 holds it; K3-K5 timed too,
+    ``_phase26_shapes``). Two children run on the CPU meanwhile: the
+    port's meta traces of the steps (``_port_costs_child``) and the dry
+    run (``DRYRUN_PAIR``, its record held to ``DRYRUN_WANT``); both are
+    stopped if the phase fails. Returns (launches, the worst errors of
+    K2, K3, K4 and K5)."""
+    dry_dir = ROOT / "build" / "chip_smoke_dryrun"
+    dry = _dryrun_start(dry_dir)
+    counted = _port_costs_start()
+    try:
+        return _steps_on_card(vk, lk, fk, dk, dev, dry, dry_dir, counted)
+    finally:
+        for proc in (dry, counted):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def _steps_on_card(vk, lk, fk, dk, dev, dry, dry_dir, counted):
+    """``phase_steps``' work, while its two children run."""
+    from repro_torch import params as params_lib
+    from repro_torch.configs.base import INPUT_SHAPES, InputShape, MeshConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import actor as actor_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.models import backbone as bb
+
+    rows = []
+    card = _card_line()
+    kernels = _kernel_fns(vk, lk, fk, dk)
+    rules = make_rules(make_mesh(MeshConfig(data_axis=1, model_axis=1)))
+    na = steps_lib.NUM_ACTIONS
+    total = {name: 0 for name in kernels}
+    shapes = {"linear_scan": set(), "flash_attention": set(),
+              "decode_attention": set()}
+    for name in shapes:
+        kernels[name].shapes.clear()
+    k2_before = set(vk.loss_vtrace.shapes)
+    params = built = None
+    for kind, arch, shape_name, batch, seq, want1 in STEP_RUNS:
+        cfg = get_config(arch)
+        if built != arch:
+            params = steps = None
+            torch.cuda.empty_cache()
+            params = init_params(cfg, na, 0, dev)
+            steps = steps_lib.build_steps(cfg, rules)
+            built = arch
+        full = INPUT_SHAPES[shape_name]
+        shape = InputShape(shape_name, seq, batch, full.kind)
+        what = (f"phase 26 {kind} {arch} {shape_name} (B, S) = "
+                f"({batch}, {seq}), cut: {_cut_text(full, batch, seq)}")
+        gen = torch.Generator(device=dev).manual_seed(26)
+        want = {name: 2 * want1.get(name, 0) for name in kernels}
+        if kind == "serve":
+            length = steps_lib.decode_cache_len(cfg, seq)
+            cache = _normal_tree(bb.cache_init(batch, length, cfg, dev),
+                                 gen)
+            token = torch.randint(0, cfg.vocab_size, (batch, 1),
+                                  generator=gen, device=dev)
+            index = seq - 1
+            draw = torch.Generator(device=dev).manual_seed(27)
+            # a step updates the recurrent and SSM states in place: the
+            # plain route needs the timed call's own input state
+            keep = cfg.family in ("ssm", "hybrid")
+            out, ms, peak, got, before = _timed_step(
+                kernels, lambda: steps["serve"](params, token, cache,
+                                                index, draw),
+                (lambda: params_lib.copy(cache)) if keep else None)
+            with torch.no_grad():
+                ref = bb.apply_decode(params, token,
+                                      before if keep else cache, index, cfg,
+                                      na, impl="ref")
+            logits = ref.policy_logits[:, 0]
+            # the value and the logits are linear reads (0.01-scaled) of
+            # one final hidden state; a lone value can cancel to near 0,
+            # so it is held against the two heads' largest output
+            heads = max(float(logits.abs().max()),
+                        float(ref.values.abs().max()))
+            rv = _rel_check(f"{what} value", out["value"], ref.values[:, 0],
+                            heads)
+            # the logits themselves, at their own largest magnitude (the
+            # log-probs of ~1e-2 logits all sit near -log 18, where a 5%
+            # bar could not see a wrong hidden state)
+            rl = _rel_check(f"{what} policy logits", out["policy_logits"],
+                            logits)
+            l2 = float((out["policy_logits"].float() - logits.float()).norm()
+                       / logits.float().norm())
+            blp = actor_lib.action_logprob(out["policy_logits"],
+                                           out["action"])
+            if not float((out["behaviour_logprob"] - blp).abs().max()) \
+                    <= 1e-6:
+                raise AssertionError(f"{what}: behaviour log-prob is not "
+                                     f"the drawn action's under its logits")
+            check = (f"value within {100 * rv:.3f}% of the heads' largest "
+                     f"output, policy logits within {100 * rl:.3f}% of "
+                     f"their largest (relative L2 {100 * l2:.3f}%), "
+                     f"against the plain route; behaviour log-prob the "
+                     f"drawn action's")
+            del cache, before, ref, out
+        elif kind == "prefill":
+            toks = torch.randint(0, cfg.vocab_size, (batch, seq),
+                                 generator=gen, device=dev)
+            out, ms, peak, got, _ = _timed_step(
+                kernels, lambda: steps["prefill"](params, {"tokens": toks}))
+            logits = out["policy_logits"]
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{what}: logits not finite")
+            del out
+            plain_s = PREFILL_PLAIN_S.get(arch, seq)
+            cut = toks[:, :plain_s]
+            if plain_s < seq:
+                # the kernel route again at the plain route's length
+                _zero_counts(kernels)
+                logits = steps["prefill"](params, {"tokens": cut})[
+                    "policy_logits"]
+                for name, fn in kernels.items():
+                    total[name] += fn.launches
+            with torch.no_grad():
+                ref = bb.apply_prefill(params, {"tokens": cut}, cfg, na,
+                                       impl="ref")
+            rl = _rel_check(f"{what} logits", logits, ref.policy_logits)
+            check = (f"logits within {100 * rl:.3f}% of the plain route"
+                     + (f" at S = {plain_s} (its dense f32 scores at "
+                        f"{seq} would be {32 * seq * seq * 4 / 1e9:.0f} GB "
+                        f"a layer)" if plain_s < seq else ""))
+            del logits, ref
+        else:
+            data = _stub_batch(cfg, batch, seq - 1, na, dev)
+            opt_state = steps["optimizer"].init(params)
+            out, ms, peak, got, _ = _timed_step(
+                kernels, lambda: steps["train"](params, opt_state, 0, data))
+            loss = float(out[2]["loss/total"])
+            if not math.isfinite(loss):
+                raise AssertionError(f"{what}: loss {loss}")
+            check = f"loss {loss:.4f} finite"
+            del out, opt_state, data
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want} "
+                                 f"(a warm-up call and a timed one)")
+        for name in total:
+            total[name] += got[name]
+        print(f"{what}: launches over the two calls "
+              f"{ {k: v for k, v in got.items() if v} or 'none'}; {check}")
+        rows.append((what, cfg, shape, ms, peak))
+    for name in shapes:
+        shapes[name] |= kernels[name].shapes
+        PATH_SHAPES[name] |= kernels[name].shapes
+    del params, steps
+    torch.cuda.empty_cache()
+    k2_new = sorted(vk.loss_vtrace.shapes - k2_before - set(K2_SHAPES))
+    print(f"phase 26 K2 shapes not held before, checked now: {k2_new}")
+    err_k2 = phase_k2(vk, dev, k2_new)
+    errs = _phase26_shapes(lk, fk, dk, dev, shapes, card)
+    costs = json.loads(_child_output(counted, PORT_COSTS_TIMEOUT_S,
+                                     "the port's meta traces")
+                       .strip().splitlines()[-1])
+    for (what, cfg, shape, ms, peak), port in zip(rows, costs, strict=True):
+        _step_roofline(what, cfg, shape, rules, ms, peak, port, card)
+    _dryrun_finish(dry, dry_dir)
+    return total, (err_k2,) + errs
+
+
 class _Laps:
     """Prints each group of phases' wall time and the run's so far."""
 
@@ -5143,6 +5675,12 @@ def main() -> int:
         lap(f"25b ({arch})")
     err_k5 = max(err_k5, phase_actor_k5(dk, dev))
     lap("25c")
+    step_launches, (e2, e3, e4, e5) = phase_steps(vk, lk, fk, dk, dev)
+    for name, count in step_launches.items():
+        launches[name] += count
+    err_k2, err_k3, err_k4, err_k5 = (max(err_k2, e2), max(err_k3, e3),
+                                      max(err_k4, e4), max(err_k5, e5))
+    lap("26")
     print(f"times above: {card}")
 
     meta = {

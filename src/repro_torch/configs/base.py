@@ -5,7 +5,9 @@ conv-LSTM agents and of every token backbone (dense, MoE, SSM, RG-LRU
 hybrid, enc-dec audio and cross-attention VLM). It leaves out the JAX
 package's scan/remat switches, which only shape XLA's program.
 ``ImpalaConfig`` has every field of the reference but ``seed``, which
-no code reads: the runs take their seed as an argument.
+no code reads: the runs take their seed as an argument. ``MeshConfig``,
+``InputShape`` and ``INPUT_SHAPES`` (the four assigned step shapes) are
+the reference's, field for field and value for value.
 """
 from __future__ import annotations
 
@@ -120,3 +122,47 @@ class ImpalaConfig:
     rmsprop_momentum: float = 0.0
     rmsprop_eps: float = 0.1
     grad_clip_norm: float = 40.0
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    data_axis: int = 16
+    model_axis: int = 16
+    pod_axis: int = 2
+
+    @property
+    def shape(self):
+        if self.multi_pod:
+            return (self.pod_axis, self.data_axis, self.model_axis)
+        return (self.data_axis, self.model_axis)
+
+    @property
+    def axis_names(self):
+        if self.multi_pod:
+            return ("pod", "data", "model")
+        return ("data", "model")
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

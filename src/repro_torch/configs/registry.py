@@ -6,7 +6,9 @@ qwen1.5-4b, stablelm-1.6b), the MoE decoders (granite-moe-1b-a400m,
 olmoe-1b-7b), the SSM stack mamba2-1.3b, the RG-LRU hybrid
 recurrentgemma-2b, the VLM llama-3.2-vision-11b and the enc-dec
 whisper-small. Each module defines ``CONFIG`` (the published widths) and
-``smoke_config()`` (the reduced variant of the CPU tests).
+``smoke_config()`` (the reduced variant of the CPU tests). ``ASSIGNED``
+names the ten token configs in the reference's order (the dry run's
+``--list``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ _ALIASES = {
     "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "whisper-small": "whisper_small",
 }
+
+
+ASSIGNED = ["recurrentgemma_2b", "granite_moe_1b_a400m", "whisper_small",
+            "mamba2_1_3b", "stablelm_1_6b", "gemma_7b", "qwen1_5_4b",
+            "llama_3_2_vision_11b", "mistral_nemo_12b", "olmoe_1b_7b"]
 
 
 def _module(name: str):

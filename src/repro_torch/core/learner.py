@@ -327,8 +327,9 @@ def opt_state_specs(param_specs: Tree, cfg: ImpalaConfig,
     """The optimizer state's tree, mirroring ``param_specs`` (any tree:
     specs, shapes or tensors), as ``repro.core.learner.opt_state_specs``
     builds it: RMSProp's ``ms`` (and ``mom`` with momentum), under
-    ``opt`` beside the f32 ``master`` in mixed precision. A sharded
-    learner's PartitionSpecs are ROADMAP.md Queue 1 item 15B."""
+    ``opt`` beside the f32 ``master`` in mixed precision. Its leaves'
+    placements under sharding rules are ``common.param_shardings`` of
+    this tree."""
     inner = ({"ms": param_specs, "mom": param_specs}
              if cfg.rmsprop_momentum else {"ms": param_specs})
     if mixed_precision:

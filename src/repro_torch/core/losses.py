@@ -18,11 +18,12 @@ from repro_torch.kernels import vtrace as vtrace_kernels
 
 def resolve_vtrace_impl(impl: str, device: torch.device) -> str:
     """Map ``auto`` to a concrete implementation from the tensors' device:
-    the fused loss/V-trace kernel (K2) on CUDA tensors, the reverse loop
-    (``scan``) on CPU tensors. Explicit choices pass through."""
+    the fused loss/V-trace kernel (K2) on CUDA tensors and on the dry
+    run's ``meta`` tensors, the reverse loop (``scan``) on CPU tensors.
+    Explicit choices pass through."""
     if impl != "auto":
         return impl
-    return "fused" if device.type == "cuda" else "scan"
+    return "fused" if device.type in ("cuda", "meta") else "scan"
 
 
 def reward_clip(rewards: torch.Tensor, mode: str) -> torch.Tensor:
@@ -105,7 +106,7 @@ def impala_loss(cfg: ImpalaConfig, target_logits, values, batch: Dict,
                 and not replay):
             return _impala_loss_fused(cfg, target_logits, values, batch,
                                       rewards)
-        impl = "pallas" if device.type == "cuda" else "scan"
+        impl = "pallas" if device.type in ("cuda", "meta") else "scan"
     vs, pg_adv = corrections.compute_correction(
         cfg, batch["behaviour_logprob"], target_logits, batch["actions"],
         batch["discounts"], rewards,
@@ -136,8 +137,10 @@ def _impala_loss_fused(cfg: ImpalaConfig, target_logits, values, batch,
 
     num_actions = target_logits.shape[-1]
     logits = tm(target_logits)
+    # contiguous already, but for meta tensors (the dry run), whose
+    # one_hot keeps the transposed strides
     onehot = F.one_hot(batch["actions"].long().transpose(0, 1),
-                       num_actions).to(torch.float32)
+                       num_actions).to(torch.float32).contiguous()
     values_f = values.to(torch.float32)
     v_tp1 = torch.cat(
         [values_f[:, 1:],

@@ -49,7 +49,7 @@ Supervised (``run_group_training(supervise=True)``), a dead spoke is
 respawned and catches up from the hub's replayed means, and a dead hub
 fails over to the lowest live learner (``ResilientExchange``). Not
 ported yet: the SPMD learner (``CollectiveExchange``, ROADMAP.md Queue 1
-item 15), which raises, naming the item.
+item 15C), which raises, naming the item.
 """
 from __future__ import annotations
 

@@ -56,7 +56,7 @@ In a group each round copies the gradient leaves to the host once (one
 device buffer, one copy into pinned memory, one wait) and uploads the
 mean once; every replica then runs the same ``apply_step`` launches on
 the same values, so the replicas stay bit identical. The SPMD learner (an
-in-XLA exchange) is not ported yet (ROADMAP.md, Queue 1 item 15).
+in-XLA exchange) is not ported yet (ROADMAP.md, Queue 1 item 15C).
 
 The flight recorder's hooks (``trace``, ``phase_timing``, ``profile``)
 are all optional; without them the loop takes no stamps, and with them

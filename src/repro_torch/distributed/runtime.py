@@ -68,7 +68,7 @@ PyTree = Any
 ACTOR_MODES = ("unroll", "inference")
 
 
-def _unported(what: str, item: int, name: str) -> NotImplementedError:
+def _unported(what: str, item: str, name: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
                                f"Queue 1 item {item}: {name})")
 
@@ -116,8 +116,8 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
         raise ValueError(f"transport must be one of inproc/shm/socket, "
                          f"got {transport!r}")
     if spmd_devices:
-        raise _unported("the SPMD learner (spmd_devices)", 15,
-                        "TPU-mesh tooling analogues")
+        raise _unported("the SPMD learner (spmd_devices)", "15C",
+                        "the SPMD learner")
 
 
 def _setup(

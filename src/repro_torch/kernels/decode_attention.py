@@ -9,8 +9,10 @@ float32; the output in q's dtype. The kernel is CUDA C++ in
 ``repro_torch.kernels.build``). The wrapper takes the plain PyTorch
 version (``decode_attention_plain``, the dense oracle) only because the
 tensors it was given lie on the CPU; on CUDA tensors it launches the
-kernel or raises. ``decode_attention.launches`` counts the kernel's
-launches, and nothing else; ``decode_attention.shapes`` is the set of
+kernel or raises; on ``meta`` tensors it returns the output as a meta
+tensor and reports the kernel's cost (``kernels.meta``).
+``decode_attention.launches`` counts the kernel's launches, and nothing
+else; ``decode_attention.shapes`` is the set of
 (B, H, K, S, D, dtype) it launched at, which ``reset_launch_counts``
 leaves as it is. Like K4 it has no backward, and raises on inputs that
 require grad while grad mode is on (``refuse_grad``).
@@ -22,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.flash_attention import (check_attention_inputs,
                                                  check_kernel_layout,
                                                  refuse_grad)
@@ -71,6 +73,11 @@ def decode_attention(q, k, v, bias) -> torch.Tensor:
         raise ValueError(f"decode_attention: bias {tuple(bias.shape)} "
                          f"{bias.dtype} on {bias.device}; expected a "
                          f"contiguous float32 ({b}, {s}) on {q.device}")
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        meta.report(meta.attention_flops(b, q.shape[1], 1, s, q.shape[2]),
+                    (q, k, v, bias), (out,))
+        return out
     if not build.on_cuda(q.device, "decode attention"):
         return decode_attention_plain(q, k, v, bias)
     h, d = q.shape[1], q.shape[2]

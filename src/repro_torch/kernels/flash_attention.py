@@ -9,8 +9,10 @@ float32; the output in q's dtype. The kernel is CUDA C++ in
 ``repro_torch.kernels.build``). The wrapper takes the plain PyTorch
 version (``flash_attention_plain``, the masked-dense oracle) only because
 the tensors it was given lie on the CPU; on CUDA tensors it launches the
-kernel or raises. ``flash_attention.launches`` counts the kernel's
-launches, and nothing else; ``flash_attention.shapes`` is the set of
+kernel or raises; on ``meta`` tensors it returns the output as a meta
+tensor and reports the kernel's cost (``kernels.meta``).
+``flash_attention.launches`` counts the kernel's launches, and nothing
+else; ``flash_attention.shapes`` is the set of
 (B, T, S, H, K, D, causal, window, dtype) it launched at, which
 ``reset_launch_counts`` leaves as it is. The kernel has no backward: the
 wrapper raises, on every device, where grad mode is on and q, k or v
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import flash_attention_ref
 
 # K4's plain version is the oracle itself: masked-dense softmax in f32
@@ -85,10 +87,14 @@ def flash_attention(q, k, v, causal: bool = True,
     refuse_grad("flash_attention", q, k, v)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if not build.on_cuda(q.device, "flash attention"):
-        return flash_attention_plain(q, k, v, causal, window)
     b, t, h, d = q.shape
     s, kh = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        meta.report(meta.attention_flops(b, h, t, s, d), (q, k, v), (out,))
+        return out
+    if not build.on_cuda(q.device, "flash attention"):
+        return flash_attention_plain(q, k, v, causal, window)
     out = torch.empty_like(q)
     check_kernel_layout("flash_attention", (q, k, v, out), d)
     code = build.call_on(

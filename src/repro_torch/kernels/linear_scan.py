@@ -19,8 +19,10 @@ The kernel is CUDA C++ in ``repro_torch/csrc/linear_scan.cu`` (built by
 ``repro_torch.kernels.build``). The wrapper takes the plain PyTorch
 version (``linear_scan_plain``, the oracle's loop) only because the
 tensors it was given lie on the CPU, in both directions; on CUDA tensors
-it launches the kernel or raises. ``linear_scan.launches`` counts the
-kernel's launches, the backward's included, and nothing else;
+it launches the kernel or raises; on ``meta`` tensors it returns h as a
+meta tensor and reports the kernel's cost (``kernels.meta``), with no
+loop over T. ``linear_scan.launches`` counts the kernel's launches, the
+backward's included, and nothing else;
 ``linear_scan.shapes`` is the set of (T, N, with h0) the forward launched
 at and (T, N, False, "bwd") the backward's, which ``reset_launch_counts``
 leaves as it is.
@@ -31,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import linear_scan_ref
 
 # K3's plain version is the oracle itself: the same loop over T
@@ -48,6 +50,10 @@ def _scan(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor],
     build.check_f32("b", b, (t, n), a.device)
     if h0 is not None:
         build.check_f32("h0", h0, (n,), a.device)
+    if a.device.type == "meta":
+        h = torch.empty((t, n), device="meta")
+        meta.report(0, (a, b, h0), (h,))
+        return h
     if not build.on_cuda(a.device, "linear scan"):
         with torch.no_grad():
             return linear_scan_plain(a, b, h0)

@@ -2,10 +2,12 @@
 V-trace (K1), the linear scan (K3), flash attention (K4) and decode
 attention (K5).
 
-``impl='auto'`` picks the hand-written kernel for CUDA tensors and the
-plain oracle for CPU tensors. ``'pallas'`` keeps the reference's name for
-the kernel route: on CUDA it launches the kernel; on the CPU the kernel's
-wrapper runs its plain version. ``'ref'`` is the oracle on any device.
+``impl='auto'`` picks the hand-written kernel for CUDA tensors, the
+kernel route's ``meta`` outputs for meta tensors (the dry run traces
+what the card runs, ``kernels.meta``) and the plain oracle for CPU
+tensors. ``'pallas'`` keeps the reference's name for the kernel route: on
+CUDA it launches the kernel; on the CPU the kernel's wrapper runs its
+plain version. ``'ref'`` is the oracle on any device.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels import vtrace as vtrace_k
 
 def _resolve(impl: str, device: torch.device) -> str:
     if impl == "auto":
-        return "pallas" if device.type == "cuda" else "ref"
+        return "pallas" if device.type in ("cuda", "meta") else "ref"
     return impl
 
 

@@ -15,8 +15,10 @@ cuts a problem into tiles of batch columns, T segments over a cluster of
 blocks and chunks of a segment, for the launch and the CPU tests alike.
 Each wrapper takes its plain PyTorch version (``vtrace_plain``,
 ``loss_vtrace_plain``) only because the tensors it was given lie on the
-CPU; on CUDA tensors it launches the kernel or raises. ``launches`` on
-each wrapper counts its kernel's launches, and nothing else; ``shapes``
+CPU; on CUDA tensors it launches the kernel or raises; on ``meta``
+tensors it returns the kernel's outputs as meta tensors and reports its
+cost (``kernels.meta``). ``launches`` on each wrapper counts its
+kernel's launches, and nothing else; ``shapes``
 on each is the set of problem shapes it launched at, which
 ``reset_launch_counts`` leaves as it is, so that a caller can collect the
 shapes of several runs and hold each against the plain version.
@@ -28,7 +30,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import vtrace_ref
 
 # K1's plain version is the oracle itself: the same reverse loop
@@ -151,6 +153,10 @@ def vtrace(rho, c, discounts, rewards, values, values_tp1
     args = (rho, c, discounts, rewards, values, values_tp1)
     dev = rho.device
     build.check_f32s(_K1_NAMES, args, (t, b), dev)
+    if dev.type == "meta":
+        outs = tuple(torch.empty((t, b), device="meta") for _ in range(2))
+        meta.report(0, args, outs)
+        return outs
     if not build.on_cuda(dev, "V-trace"):
         return vtrace_plain(*args)
     p = plan_vtrace(t, b)
@@ -230,6 +236,10 @@ def loss_vtrace(logits, onehot, behaviour_logprob, discounts, rewards,
     flat = (behaviour_logprob, discounts, rewards, values, values_tp1)
     build.check_f32s(("logits", "onehot"), (logits, onehot), (t, b, a), dev)
     build.check_f32s(_K2_NAMES, flat, (t, b), dev)
+    if dev.type == "meta":
+        outs = tuple(torch.empty((t, b), device="meta") for _ in range(4))
+        meta.report(0, (logits, onehot) + flat, outs)
+        return outs
     if not build.on_cuda(dev, "V-trace"):
         return loss_vtrace_plain(logits, onehot, *flat, rho_bar=rho_bar,
                                  c_bar=c_bar, lambda_=lambda_)

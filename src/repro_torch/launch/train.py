@@ -345,7 +345,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unported(flag: str, item: int, name: str) -> SystemExit:
+def _unported(flag: str, item: str, name: str) -> SystemExit:
     return SystemExit(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
                       f"{item}: {name})")
 
@@ -360,8 +360,7 @@ def _refuse_unported(args) -> None:
                              "process; drop --learners (device "
                              "parallelism comes from --spmd-devices)")
     if args.learner_mode == "spmd":
-        raise _unported("--learner-mode spmd", 15,
-                        "TPU-mesh tooling analogues")
+        raise _unported("--learner-mode spmd", "15C", "the SPMD learner")
 
 
 def _build_obs(args):

@@ -53,10 +53,13 @@ def attention_specs(cfg: ArchConfig, cross: bool = False) -> Dict:
     dh = cfg.resolved_head_dim
     bias = cfg.qkv_bias
     return {
-        "q": dense_specs((d,), (h, dh), bias=bias),
-        "k": dense_specs((d,), (k, dh), bias=bias),
-        "v": dense_specs((d,), (k, dh), bias=bias),
-        "o": dense_specs((h, dh), (d,)),
+        "q": dense_specs((d,), (h, dh), ("embed",), ("heads", "head_dim"),
+                         bias=bias),
+        "k": dense_specs((d,), (k, dh), ("embed",), ("kv_heads", "head_dim"),
+                         bias=bias),
+        "v": dense_specs((d,), (k, dh), ("embed",), ("kv_heads", "head_dim"),
+                         bias=bias),
+        "o": dense_specs((h, dh), (d,), ("heads", "head_dim"), ("embed",)),
     }
 
 

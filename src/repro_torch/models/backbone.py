@@ -54,8 +54,10 @@ class AgentOutput:
 def head_specs(cfg: ArchConfig, num_actions: int) -> Dict:
     d = cfg.d_model if cfg.family != "impala_cnn" else 256
     specs = {
-        "policy": dense_specs((d,), (num_actions,), bias=True, scale=0.01),
-        "value": dense_specs((d,), (1,), bias=True, scale=0.01),
+        "policy": dense_specs((d,), (num_actions,), ("embed",),
+                              ("actions",), bias=True, scale=0.01),
+        "value": dense_specs((d,), (1,), ("embed",), (None,), bias=True,
+                             scale=0.01),
     }
     if cfg.family != "impala_cnn":
         specs["final_norm"] = make_norm(cfg.norm, cfg.d_model)[0]
@@ -75,7 +77,8 @@ def backbone_specs(cfg: ArchConfig, num_actions: int) -> Dict:
     return {
         "torso": torso,
         "lstm": lstm_lib.lstm_specs(256 + num_actions + 1, cfg.lstm_width),
-        "post_lstm": dense_specs((cfg.lstm_width,), (256,), bias=True),
+        "post_lstm": dense_specs((cfg.lstm_width,), (256,), (None,),
+                                 ("embed",), bias=True),
         **head_specs(cfg, num_actions),
     }
 
@@ -262,6 +265,35 @@ def cache_abstract(batch: int, length: int, cfg: ArchConfig) -> Dict:
                             one)}
     for i, k in enumerate(leftover):
         out[f"tail{i}"] = _block_cache_abstract(k, batch, length, cfg, dtype)
+    return out
+
+
+def _block_cache_axes(kind: str, cfg: ArchConfig) -> Dict:
+    kv = {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+          "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
+    if kind in ("attn", "moe", "local"):
+        return {"kv": dict(kv)}
+    if kind == "recurrent":
+        return {"rglru": {"h": ("batch", "lru"),
+                          "conv": ("batch", None, "lru")}}
+    if kind == "ssm":
+        return {"ssm": {"ssm": ("batch", "ssm_heads", None, None),
+                        "conv": ("batch", None, "ff")}}
+    if kind == "cross":
+        return {"cross_kv": dict(kv)}
+    if kind == "enc_dec":
+        return {"kv": dict(kv), "cross_kv": dict(kv)}
+    raise ValueError(kind)
+
+
+def cache_logical_axes(cfg: ArchConfig) -> Dict:
+    """Logical axes (a tuple of names or None, one a dimension) mirroring
+    ``cache_abstract``'s tree leaf for leaf."""
+    group, leftover = tfm.layer_plan(cfg)
+    one = {f"l{i}": _block_cache_axes(k, cfg) for i, k in enumerate(group)}
+    out = {"scan": tree_map(lambda ax: ("layers",) + tuple(ax), one)}
+    for i, k in enumerate(leftover):
+        out[f"tail{i}"] = _block_cache_axes(k, cfg)
     return out
 
 

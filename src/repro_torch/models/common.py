@@ -1,18 +1,22 @@
 """Parameter-spec trees and common layers (``repro.models.common``).
 
-A spec tree is a nested dict of ``Spec(shape, init, scale)`` leaves in
-the JAX package's layout (conv kernels HWIO), so shapes, fan-ins and
-``param_count`` are the reference's own. ``init_params`` draws that tree
-from an explicit ``torch.Generator`` on one device (the CPU unless asked);
-``repro_torch.params.from_jax`` then moves it into the port's layout and
-onto the device. The layers (norms, dense, embedding, RoPE, activations)
-compute what the JAX functions compute, in the same dtypes.
+A spec tree is a nested dict of ``Spec(shape, logical, init, dtype,
+scale)`` leaves in the JAX package's layout (conv kernels HWIO), so
+shapes, fan-ins, logical axes and ``param_count`` are the reference's
+own. ``init_params`` draws that tree from an explicit ``torch.Generator``
+on one device (the CPU unless asked); ``repro_torch.params.from_jax``
+then moves it into the port's layout and onto the device.
+``abstract_params`` gives the tree as ``meta`` tensors (the dry run's
+stand-ins, no storage) and ``param_shardings`` each leaf's DTensor
+placements under a ``repro_torch.sharding.rules.Rules``. The layers
+(norms, dense, embedding, RoPE, activations) compute what the JAX
+functions compute, in the same dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +30,15 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class Spec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones | embed
+    dtype: str = "float32"
     scale: float = 1.0            # multiplier on the default init scale
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"Spec: shape {self.shape} and logical axes "
+                             f"{self.logical} differ in rank")
 
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
@@ -64,16 +75,33 @@ def init_params(specs: Tree, seed: int, device="cpu") -> Tree:
     return tree_map(lambda s: _init_leaf(s, gen), specs)
 
 
+def abstract_params(specs: Tree) -> Tree:
+    """The tree as ``meta`` tensors of each leaf's shape and dtype: the
+    stand-ins of JAX's ShapeDtypeStructs, which allocate nothing."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=torch_dtype(
+        s.dtype), device="meta"), specs)
+
+
+def param_shardings(specs: Tree, rules) -> Tree:
+    """Each leaf's DTensor placements under ``rules``
+    (``Rules.placements`` of its logical axes and shape)."""
+    return tree_map(lambda s: rules.placements(s.logical, s.shape), specs)
+
+
 def param_count(specs: Tree) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
 
 
 def dense_specs(in_shape: Sequence[int], out_shape: Sequence[int],
+                in_logical: Sequence[Optional[str]],
+                out_logical: Sequence[Optional[str]],
                 bias: bool = False, scale: float = 1.0) -> Dict[str, Spec]:
     specs = {"kernel": Spec(tuple(in_shape) + tuple(out_shape),
+                            tuple(in_logical) + tuple(out_logical),
                             scale=scale)}
     if bias:
-        specs["bias"] = Spec(tuple(out_shape), init="zeros")
+        specs["bias"] = Spec(tuple(out_shape), tuple(out_logical),
+                             init="zeros")
     return specs
 
 
@@ -125,8 +153,8 @@ def dense(params, x: torch.Tensor, contract: int = 1,
 # Normalization
 
 
-def rmsnorm_specs(d: int) -> Dict[str, Spec]:
-    return {"scale": Spec((d,), init="ones")}
+def rmsnorm_specs(d: int, name_axis: str = "embed") -> Dict[str, Spec]:
+    return {"scale": Spec((d,), (name_axis,), init="ones")}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -137,9 +165,9 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(x.dtype)
 
 
-def layernorm_specs(d: int) -> Dict[str, Spec]:
-    return {"scale": Spec((d,), init="ones"),
-            "bias": Spec((d,), init="zeros")}
+def layernorm_specs(d: int, name_axis: str = "embed") -> Dict[str, Spec]:
+    return {"scale": Spec((d,), (name_axis,), init="ones"),
+            "bias": Spec((d,), (name_axis,), init="zeros")}
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -166,7 +194,8 @@ def make_norm(kind: str, d: int):
 
 
 def embedding_specs(vocab: int, d: int) -> Dict[str, Spec]:
-    return {"table": Spec((vocab, d), init="embed", scale=0.02)}
+    return {"table": Spec((vocab, d), ("vocab", "embed"), init="embed",
+                          scale=0.02)}
 
 
 def embed(params, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -27,8 +27,8 @@ from repro_torch.models.common import Spec, dense, dense_specs
 
 def _conv_spec(kh, kw, cin, cout) -> Dict[str, Spec]:
     # JAX layout (HWIO) in the spec: the bridge makes it OIHW
-    return {"kernel": Spec((kh, kw, cin, cout)),
-            "bias": Spec((cout,), init="zeros")}
+    return {"kernel": Spec((kh, kw, cin, cout), (None, None, None, None)),
+            "bias": Spec((cout,), (None,), init="zeros")}
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -83,7 +83,8 @@ def shallow_specs(image_hw, d_out: int = 256) -> Dict:
     return {
         "conv1": _conv_spec(8, 8, c, 16),
         "conv2": _conv_spec(4, 4, 16, 32),
-        "fc": dense_specs((flat,), (d_out,), bias=True),
+        "fc": dense_specs((flat,), (d_out,), (None,), ("embed",),
+                          bias=True),
     }
 
 
@@ -112,7 +113,8 @@ def deep_specs(image_hw, d_out: int = 256) -> Dict:
         specs[f"section{s}"] = sec
         c_in = ch
     flat = _flat_dim(image_hw, len(_DEEP_CHANNELS), _DEEP_CHANNELS[-1])
-    specs["fc"] = dense_specs((flat,), (d_out,), bias=True)
+    specs["fc"] = dense_specs((flat,), (d_out,), (None,), ("embed",),
+                              bias=True)
     return specs
 
 

@@ -16,8 +16,9 @@ from repro_torch.models.common import dense, dense_specs
 
 def lstm_specs(d_in: int, width: int) -> Dict:
     return {
-        "wx": dense_specs((d_in,), (4 * width,), bias=True),
-        "wh": dense_specs((width,), (4 * width,)),
+        "wx": dense_specs((d_in,), (4 * width,), ("embed",), (None,),
+                          bias=True),
+        "wh": dense_specs((width,), (4 * width,), (None,), (None,)),
     }
 
 

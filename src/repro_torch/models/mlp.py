@@ -13,11 +13,11 @@ def mlp_specs(cfg: ArchConfig, d_ff: int = 0) -> Dict:
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     specs = {
-        "up": dense_specs((d,), (ff,)),
-        "down": dense_specs((ff,), (d,)),
+        "up": dense_specs((d,), (ff,), ("embed",), ("ff",)),
+        "down": dense_specs((ff,), (d,), ("ff",), ("embed",)),
     }
     if cfg.activation in ("geglu", "swiglu"):
-        specs["gate"] = dense_specs((d,), (ff,))
+        specs["gate"] = dense_specs((d,), (ff,), ("embed",), ("ff",))
     return specs
 
 

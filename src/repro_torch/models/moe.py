@@ -15,8 +15,9 @@ axis; the combine gathers each pair's output back, weighted by its gate.
 ``apply_moe`` returns the combined output and the Switch-style
 load-balancing aux loss. Expert parallelism (the JAX package's
 ``shard_map_a2a`` dispatch under sharding rules) is not ported: this
-``apply_moe`` takes no sharding rules and always runs the one-device
-path (ROADMAP.md, Queue 1 item 15).
+``apply_moe`` reads no sharding rules and always runs the one-device
+path, whatever ``MoEConfig.dispatch_impl`` says (ROADMAP.md, Queue 1
+item 15C).
 """
 from __future__ import annotations
 
@@ -35,12 +36,13 @@ def moe_specs(cfg: ArchConfig) -> Dict:
         raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     specs = {
-        "router": {"kernel": Spec((d, e))},
-        "up": {"kernel": Spec((e, d, ff))},
-        "down": {"kernel": Spec((e, ff, d))},
+        "router": {"kernel": Spec((d, e), ("embed", "experts"))},
+        "up": {"kernel": Spec((e, d, ff), ("experts", "embed", "ff"))},
+        "down": {"kernel": Spec((e, ff, d), ("experts", "ff", "embed"))},
     }
     if cfg.activation in ("geglu", "swiglu"):
-        specs["gate"] = {"kernel": Spec((e, d, ff))}
+        specs["gate"] = {"kernel": Spec((e, d, ff),
+                                        ("experts", "embed", "ff"))}
     return specs
 
 

@@ -37,15 +37,16 @@ def rglru_specs(cfg: ArchConfig) -> Dict:
     w = _width(cfg)
     cw = cfg.rglru.conv_width
     return {
-        # Griffin recurrent block: two input branches + output proj
-        "in_gate": dense_specs((d,), (w,)),       # gelu branch
-        "in_rec": dense_specs((d,), (w,)),        # recurrent branch
-        "conv": {"kernel": Spec((cw, w), init="normal"),
-                 "bias": Spec((w,), init="zeros")},
-        "gate_a": dense_specs((w,), (w,), bias=True),
-        "gate_x": dense_specs((w,), (w,), bias=True),
-        "lam": {"w": Spec((w,), init="normal")},
-        "out": dense_specs((w,), (d,)),
+        # Griffin recurrent block: two input branches (the gelu one, then
+        # the recurrent one) + output proj
+        "in_gate": dense_specs((d,), (w,), ("embed",), ("lru",)),
+        "in_rec": dense_specs((d,), (w,), ("embed",), ("lru",)),
+        "conv": {"kernel": Spec((cw, w), ("conv", "lru"), init="normal"),
+                 "bias": Spec((w,), ("lru",), init="zeros")},
+        "gate_a": dense_specs((w,), (w,), ("lru",), (None,), bias=True),
+        "gate_x": dense_specs((w,), (w,), ("lru",), (None,), bias=True),
+        "lam": {"w": Spec((w,), ("lru",), init="normal")},
+        "out": dense_specs((w,), (d,), ("lru",), ("embed",)),
     }
 
 

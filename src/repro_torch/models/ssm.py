@@ -41,16 +41,17 @@ def ssm_specs(cfg: ArchConfig) -> Dict:
     d_inner, h, _, n = _dims(cfg)
     conv_ch = d_inner + 2 * n  # conv over x, B, C as in mamba2
     return {
-        "in_zx": dense_specs((d,), (2 * d_inner,)),
-        "in_bc": dense_specs((d,), (2 * n,)),
-        "in_dt": dense_specs((d,), (h,)),
-        "conv": {"kernel": Spec((s.conv_width, conv_ch), init="normal"),
-                 "bias": Spec((conv_ch,), init="zeros")},
-        "dt_bias": {"w": Spec((h,), init="zeros")},
-        "a_log": {"w": Spec((h,), init="ones")},
-        "d_skip": {"w": Spec((h,), init="ones")},
-        "out_norm": rmsnorm_specs(d_inner),
-        "out": dense_specs((d_inner,), (d,)),
+        "in_zx": dense_specs((d,), (2 * d_inner,), ("embed",), ("ff",)),
+        "in_bc": dense_specs((d,), (2 * n,), ("embed",), (None,)),
+        "in_dt": dense_specs((d,), (h,), ("embed",), ("ssm_heads",)),
+        "conv": {"kernel": Spec((s.conv_width, conv_ch), ("conv", "ff"),
+                                init="normal"),
+                 "bias": Spec((conv_ch,), ("ff",), init="zeros")},
+        "dt_bias": {"w": Spec((h,), ("ssm_heads",), init="zeros")},
+        "a_log": {"w": Spec((h,), ("ssm_heads",), init="ones")},
+        "d_skip": {"w": Spec((h,), ("ssm_heads",), init="ones")},
+        "out_norm": rmsnorm_specs(d_inner, "ff"),
+        "out": dense_specs((d_inner,), (d,), ("ff",), ("embed",)),
     }
 
 

@@ -174,7 +174,8 @@ def apply_block(params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def stack_specs(specs: Tree, n: int) -> Tree:
-    return tree_map(lambda s: Spec((n,) + s.shape, init=s.init,
+    return tree_map(lambda s: Spec((n,) + s.shape, ("layers",) + s.logical,
+                                   init=s.init, dtype=s.dtype,
                                    scale=s.scale), specs)
 
 

@@ -57,7 +57,14 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.configs.granite_moe_1b_a400m', "
         "'repro_torch.configs.olmoe_1b_7b', "
         "'repro_torch.configs.llama_3_2_vision_11b', "
-        "'repro_torch.configs.whisper_small'}\n"
+        "'repro_torch.configs.whisper_small', "
+        "'repro_torch.sharding.rules', 'repro_torch.sharding.profiles', "
+        "'repro_torch.roofline.analysis', "
+        "'repro_torch.roofline.flops_model', "
+        "'repro_torch.roofline.memory_model', "
+        "'repro_torch.roofline.table', 'repro_torch.launch.mesh', "
+        "'repro_torch.launch.steps', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.sweep', 'repro_torch.kernels.meta'}\n"
         "assert need <= set(names), need - set(names)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
