@@ -378,6 +378,27 @@ exception and a nonzero exit:
     child process runs ``python -m repro_torch.launch.dryrun`` on
     ``DRYRUN_PAIR``: its record must say ``ok`` and hold
     ``DRYRUN_WANT``, the JAX package's analytic figures for that pair.
+27. The SPMD learner and expert parallelism (slice 18). One pair of
+    ranks is spawned, sharing the card over a gloo group, for 27a and
+    27c; meanwhile this process runs 27b and 27a's one-rank routes.
+    27a: ``build_spmd_train_step`` at full width (impala-shallow on
+    catch, ``MAIN_B`` envs x ``MAIN_T`` a shard, ``SPMD_ROUNDS`` rounds
+    from the seed-0 params): on distinct shards held to the one-rank split
+    route (``grad_step`` on each shard, their mean, ``apply_step``), on
+    duplicated shards to the fused step on one shard, each at ``SPMD_BAR``
+    of the params' largest magnitude; K2 once a round in each rank. 27b:
+    ``repro_torch.launch.train --runtime async --learner-mode spmd`` at
+    the JAX CLI's defaults for ``ASYNC_STEPS`` updates, one NCCL rank:
+    its telemetry's ``group`` section (``exchange_backend`` collective,
+    ``spmd_devices`` 1, ``rounds`` ``ASYNC_STEPS``), K2 once an update.
+    27c: olmoe-1b-7b at its published widths and all 16 layers, its 64
+    experts split 32 and 32 over the pair (``shard_map_a2a`` under
+    ``Rules`` on a (1, 2) mesh), each rank drawing its weights leaf by
+    leaf on the card and keeping its experts' slice; phase 23b's first
+    batch (16 x 128, its ``NEW_SERVE_STEPS`` sampled actions): logits
+    held to 23b's one-device route at ``LOGITS_RTOL``, each MoE layer's
+    update as in 23b, K4 16 at the prefill and K5 16 a decode step in
+    each rank, counted over exactly the served steps.
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -826,6 +847,19 @@ DRYRUN_WANT = {"flops_per_device": 284955242397696.0,
 # the port's own count of each STEP_RUNS step (eager_cost on meta at the
 # step's cut shape), in a child on the CPU while the card works
 PORT_COSTS_TIMEOUT_S = 300
+# phase 27 (slice 18): one pair of gloo ranks sharing the card for the
+# SPMD step at full width (27a: impala-shallow on catch, MAIN_B envs x
+# MAIN_T a shard, SPMD_ROUNDS rounds, held to the one-rank routes at
+# SPMD_BAR of the params' largest magnitude) and olmoe-1b-7b's experts
+# split over the two (27c); 27b runs the CLI's SPMD learner, one NCCL
+# rank, meanwhile in this process
+SPMD_ROUNDS = 3
+SPMD_BAR = 1e-6
+SPMD_ARGV = ASYNC_ARGV + ["--learner-mode", "spmd"]
+PAIR_TIMEOUT_S = 300
+# phase 23b's first batch (tokens, sampled actions, logits) on the host:
+# 27c's one-device route
+SAVED_SERVE = {}
 
 
 def _card_line() -> str:
@@ -4018,6 +4052,12 @@ def phase_serve_config(lk, fk, dk, arch: str, ctx: int, layers: int,
     if arch == MOE_SPLIT:
         phase_serve_split(run, "decode_attention", k5 // NEW_SERVE_STEPS)
         phase_moe_split(run)
+        fb = run.first_batch
+        SAVED_SERVE.update(
+            tokens=fb["tokens"].cpu(),
+            actions=[a.cpu() for a in fb["actions"]],
+            logits=[lg.float().cpu() for lg in fb["logits"]],
+            num_actions=run.num_actions, layers=layers)
     del run
     torch.cuda.empty_cache()
     return launches
@@ -5469,6 +5509,412 @@ def _steps_on_card(vk, lk, fk, dk, dev, dry, dry_dir, counted):
     return total, (err_k2,) + errs
 
 
+# ---------------------------------------------------------------------------
+# slice 18: the SPMD learner and expert parallelism
+
+
+def _spmd_setup():
+    """Phase 27a's model and data: impala-shallow on catch at full width,
+    the CLI's learner settings, and ``SPMD_ROUNDS`` rounds of two shards
+    of ``MAIN_B`` envs x ``MAIN_T`` steps, drawn on the CPU from seed 27
+    (the same numbers in every process)."""
+    from repro_torch.configs.base import ImpalaConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.envs import make_env
+
+    env = make_env("catch")
+    arch = get_config("impala-shallow").replace(image_hw=env.image_hw)
+    na = env.num_actions
+    icfg = ImpalaConfig(num_actions=na, unroll_length=MAIN_T,
+                        learning_rate=6e-4, entropy_cost=0.003,
+                        rmsprop_eps=0.01)
+    gen = torch.Generator().manual_seed(27)
+    b, t = MAIN_B, MAIN_T
+
+    def shard():
+        actions = torch.randint(0, na, (b, t), generator=gen)
+        done = torch.rand((b, t), generator=gen) < 0.1
+        rew = torch.randint(-1, 2, (b, t + 1), generator=gen).float()
+        return {
+            "obs_image": (torch.rand((b, t + 1) + env.image_hw,
+                                     generator=gen) < 0.1).to(torch.uint8)
+            * 255,
+            "last_action": torch.cat([torch.zeros(b, 1, dtype=torch.int64),
+                                      actions], 1),
+            "last_reward": rew,
+            "done_in": torch.cat([torch.zeros(b, 1, dtype=torch.bool),
+                                  done], 1),
+            "actions": actions,
+            "rewards": rew[:, 1:].contiguous(),
+            "discounts": 0.99 * (~done).float(),
+            "behaviour_logprob": torch.log(
+                torch.rand((b, t), generator=gen) * 0.4 + 0.2),
+            "done": done,
+            "lstm_state": tuple(
+                torch.randn((b, arch.lstm_width), generator=gen) * 0.3
+                for _ in range(2)),
+        }
+    rounds = [[shard(), shard()] for _ in range(SPMD_ROUNDS)]
+    return arch, icfg, na, rounds
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_on(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _spmd_oracle(dev):
+    """Phase 27a's one-rank routes, in this process: the split route
+    (``grad_step`` on each shard, their mean, ``apply_step``) on distinct
+    shards, and the fused step on the first shard (what duplicated shards
+    must give). Returns both final trees in the JAX layout."""
+    from repro_torch import params as params_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+
+    arch, icfg, na, rounds = _spmd_setup()
+    grad_step, apply_step, opt = learner_lib.build_grad_apply_steps(
+        arch, icfg, na)
+    p = init_params(arch, na, 0, dev)
+    o = opt.init(p)
+    for i, shards in enumerate(rounds):
+        g0, g1 = (grad_step(p, _on(x, dev))[0] for x in shards)
+        apply_step(p, o, i, [(a + b) / 2 for a, b in zip(g0, g1)])
+    fused, fopt = learner_lib.build_train_step(arch, icfg, na)
+    q = init_params(arch, na, 0, dev)
+    qo = fopt.init(q)
+    for i, shards in enumerate(rounds):
+        fused(q, qo, i, _on(shards[0], dev))
+    torch.cuda.synchronize()
+    return params_lib.to_jax(p), params_lib.to_jax(q)
+
+
+def _pair_spmd(rank: int, vk, dev):
+    """Phase 27a on one rank of the pair: ``build_spmd_train_step`` over
+    the pair's ``('data',)`` mesh (both ranks on the one card, over gloo),
+    ``SPMD_ROUNDS`` rounds from the seed-0 params, this rank's shard
+    (distinct), then the first shard on both (duplicated). K2 counted over
+    exactly the rounds."""
+    from repro_torch import params as params_lib
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.core.driver import init_params
+    from repro_torch.launch.mesh import Mesh
+
+    arch, icfg, na, rounds = _spmd_setup()
+    mesh = Mesh(("data",), (2,))
+    mesh.device_mesh("cuda")
+    out = {}
+    for name in ("distinct", "duplicated"):
+        step, opt = learner_lib.build_spmd_train_step(arch, icfg, na, mesh)
+        p = init_params(arch, na, 0, dev)
+        o = opt.init(p)
+        batches = [_on(x[rank if name == "distinct" else 0], dev)
+                   for x in rounds]
+        torch.cuda.synchronize()
+        vk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            p, o, m = step(p, o, i, batch)
+        torch.cuda.synchronize()
+        out[name] = {"params": params_lib.to_jax(p),
+                     "k2": vk.loss_vtrace.launches,
+                     "ms": (time.perf_counter() - t0) * 1e3 / len(batches),
+                     "loss": float(m["loss/total"])}
+    return out
+
+
+def _pair_experts(rank: int, fk, dk, dev, job):
+    """Phase 27c on one rank of the pair: olmoe-1b-7b at its published
+    widths and all its layers, ``dispatch_impl='shard_map_a2a'`` under
+    ``Rules`` on the pair's ``(1, 2)`` ``("data", "model")`` mesh. The
+    weights are drawn leaf by leaf on the card from the server's seed,
+    each expert leaf cut to this rank's 32 experts as it is drawn
+    (``moe.rank_expert_keep``); then phase 23b's first batch: its prefill
+    and ``NEW_SERVE_STEPS`` decode steps fed its sampled actions, K4 and
+    K5 counted over exactly them, the logits held to 23b's one-device
+    route at ``LOGITS_RTOL``; then each MoE layer's update as
+    ``phase_moe_layers`` holds it."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch import params as params_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding.rules import Rules, use_rules
+
+    cfg = get_config(MOE_SPLIT)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                              dispatch_impl="shard_map_a2a"))
+    mesh = Mesh(("data", "model"), (1, 2))
+    coord = mesh.device_mesh("cuda").get_local_rank("model")
+    rules = Rules(mesh)
+    na = job["num_actions"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = params_lib.from_jax(common.init_params(
+        bb.backbone_specs(cfg, na), 0, dev,
+        keep=moe_lib.rank_expert_keep(rules, coord)), dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    draw_peak = torch.cuda.max_memory_allocated()
+    n_held = sum(x.numel() for x in params_lib.tree_leaves(params))
+    toks = torch.from_numpy(job["tokens"]).to(dev)
+    actions = [torch.from_numpy(a).to(dev) for a in job["actions"]]
+    ctx = toks.shape[1]
+    fk.flash_attention.launches = 0
+    dk.decode_attention.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(actions) + 2)]
+    with use_rules(rules), torch.no_grad():
+        marks[0].record()
+        out = bb.apply_prefill(params, {"tokens": toks}, cfg, na)
+        marks[1].record()
+        logits, cache, tok = [out.policy_logits], out.cache, toks[:, -1:]
+        for i, action in enumerate(actions):
+            out = bb.apply_decode(params, tok, cache, ctx + i, cfg, na)
+            marks[i + 2].record()
+            cache = out.cache
+            logits.append(out.policy_logits)
+            tok = action % cfg.vocab_size
+    torch.cuda.synchronize()
+    launches = (fk.flash_attention.launches, dk.decode_attention.launches)
+    errs = []
+    for i, (got, want) in enumerate(zip(logits, job["logits"],
+                                        strict=True)):
+        want = torch.from_numpy(want).to(dev)
+        if tuple(got.shape) != tuple(want.shape) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"27c rank {rank} step {i}: logits "
+                                 f"{tuple(got.shape)}, finite "
+                                 f"{bool(torch.isfinite(got).all())}")
+        errs.append(float((got.float() - want).abs().max())
+                    / float(want.abs().max()))
+    if not max(errs) <= LOGITS_RTOL:
+        raise AssertionError(f"27c rank {rank}: logits against phase 23b's "
+                             f"one-device route, max abs err over max "
+                             f"|logit| {errs} > {LOGITS_RTOL}")
+    run = types.SimpleNamespace(arch=cfg, params=params,
+                                first_batch={"tokens": toks})
+    sink = io.StringIO()
+    with use_rules(rules), contextlib.redirect_stdout(
+            sys.stdout if rank == 0 else sink):
+        layers = phase_moe_layers(run)
+    return {"coord": coord, "launches": launches, "errs": errs,
+            "layers": layers, "draw_s": draw_s, "held": held,
+            "draw_peak": draw_peak, "n_held": n_held,
+            "peak": torch.cuda.max_memory_allocated(),
+            "prefill_ms": marks[0].elapsed_time(marks[1]),
+            "decode_ms": [a.elapsed_time(b)
+                          for a, b in zip(marks[1:], marks[2:])],
+            "logits0": logits[0].float().cpu().numpy()}
+
+
+def _pair_rank(rank: int, addr: str, job, conn) -> None:
+    """One rank of phase 27's pair (spawned): the gloo group of two on the
+    one card, 27a, then 27c; the results, or the traceback, up its pipe."""
+    import datetime
+    import traceback
+
+    status = 1
+    try:
+        import torch.distributed as dist
+
+        from repro_torch.kernels import build
+        from repro_torch.kernels import decode_attention as dk
+        from repro_torch.kernels import flash_attention as fk
+        from repro_torch.kernels import vtrace as vk
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        build.load()                    # built by the parent
+        t0 = time.perf_counter()
+        dist.init_process_group("gloo", init_method=addr, world_size=2,
+                                rank=rank, timeout=datetime.timedelta(
+                                    seconds=PAIR_TIMEOUT_S))
+        out = {"up_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        out["a"] = _pair_spmd(rank, vk, dev)
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c"] = _pair_experts(rank, fk, dk, dev, job)
+        out["c_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+        conn.send(("ok", out))
+        status = 0
+    except BaseException:
+        try:
+            conn.send(("error", traceback.format_exc()))
+        except OSError:
+            pass
+    finally:
+        conn.close()
+        sys.stdout.flush()
+        sys.stderr.flush()
+    os._exit(status)
+
+
+def _rel_tree(got, want) -> float:
+    """max |got - want| over max |want|, over every leaf of two JAX-layout
+    trees."""
+    from repro_torch import params as params_lib
+
+    g, w = params_lib.flatten(got), params_lib.flatten(want)
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"trees differ: {sorted(set(g) ^ set(w))}")
+    err = max(float(abs(g[k] - w[k]).max()) for k in w)
+    scale = max(float(abs(w[k]).max()) for k in w)
+    return err / scale
+
+
+def phase_spmd(vk, fk, dk, dev):
+    """Phase 27: the SPMD learner and expert parallelism. One pair of
+    ranks is spawned for 27a and 27c (``_pair_rank``); while they start,
+    this process runs 27b, the CLI's SPMD learner (one NCCL rank, the
+    JAX CLI's defaults, ``ASYNC_STEPS`` updates, K2 counted over exactly
+    the run), and 27a's one-rank routes (``_spmd_oracle``). Returns the
+    launches of K2, K4 and K5 on these paths."""
+    import multiprocessing as mp
+
+    from repro_torch.distributed.spmd import free_port
+    from repro_torch.launch import train as train_lib
+
+    if not SAVED_SERVE:
+        raise AssertionError("phase 27c needs phase 23b's first batch")
+    t_all = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    addr = f"tcp://127.0.0.1:{free_port()}"
+    # numpy both ways: a tensor crosses a pipe as a shared-memory handle
+    # that its sender must outlive
+    job = {"tokens": SAVED_SERVE["tokens"].numpy(),
+           "actions": [a.numpy() for a in SAVED_SERVE["actions"]],
+           "logits": [lg.numpy() for lg in SAVED_SERVE["logits"]],
+           "num_actions": SAVED_SERVE["num_actions"]}
+    conns, procs = [], []
+    for r in range(2):
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=_pair_rank, args=(r, addr, job, child),
+                           name=f"pair-rank-{r}", daemon=True)
+        proc.start()
+        child.close()
+        conns.append(parent)
+        procs.append(proc)
+    try:
+        # 27b, while the pair starts
+        t0 = time.perf_counter()
+        vk.reset_launch_counts()
+        run = train_lib.train(SPMD_ARGV)
+        torch.cuda.synchronize()
+        b_s = time.perf_counter() - t0
+        k2_cli = vk.loss_vtrace.launches
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith(_WORKER_THREADS)]
+        tel = run.telemetry
+        want = {"num_learners": 1, "publisher": 0,
+                "exchange_backend": "collective", "spmd_devices": 1,
+                "rounds": ASYNC_STEPS}
+        if tel.get("group") != want or alive or \
+                tel["learner_updates"] != ASYNC_STEPS or \
+                k2_cli != ASYNC_STEPS or vk.vtrace.launches:
+            raise AssertionError(
+                f"27b {' '.join(SPMD_ARGV)}: group {tel.get('group')} "
+                f"(expected {want}), updates {tel['learner_updates']}, K2 "
+                f"{k2_cli}, K1 {vk.vtrace.launches}, threads alive {alive}")
+        ex = tel["exchange"]
+        print(f"27b SPMD learner through the CLI (one NCCL rank): "
+              f"{ASYNC_STEPS} updates, K2 {k2_cli}, group {tel['group']}, "
+              f"round ms mean {ex['round_ms_mean']:.3f}, learner frames/s "
+              f"{tel['frames_per_sec']:.0f}, {b_s:.1f} s")
+        del run
+        # 27a's one-rank routes
+        t0 = time.perf_counter()
+        split, fused = _spmd_oracle(dev)
+        o_s = time.perf_counter() - t0
+        results = {}
+        for r, conn in enumerate(conns):
+            if not conn.poll(PAIR_TIMEOUT_S):
+                raise AssertionError(f"phase 27 rank {r}: no result in "
+                                     f"{PAIR_TIMEOUT_S} s")
+            status, got = conn.recv()
+            if status != "ok":
+                raise AssertionError(f"phase 27 rank {r} failed:\n{got}")
+            results[r] = got
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.exitcode is None:
+                proc.kill()
+                proc.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 27 ranks exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    _no_actor_threads("phase 27")
+    card = _card_line()
+    k2 = 0
+    for r, got in sorted(results.items()):
+        for name, want in (("distinct", split), ("duplicated", fused)):
+            a = got["a"][name]
+            rel = _rel_tree(a["params"], want)
+            if not rel <= SPMD_BAR or a["k2"] != SPMD_ROUNDS:
+                raise AssertionError(
+                    f"27a rank {r} {name}: params {rel:.3e} of their "
+                    f"largest magnitude off the one-rank route (bar "
+                    f"{SPMD_BAR}), K2 {a['k2']} (expected {SPMD_ROUNDS})")
+            k2 += a["k2"]
+            print(f"27a SPMD step, impala-shallow at full width, rank {r} "
+                  f"of 2 (gloo, one card), {name} shards of {MAIN_B} x "
+                  f"{MAIN_T}: after {SPMD_ROUNDS} rounds max |dp| "
+                  f"{rel:.3e} of max |p| against "
+                  + ("the split route's mean" if name == "distinct"
+                     else "the fused step on one shard")
+                  + f" (bar {SPMD_BAR}); K2 {a['k2']}; "
+                  f"{a['ms']:.3f} ms a round; loss {a['loss']:.4f}")
+    layers = SAVED_SERVE["layers"]
+    k4 = k5 = 0
+    logits = [got["c"]["logits0"] for got in results.values()]
+    if not (logits[0] == logits[1]).all():
+        raise AssertionError("27c: the two ranks' prefill logits differ")
+    for r, got in sorted(results.items()):
+        c = got["c"]
+        want = (layers, layers * NEW_SERVE_STEPS)
+        if c["launches"] != want:
+            raise AssertionError(f"27c rank {r}: (K4, K5) launches "
+                                 f"{c['launches']}, expected {want}")
+        k4, k5 = k4 + c["launches"][0], k5 + c["launches"][1]
+        med = sorted(c["decode_ms"])[len(c["decode_ms"]) // 2]
+        print(f"27c {MOE_SPLIT} expert-parallel, rank {r} (experts "
+              f"{32 * c['coord']}-{32 * c['coord'] + 31} of 64), "
+              f"{c['n_held']:,} parameters held ({c['held'] / 1e9:.2f} GB "
+              f"f32; drawn leaf by leaf in {c['draw_s']:.2f} s, peak "
+              f"{c['draw_peak'] / 1e9:.2f} GB while drawing, "
+              f"{c['peak'] / 1e9:.2f} GB in all); K4 {c['launches'][0]} K5 "
+              f"{c['launches'][1]}; logits against phase 23b's one-device "
+              f"route: worst {100 * max(c['errs']):.3f}% of the step's max "
+              f"|logit| (bar {100 * LOGITS_RTOL:.0f}%); MoE layers worst "
+              f"{100 * c['layers'][0]:.3f}%, {c['layers'][1]} token-layers "
+              f"routed differently; prefill {c['prefill_ms']:.3f} ms, "
+              f"decode step {med:.3f} ms (median of "
+              f"{len(c['decode_ms'])})")
+    laps = {r: (g["up_s"], g["a_s"], g["c_s"]) for r, g in results.items()}
+    print(f"phase 27 laps: 27b {b_s:.1f} s and the one-rank routes "
+          f"{o_s:.1f} s in this process; ranks (group up, 27a, 27c) s "
+          + ", ".join(f"{r}: " + "/".join(f"{x:.1f}" for x in v)
+                      for r, v in laps.items())
+          + f"; {time.perf_counter() - t_all:.1f} s in all; {card}")
+    return {"loss_vtrace": k2_cli + k2, "flash_attention": k4,
+            "decode_attention": k5}
+
+
 class _Laps:
     """Prints each group of phases' wall time and the run's so far."""
 
@@ -5681,6 +6127,9 @@ def main() -> int:
     err_k2, err_k3, err_k4, err_k5 = (max(err_k2, e2), max(err_k3, e3),
                                       max(err_k4, e4), max(err_k5, e5))
     lap("26")
+    for name, count in phase_spmd(vk, fk, dk, dev).items():
+        launches[name] += count
+    lap("27")
     print(f"times above: {card}")
 
     meta = {

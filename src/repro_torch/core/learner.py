@@ -9,7 +9,10 @@ target network's params. Both run eagerly: PyTorch needs no ``jit``. The
 parameters are updated in place, one leaf at a time (``_apply_fn``).
 ``build_grad_apply_steps`` and ``build_replay_grad_apply_steps`` split the
 same update at the gradient, for a learner group's exchange: the fused
-step is the two halves composed.
+step is the two halves composed. ``build_spmd_train_step`` and
+``build_spmd_replay_train_step`` are the SPMD learner's step: run on every
+rank of a ``torch.distributed`` group, each on its rows of the batch, with
+the gradients' mean all-reduced inside the step.
 
 ``build_train_step(..., mixed_precision=True)`` is JAX's mixed-precision
 step: bf16 live params, ``opt_state = {"opt": <optimizer state>,
@@ -320,6 +323,172 @@ def build_replay_grad_apply_steps(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     grad_step = _grad_fn(build_replay_loss_fn(arch_cfg, cfg, num_actions,
                                               vtrace_impl))
     return grad_step, _apply_fn(cfg, optimizer), optimizer
+
+
+def _data_group(mesh):
+    """The process group of the SPMD step's ``data`` axis (or only axis)
+    of ``mesh``: a ``DeviceMesh``, or a ``launch.mesh.Mesh`` whose group
+    is up."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dm = mesh if isinstance(mesh, DeviceMesh) else mesh.group_mesh()
+    if dm is None:
+        raise RuntimeError(f"the SPMD step runs over a process group: bring "
+                           f"it up and build the mesh's DeviceMesh "
+                           f"(Mesh.device_mesh) first; {mesh} has none")
+    names = dm.mesh_dim_names or ()
+    return dm.get_group("data" if "data" in names else 0)
+
+
+def _shapes(tree) -> Tuple:
+    """The nesting and leaf shapes of a batch, hashable."""
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return tuple(_shapes(x) for x in tree)
+    return tuple(getattr(tree, "shape", ()))
+
+
+def _spmd_step(grad_step, apply_step, mesh, batch_replicated: bool,
+               per_traj: bool = False):
+    """``step(params, opt_state, step, *loss_args)``: the rank's gradient
+    and metrics, their mean over the group, and ``apply_step`` of the mean
+    on every rank.
+
+    One flat f32 buffer holds the gradient leaves (flatten order), the
+    scalar metrics (sorted by name) and, with ``per_traj``, the rank's
+    ``vtrace/traj_adv_mag`` rows written at their place in the global
+    (B,) vector, zeros elsewhere. Sharded, one ``all_reduce`` sums it
+    over the ranks; the gradients and metrics are then divided by N (the
+    reference's ``_mean_leaves``: the sum, then one division) and the
+    vector is the concatenation of the ranks' rows, in row order.
+    ``batch_replicated``: every rank has the whole batch, so every
+    gradient is the same and their mean is any one of them: rank 0's is
+    broadcast, which keeps the replicas bit identical whatever the card's
+    reduction order. The other ranks skip the backward pass: they
+    receive into a buffer of the size their first call on a batch of
+    that shape measured (the metrics' names and the vector's rows are
+    the loss's, not the data's)."""
+    import torch.distributed as dist
+
+    pg = _data_group(mesh)
+    n = dist.get_world_size(pg)
+    rank = dist.get_rank(pg)
+    src = dist.get_global_rank(pg, 0)
+    # receive-only ranks of the replicated step: batch shapes -> (metric
+    # names, vector rows), from the first call that computed them
+    seen: Dict[Tuple, Tuple[list, int]] = {}
+
+    def apply_mean(params, opt_state, step, flat, keys, rows):
+        leaves = tree_leaves(params)
+        pieces = flat.split([p.numel() for p in leaves] + [len(keys), rows])
+        mean = [x.view_as(p) for x, p in zip(pieces, leaves)]
+        metrics = {k: pieces[-2][i] for i, k in enumerate(keys)}
+        if per_traj:
+            metrics["vtrace/traj_adv_mag"] = pieces[-1]
+        params, opt_state, ametrics = apply_step(params, opt_state, step,
+                                                 mean)
+        metrics.update(ametrics)
+        return params, opt_state, metrics
+
+    def step_fn(params, opt_state, step, *loss_args):
+        shapes = (_shapes(loss_args[-1]) if batch_replicated and rank != 0
+                  else None)
+        if shapes in seen:
+            keys, rows = seen[shapes]
+            flat = torch.empty(
+                sum(p.numel() for p in tree_leaves(params)) + len(keys)
+                + rows, dtype=torch.float32, device=tree_leaves(params)[0].device)
+            dist.broadcast(flat, src, group=pg)
+            return apply_mean(params, opt_state, step, flat, keys, rows)
+        grads, metrics = grad_step(params, *loss_args)
+        traj = metrics.pop("vtrace/traj_adv_mag") if per_traj else None
+        keys = sorted(metrics)
+        parts = [g.reshape(-1).to(torch.float32) for g in grads]
+        del grads
+        parts.append(torch.stack([metrics[k].to(torch.float32).reshape(())
+                                  for k in keys]))
+        rows = 0
+        if traj is not None:
+            rows = traj.shape[0] * (1 if batch_replicated else n)
+            glob = traj.new_zeros(rows, dtype=torch.float32)
+            at = 0 if batch_replicated else rank * traj.shape[0]
+            glob[at:at + traj.shape[0]] = traj
+            parts.append(glob)
+        flat = torch.cat(parts)
+        del parts
+        if shapes is not None:
+            seen[shapes] = (keys, rows)
+        if batch_replicated:
+            dist.broadcast(flat, src, group=pg)
+        else:
+            dist.all_reduce(flat, group=pg)
+            flat[:flat.numel() - rows].div_(n)
+        return apply_mean(params, opt_state, step, flat, keys, rows)
+
+    return step_fn
+
+
+def build_spmd_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                          num_actions: int, mesh,
+                          optimizer: opt_lib.Optimizer = None,
+                          vtrace_impl: str = "auto",
+                          batch_replicated: bool = False,
+                          ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
+                                     opt_lib.Optimizer]:
+    """The SPMD learner's ``train_step(params, opt_state, step, batch)``,
+    called on every rank of a process group at once: ``mesh`` is the
+    ``('data',)`` mesh over any group the caller brought up (a
+    ``launch.mesh.Mesh`` whose ``device_mesh`` is built, or a
+    ``DeviceMesh``). Each rank passes its own rows of the batch (rank r of N the r-th
+    N-th of the trajectory axis), computes the gradient of its shard's
+    sum loss (``grad_step``, K2 on the card with ``auto``), and the
+    gradients and scalar metrics are averaged over the ranks in one
+    all-reduce (``_spmd_step``); every rank then applies the same mean
+    (``_apply_fn``: the clip on the mean, then RMSProp), in place.
+
+    That is the documented semantics of the reference's
+    ``build_spmd_train_step``: the update an N-learner group computes from
+    the same shards, clip after average. (Under jax 0.9 its ``shard_map``
+    step applies the shards' sum instead; the port follows the
+    documentation and the reference's split route, ``grad_step`` on each
+    shard, the mean, ``apply_step``.)
+
+    ``batch_replicated=True`` is the divisibility fallback: every rank
+    passes the whole batch, and the update equals the one-device fused
+    step on it."""
+    optimizer = _optimizer(cfg, optimizer)
+    grad_step = _grad_fn(build_loss_fn(arch_cfg, cfg, num_actions,
+                                       vtrace_impl))
+    return _spmd_step(grad_step, _apply_fn(cfg, optimizer), mesh,
+                      batch_replicated), optimizer
+
+
+def build_spmd_replay_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
+                                 num_actions: int, mesh,
+                                 optimizer: opt_lib.Optimizer = None,
+                                 vtrace_impl: str = "auto",
+                                 batch_replicated: bool = False,
+                                 ) -> Tuple[Callable[..., Tuple[Tree, Tree,
+                                                                Dict]],
+                                            opt_lib.Optimizer]:
+    """The SPMD variant of ``build_replay_train_step``:
+    ``train_step(params, target_params, opt_state, step, batch)`` on every
+    rank, the batch (``replay_mask`` included: it is row data) split over
+    the ranks as ``build_spmd_train_step``'s. The per-trajectory
+    ``vtrace/traj_adv_mag`` comes back as the global (B,) vector, in row
+    order, on every rank, so the replay's re-scoring sees every
+    trajectory."""
+    optimizer = _optimizer(cfg, optimizer)
+    grad_step = _grad_fn(build_replay_loss_fn(arch_cfg, cfg, num_actions,
+                                              vtrace_impl))
+    step_fn = _spmd_step(grad_step, _apply_fn(cfg, optimizer), mesh,
+                         batch_replicated, per_traj=True)
+
+    def train_step(params, target_params, opt_state, step, batch):
+        return step_fn(params, opt_state, step, target_params, batch)
+
+    return train_step, optimizer
 
 
 def opt_state_specs(param_specs: Tree, cfg: ImpalaConfig,

@@ -1,7 +1,8 @@
 """The asynchronous actor-learner runtime (``repro.distributed``), as far
 as the port goes: thread, process and remote actors in unroll or
 inference mode, the in-process, shm and socket transports, one learner,
-and learner groups over the hub/spoke gradient exchange (paper §3).
+learner groups over the hub/spoke gradient exchange (paper §3), and the
+SPMD learner, one learner process whose step runs on N ranks.
 
   serde            ``TrajectoryItem`` and the wire format: codecs, frames
   tqueue           the bounded queue with three backpressure policies
@@ -29,12 +30,17 @@ and learner groups over the hub/spoke gradient exchange (paper §3).
                    framed channel (``GradHub`` + ``SpokeExchange``, the
                    stale-grad drop rule), one publisher numbering the
                    versions; supervised, ``ResilientExchange`` fails a
-                   dead hub over to a survivor
+                   dead hub over to a survivor; ``CollectiveExchange``
+                   numbers the SPMD learner's rounds
+  spmd             the SPMD learner's process group: its step ranks,
+                   spawned by the learner process (rank 0), and the
+                   batch each update hands them
   runtime          composition root: build env/store/service/transport/
                    pool and run one ``Learner`` over them
 """
 from repro_torch.distributed.actor_pool import ActorPool
-from repro_torch.distributed.group import (GradHub, GradientExchange,
+from repro_torch.distributed.group import (CollectiveExchange, GradHub,
+                                           GradientExchange,
                                            GroupTracker, NullExchange,
                                            ResilientExchange, SpokeExchange,
                                            merge_telemetry,
@@ -55,7 +61,7 @@ from repro_torch.distributed.transport import (TRANSPORTS, InprocTransport,
                                                ShmTransport, Transport,
                                                make_transport)
 
-__all__ = ["ACTOR_MODES", "ActorPool", "GradHub", "GradientExchange",
+__all__ = ["ACTOR_MODES", "ActorPool", "CollectiveExchange", "GradHub", "GradientExchange",
            "GroupTracker", "InprocTransport", "KillSafeEvent", "Learner",
            "MultiTracker", "NullExchange", "POLICIES", "ParameterStore",
            "ProcessActorPool", "ResilientExchange", "RestartPolicy",

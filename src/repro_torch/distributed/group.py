@@ -47,9 +47,13 @@ pipes, each learner's under a ``learner="k"`` label.
 
 Supervised (``run_group_training(supervise=True)``), a dead spoke is
 respawned and catches up from the hub's replayed means, and a dead hub
-fails over to the lowest live learner (``ResilientExchange``). Not
-ported yet: the SPMD learner (``CollectiveExchange``, ROADMAP.md Queue 1
-item 15C), which raises, naming the item.
+fails over to the lowest live learner (``ResilientExchange``).
+
+``CollectiveExchange`` is the exchange of the SPMD learner
+(``--learner-mode spmd``): one learner process whose train step runs on N
+ranks of a ``torch.distributed`` group, the gradient mean an all-reduce
+inside the step (``core.learner.build_spmd_train_step``). It moves no
+byte itself: it numbers the rounds and records their latency.
 """
 from __future__ import annotations
 
@@ -160,6 +164,64 @@ class NullExchange(GradientExchange):
     def snapshot(self):
         snap = super().snapshot()
         snap["rounds"] = self.rounds
+        return snap
+
+
+class CollectiveExchange(GradientExchange):
+    """The exchange of the SPMD learner (``--learner-mode spmd``): the
+    gradient mean is an all-reduce over the step's process group inside
+    the train step (``core.learner.build_spmd_train_step``), so by the
+    time ``allreduce`` is called it has already run. What remains of the
+    contract is what it implements: the delegated publish version
+    (``round_idx + 1``, the hub's numbering) and the round count, so the
+    publish and version semantics upstream are unchanged.
+
+    ``in_xla = True`` is the marker the ``Learner`` keys on to build the
+    SPMD step in place of the split grad/apply path; the name is the
+    reference's, where the mean is a ``lax.pmean`` inside XLA. The learner
+    reports each round's measured latency (step start to the mean applied
+    on every rank) through ``observe_round_s``; the snapshot holds it as a
+    power-of-two-us histogram (bucket k covers [2^(k-1), 2^k) us) and a
+    mean in ms, under ``exchange_backend: "collective"``, and has no
+    ``bytes_in``/``bytes_out``: nothing crosses the exchange's wire."""
+
+    in_xla = True
+
+    def __init__(self, num_devices: int, trace=None):
+        if num_devices < 1:
+            raise ValueError(f"num_devices must be >= 1, got "
+                             f"{num_devices}")
+        self.num_devices = num_devices
+        self.rounds = 0
+        self.trace = trace
+        self._round_hist: collections.Counter = collections.Counter()
+        self._round_s_total = 0.0
+
+    def allreduce(self, leaves, round_idx):
+        self.rounds += 1
+        return list(leaves), round_idx + 1
+
+    def observe_round_s(self, elapsed_s: float,
+                        round_idx: int = 0) -> None:
+        """Fold one round's step-and-collective latency into the
+        histogram, and into the trace recorder's exchange row as one
+        reduce span (there is no hub wait or broadcast)."""
+        self._round_hist[max(0, int(elapsed_s * 1e6)).bit_length()] += 1
+        self._round_s_total += elapsed_s
+        if self.trace is not None:
+            now = time.monotonic()
+            self.trace.record_exchange_round(
+                round_idx, enter=now - elapsed_s, gathered=now - elapsed_s,
+                reduced=now, done=now)
+
+    def snapshot(self):
+        snap = super().snapshot()
+        snap["exchange_backend"] = "collective"
+        snap["devices"] = self.num_devices
+        snap["rounds"] = self.rounds
+        snap["round_us_hist"] = dict(sorted(self._round_hist.items()))
+        snap["round_ms_mean"] = (1e3 * self._round_s_total / self.rounds
+                                 if self.rounds else 0.0)
         return snap
 
 

@@ -13,7 +13,8 @@ batching, trains, publishes versioned params and reports telemetry.
                      V-trace baseline of replayed rows, K1 on the card);
                      in a learner group the split: ``grad_step``, the
                      leaves to the host, the exchange's mean, the mean
-                     back to the card, ``apply_step``;
+                     back to the card, ``apply_step``; in SPMD mode the
+                     SPMD step on every rank of the learner's group;
   replay             fresh collection capped at ``_fresh_max``, the batch
                      topped up with replayed trajectories laid first,
                      priorities re-scored after the update, the fresh
@@ -27,7 +28,7 @@ batching, trains, publishes versioned params and reports telemetry.
                      batch/lag histograms, queue, actors, ``inference``
                      with an inference service, ``replay`` with replay
                      on, and ``learner_id``/``slot_base``/``exchange``
-                     in a group).
+                     in a group, with ``group`` in SPMD mode).
 
 The optimizer updates the working parameters in place, so every update
 publishes a copy of them (``params.snapshot``): no actor ever reads a
@@ -55,8 +56,19 @@ host numpy trees in the JAX layout (the checkpoint format's).
 In a group each round copies the gradient leaves to the host once (one
 device buffer, one copy into pinned memory, one wait) and uploads the
 mean once; every replica then runs the same ``apply_step`` launches on
-the same values, so the replicas stay bit identical. The SPMD learner (an
-in-XLA exchange) is not ported yet (ROADMAP.md, Queue 1 item 15C).
+the same values, so the replicas stay bit identical.
+
+With a ``CollectiveExchange`` (its ``in_xla`` marker) the learner runs in
+SPMD mode: this process is rank 0 of a group of ``num_devices`` ranks
+(``distributed/spmd.py``: the others are spawned step workers), the
+params and optimizer state are broadcast to them once, and each update
+hands every rank its rows of the staged batch (``StepRanks.hand_out``)
+and runs ``build_spmd_train_step`` (or its replay twin) on all of them:
+the gradients' mean is an all-reduce inside the step, so the exchange
+only numbers the round and records its latency. Rows the ranks cannot
+split evenly (``Rules.spec(("batch",), (rows,))`` replicates them) run
+the replicated variant, every rank on the whole batch. Rank 0 publishes
+its own copy. A step rank that dies ends the run with its error.
 
 The flight recorder's hooks (``trace``, ``phase_timing``, ``profile``)
 are all optional; without them the loop takes no stamps, and with them
@@ -440,7 +452,23 @@ class Learner:
                                          self.device)
         replay_on = icfg.replay_fraction > 0.0
         self._grad_step = self._apply_step = None
-        if exchange is not None:
+        self._spmd = None
+        if exchange is not None and getattr(exchange, "in_xla", False):
+            # SPMD: this process is rank 0 of the step's group; the sharded
+            # step and the replicated fallback share one optimizer
+            from repro_torch.distributed.spmd import (StepRanks,
+                                                      build_step_pair)
+            from repro_torch.sharding.rules import Rules
+
+            self._spmd = StepRanks(exchange.num_devices, self.device, {
+                "arch": arch, "icfg": icfg, "num_actions": num_actions,
+                "vtrace_impl": vtrace_impl, "seed": seed})
+            self._spmd_rules = Rules(self._spmd.mesh)
+            sharded, repl, opt = build_step_pair(
+                arch, icfg, num_actions, self._spmd.mesh, vtrace_impl)
+            self._spmd_steps = (sharded, repl)
+            self._train_step = None
+        elif exchange is not None:
             # grouped: the update is split at the gradient, with the
             # exchange's mean between the halves
             build = (learner_lib.build_replay_grad_apply_steps if replay_on
@@ -466,6 +494,10 @@ class Learner:
         self._params = params
         self._opt_state = (initial_opt_state if initial_opt_state is not None
                            else opt.init(params))
+        if self._spmd is not None:
+            # every replica starts from rank 0's state
+            self._spmd.share(self._params)
+            self._spmd.share(self._opt_state)
         self.store = ParameterStore(
             params_lib.snapshot(params), version=start_step,
             wire_codec=wire_codec, ready=self._mark())
@@ -554,6 +586,8 @@ class Learner:
         self.pool.raise_errors()
         if self.service is not None:
             self.service.raise_errors()
+        if self._spmd is not None:
+            self._spmd.raise_errors()
 
     def _mark(self):
         """An event after the work queued so far on the current stream
@@ -660,6 +694,18 @@ class Learner:
             snap["learner_id"] = self.learner_id
             snap["slot_base"] = self.slot_base
             snap["exchange"] = col.get("exchange", self._exchange.snapshot())
+            if self._spmd is not None:
+                # the SPMD run's group section has the multi-process
+                # topologies' shape; the backend label tells them apart
+                ex = snap["exchange"] or {}
+                snap["group"] = {
+                    "num_learners": 1,
+                    "publisher": self.learner_id,
+                    "exchange_backend": ex.get("exchange_backend",
+                                               "collective"),
+                    "spmd_devices": ex.get("devices", self._spmd.n),
+                    "rounds": ex.get("rounds", 0),
+                }
         if "supervisor" in col:
             # supervised only: the restart/failover/lease-reap counts ride
             # the snapshot (and the group parent's merge); unsupervised
@@ -696,7 +742,12 @@ class Learner:
                 warm = dict(warm)
                 warm["replay_mask"] = torch.zeros(b * self._num_envs,
                                                   device=self.device)
-            if self._exchange is None:
+            if self._spmd is not None:
+                # the step ranks run the same warm-up on their copies
+                step_fn, local = self._spmd_hand_out(warm, 0, warm=True)
+                self._spmd_call(step_fn, params_lib.copy(self._params),
+                                params_lib.copy(self._opt_state), 0, local)
+            elif self._exchange is None:
                 self._train_step(params_lib.copy(self._params),
                                  params_lib.copy(self._opt_state), 0, warm)
             else:
@@ -705,6 +756,25 @@ class Learner:
                                  params_lib.copy(self._opt_state), 0, grads)
         self._sync()
         self.queue.requeue_front(first)
+
+    def _spmd_hand_out(self, batch, step: int, warm: bool = False):
+        """The SPMD step for ``batch``'s row count, through the sharding
+        rules: rows the ``('data',)`` mesh divides run the sharded step,
+        others (the rules' divisibility fallback) the replicated one; and
+        rank 0's own batch once every rank has been handed its own."""
+        leaves = _flatten(batch)[0]
+        rows = leaves[0].shape[0]
+        sharded = all(x.shape[0] == rows for x in leaves) and \
+            self._spmd_rules.spec(("batch",), (rows,))[0] is not None
+        local = self._spmd.hand_out(batch, step, not sharded, warm,
+                                    self._target_syncs)
+        return self._spmd_steps[0 if sharded else 1], local
+
+    def _spmd_call(self, step_fn, params, opt_state, step, batch):
+        if self._replay is not None:
+            return step_fn(params, self._target_params, opt_state, step,
+                           batch)
+        return step_fn(params, opt_state, step, batch)
 
     def _grad(self, batch):
         if self._replay is not None:
@@ -724,6 +794,34 @@ class Learner:
         to the host, so its stamps are real."""
         if timings is not None:
             timings["step0"] = time.monotonic()
+        if self._spmd is not None:
+            # SPMD: every rank steps on its rows, the mean all-reduced
+            # inside the step; the exchange numbers the round and books
+            # its latency, to the mean applied (a wait on this stream)
+            t0 = time.monotonic()
+            try:
+                step_fn, local = self._spmd_hand_out(batch, self.updates)
+                self._params, self._opt_state, metrics = self._spmd_call(
+                    step_fn, self._params, self._opt_state, self.updates,
+                    local)
+            except RuntimeError:
+                # a collective failed: a step rank that died says why
+                self._spmd.raise_errors(wait_s=5.0)
+                raise
+            reduced = self._exchange.allreduce((), round_idx=self.updates)
+            if reduced is None:
+                return None
+            _, version = reduced
+            published = params_lib.snapshot(self._params)
+            self._sync()
+            self._exchange.observe_round_s(time.monotonic() - t0,
+                                           round_idx=self.updates)
+            if timings is not None:
+                timings["step1"] = time.monotonic()
+            self.store.publish_at(published, version, self._mark())
+            if timings is not None:
+                timings["published"] = time.monotonic()
+            return published, metrics
         if self._exchange is None:
             self._params, self._opt_state, metrics = self._train_step(
                 self._params, self._opt_state, self.updates, batch)
@@ -829,6 +927,8 @@ class Learner:
                 self._exchange.close()
             self.pool.join()
             self.queue.close()
+            if self._spmd is not None:
+                self._spmd.close()
         if self._stream is not None:
             # the caller reads the params on its own stream
             torch.cuda.current_stream(self.device).wait_stream(self._stream)

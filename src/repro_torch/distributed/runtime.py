@@ -46,8 +46,9 @@ three transports with their wire codecs, one learner or a group's
 worker, replay, periodic fleet-v1 checkpoints, the flight recorder and
 supervision (``supervise``: respawned actors, the socket transport's
 heartbeat lease reaper and elastic membership, the supervisor's section
-in the telemetry); no SPMD learner, which raises naming its ROADMAP.md
-Queue 1 item.
+in the telemetry), and the SPMD learner (``spmd_devices``: one learner
+process whose step runs on that many ranks of a ``torch.distributed``
+group, ``distributed/spmd.py``).
 """
 from __future__ import annotations
 
@@ -68,13 +69,9 @@ PyTree = Any
 ACTOR_MODES = ("unroll", "inference")
 
 
-def _unported(what: str, item: str, name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"Queue 1 item {item}: {name})")
-
-
 def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
-              transport, env_name, spmd_devices: int = 0) -> None:
+              transport, env_name, spmd_devices: int = 0,
+              exchange=None) -> None:
     if not (0.0 <= icfg.replay_fraction < 1.0):
         raise ValueError(f"replay_fraction must be in [0, 1), got "
                          f"{icfg.replay_fraction}")
@@ -116,8 +113,14 @@ def _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
         raise ValueError(f"transport must be one of inproc/shm/socket, "
                          f"got {transport!r}")
     if spmd_devices:
-        raise _unported("the SPMD learner (spmd_devices)", "15C",
-                        "the SPMD learner")
+        if spmd_devices < 1:
+            raise ValueError(f"spmd_devices must be >= 1, got "
+                             f"{spmd_devices}")
+        if exchange is not None:
+            raise ValueError("spmd_devices builds its own in-XLA "
+                             "CollectiveExchange; it cannot combine "
+                             "with a hub/spoke exchange (use a learner "
+                             "group OR spmd, not both)")
 
 
 def _setup(
@@ -182,7 +185,8 @@ def _setup(
     supervisor's ledger joins the telemetry. Without it every fault
     propagates as before."""
     _validate(icfg, max_batch_trajs, actor_backend, actor_mode,
-              transport, env_name, spmd_devices=spmd_devices)
+              transport, env_name, spmd_devices=spmd_devices,
+              exchange=exchange)
     env = make_env(env_name) if isinstance(env_name, str) else env_name
     if arch is None:
         from repro_torch.core.driver import small_arch
@@ -199,6 +203,13 @@ def _setup(
         if obs.profile_steps:
             from repro_torch.obs.sink import ProfileHook
             profile = ProfileHook(obs.profile_steps, obs.profile_dir)
+    if spmd_devices:
+        # SPMD learner: the Learner sees a collective exchange and runs
+        # its step on this many ranks (the mesh, its device check and the
+        # group live in distributed/spmd.py and launch/mesh.py). The
+        # exchange moves no byte: it numbers rounds and books latency.
+        from repro_torch.distributed.group import CollectiveExchange
+        exchange = CollectiveExchange(spmd_devices, trace=trace)
     learner = Learner(
         arch=arch, icfg=icfg, num_actions=env.num_actions,
         num_envs=num_envs, num_actors=num_actors, transport=None,

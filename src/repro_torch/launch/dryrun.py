@@ -19,9 +19,16 @@ there is no buffer assignment); ``collectives`` is ``{}`` and
 reference's 256/512 devices; ``cost`` is the eager count, whose view
 ``cost_view`` states. ``lower_s`` is the trace's seconds.
 
-The reference's ``--moe-impl`` and ``--remat-off`` name variants the
-port does not have (expert parallelism is ROADMAP.md item 15C; the port
-has no remat): either ends the run with a ``SystemExit`` that says so.
+``--moe-impl`` picks the MoE layers' dispatch, as the reference's:
+``dense_einsum`` is the one-device dispatch (every config's own), and
+``shard_map_a2a`` the expert-parallel route, which on meta counts one
+expert rank's work, its E/n experts with n the mesh's ``experts`` axis
+(meta has no process group, so the combine's sum is not counted). The
+expert-parallel route is forward only, so ``shard_map_a2a`` on a
+``train_*`` shape ends the run naming its backward's ROADMAP.md item
+(15E). Each record's ``moe_impl`` names the dispatch that ran. The port
+has no remat: ``--remat-off`` ends the run with a ``SystemExit`` that
+says so.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k \\
@@ -41,12 +48,14 @@ import torch
 def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
              out_dir: str, rules_name: str = "baseline",
              vtrace_impl: str = "auto",
-             mixed_precision: bool = False) -> dict:
+             mixed_precision: bool = False,
+             moe_impl: str = None) -> dict:
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import (HW, make_mesh_2d_tp,
                                          make_production_mesh)
+    from repro_torch.models.moe import expert_shards
     from repro_torch.roofline import analysis, flops_model, memory_model
     from repro_torch.sharding import profiles
     from repro_torch.sharding.rules import Rules
@@ -58,12 +67,29 @@ def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
         from repro_torch.configs.mistral_nemo_12b import swa_variant
         arch = swa_variant()
         used_name = arch.name
-    tag = rules_name + "+mp" if mixed_precision else rules_name
+    if arch.moe is not None and moe_impl:
+        import dataclasses
+        arch = arch.replace(moe=dataclasses.replace(
+            arch.moe, dispatch_impl=moe_impl))
+        if moe_impl == "shard_map_a2a" and shape.kind == "train":
+            raise SystemExit(
+                f"--moe-impl shard_map_a2a on {shape_name}: the "
+                f"expert-parallel MoE is forward only, its backward is not "
+                f"ported yet (ROADMAP.md, Queue 1 item 15E); train shapes "
+                f"run with --moe-impl dense_einsum")
+    tag = rules_name
+    if arch.moe is not None and moe_impl == "dense_einsum":
+        tag = rules_name + "+densemoe"
+    if mixed_precision:
+        tag = tag + "+mp"
+    expert_parallel = (arch.moe is not None and
+                       arch.moe.dispatch_impl == "shard_map_a2a")
     rec = {
         "arch": arch_name, "arch_used": used_name, "shape": shape_name,
         "mesh": "2x16x16" if multi_pod else "16x16",
-        # what ran: the port's MoE layers have one dispatch, on one device
-        "rules": tag, "moe_impl": "one_device" if arch.moe else None,
+        # what ran: the MoE layers' dispatch
+        "rules": tag,
+        "moe_impl": arch.moe.dispatch_impl if arch.moe else None,
         "status": "pending",
     }
     ok, why = steps_lib.pair_supported(arch, shape)
@@ -116,8 +142,12 @@ def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
                 f"device's batch shard (batch {meta['local_batch']} of "
                 f"{shape.global_batch}), the model axis unsharded; "
                 f"operators by torch's flop counter, kernels K1-K5 by "
-                f"their meta route; MoE layers on their one-device "
-                f"dispatch"),
+                f"their meta route; "
+                + (f"MoE layers on one expert rank's "
+                   f"{arch.moe.num_experts // expert_shards(rules)} of "
+                   f"{arch.moe.num_experts} experts, the combine's sum "
+                   f"not counted" if expert_parallel else
+                   "MoE layers on their one-device dispatch")),
             "collectives": roof.collectives,
             # hlo_* terms are the eager count (the reference's came from
             # XLA's cost analysis); analytic_* from roofline/flops_model.py
@@ -180,18 +210,14 @@ def main(argv=None) -> int:
     # 'auto' is what the card runs (K2 via its meta route); the
     # reference's default 'scan' is its XLA scan
     p.add_argument("--vtrace-impl", default="auto")
-    p.add_argument("--moe-impl", choices=["shard_map_a2a", "dense_einsum"])
+    p.add_argument("--moe-impl", choices=["shard_map_a2a", "dense_einsum"],
+                   help="the MoE layers' dispatch (default: the config's "
+                        "own, dense_einsum)")
     p.add_argument("--mixed-precision", action="store_true")
     p.add_argument("--remat-off", action="store_true")
     p.add_argument("--out", default="results/dryrun_torch")
     p.add_argument("--list", action="store_true")
     args = p.parse_args(argv)
-    if args.moe_impl:
-        raise SystemExit(
-            f"--moe-impl {args.moe_impl} is not ported yet (ROADMAP.md, "
-            f"Queue 1 item 15C: expert parallelism); the port's MoE "
-            f"layers run one dispatch, on one device, which every record "
-            f"names in moe_impl")
     if args.remat_off:
         raise SystemExit("--remat-off: the port has no remat (ROADMAP.md, "
                          "Queue 3), so every record is already without it")
@@ -203,7 +229,8 @@ def main(argv=None) -> int:
                 print(a.replace("_", "-"), s)
         return 0
     rec = run_pair(args.arch, args.shape, args.multi_pod, args.out,
-                   args.rules, args.vtrace_impl, args.mixed_precision)
+                   args.rules, args.vtrace_impl, args.mixed_precision,
+                   args.moe_impl)
     return 0 if rec["status"] in ("ok", "skip") else 1
 
 

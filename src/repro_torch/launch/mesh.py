@@ -7,7 +7,9 @@ only: it holds no device and no process group, so ``Rules`` resolve the
 specs of a 512-device mesh on any machine, and building one touches no
 device state. ``Mesh.device_mesh`` gives the
 ``torch.distributed.device_mesh.DeviceMesh`` of the same shape where a
-process group of that size is up.
+process group of that size is up, once, and keeps it: the SPMD learner's
+gradient mean and the expert-parallel MoE's sums run over its groups
+(``Mesh.group_mesh``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,9 @@ class Mesh:
 
     def device_mesh(self, device_type: str = "cuda"):
         """The DeviceMesh of this shape over the ranks of the default
-        process group, which must be up with exactly ``size`` ranks."""
+        process group, which must be up with exactly ``size`` ranks. Every
+        rank calls it (it builds one subgroup a mesh axis, collectively);
+        later calls return the same DeviceMesh."""
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
@@ -49,8 +53,21 @@ class Mesh:
             have = dist.get_world_size() if dist.is_initialized() else 0
             raise RuntimeError(f"a {self.sizes} mesh needs a process group "
                                f"of {self.size} ranks; {have} are up")
-        return init_device_mesh(device_type, self.sizes,
-                                mesh_dim_names=self.axis_names)
+        dm = self.group_mesh()
+        if dm is None:
+            dm = init_device_mesh(device_type, self.sizes,
+                                  mesh_dim_names=self.axis_names)
+            # a frozen dataclass: the DeviceMesh is kept beside the fields
+            object.__setattr__(self, "_device_mesh", dm)
+        return dm
+
+    def group_mesh(self):
+        """The DeviceMesh ``device_mesh`` built, while its process group is
+        up; else None (no group: a mesh of names and sizes only)."""
+        import torch.distributed as dist
+
+        dm = self.__dict__.get("_device_mesh")
+        return dm if dm is not None and dist.is_initialized() else None
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -76,12 +93,24 @@ def make_mesh(cfg: MeshConfig) -> Mesh:
 def make_data_mesh(num_devices: int, device="cuda") -> Mesh:
     """1-D ``('data',)`` mesh over ``num_devices`` devices of ``device``'s
     type: the SPMD data-parallel learner's topology (batch sharded on the
-    trajectory axis, params and optimizer state replicated)."""
+    trajectory axis, params and optimizer state replicated). On the card
+    a device is a card, one rank each, so ``num_devices`` is at most the
+    cards there are; on the CPU a device is a process (a gloo rank), so
+    any ``num_devices`` >= 1 is allowed, as ``XLA_FLAGS`` grows the
+    reference's CPU pool."""
     kind = torch.device(device).type
+    if kind == "cpu":
+        if num_devices < 1:
+            raise ValueError(f"spmd mesh needs 1..N devices, got "
+                             f"{num_devices} (on the CPU each device is "
+                             f"one gloo process, any N >= 1)")
+        return Mesh(("data",), (num_devices,))
     avail = torch.get_device_module(kind).device_count()
     if num_devices < 1 or num_devices > avail:
-        raise ValueError(f"spmd mesh needs 1..{avail} devices, got "
-                         f"{num_devices} ({avail} {kind} device(s) here)")
+        raise ValueError(
+            f"spmd mesh needs 1..{avail} devices, got {num_devices} (on "
+            f"the CPU, pass --device cpu: each device is then one gloo "
+            f"process)")
     return Mesh(("data",), (num_devices,))
 
 

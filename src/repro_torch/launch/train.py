@@ -97,9 +97,15 @@ API that trains them (``apply_train`` with the embeddings in the batch):
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
       --arch stablelm-1.6b --steps 4
 
-Values of the JAX CLI's flags whose paths are not ported yet (the SPMD
-learner) end the run with a ``SystemExit`` that names the ROADMAP.md
-Queue 1 item.
+``--learner-mode spmd`` keeps one learner process and runs its train
+step on ``--spmd-devices`` ranks of a ``torch.distributed`` group: NCCL
+with one card a rank, gloo on the CPU, where a rank is a process
+(``distributed/spmd.py``). ``--coord-addr`` brings a group up over hosts
+and, as the JAX CLI's stub, goes no further:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --runtime async --learner-mode spmd --spmd-devices 2 --smoke \
+      --steps 30
 """
 from __future__ import annotations
 
@@ -179,10 +185,32 @@ def _parser() -> argparse.ArgumentParser:
                         "refuses with the shard map; the actor spills)")
     p.add_argument("--learner-mode", default="process",
                    choices=["process", "spmd"],
-                   help="how data-parallel learning scales: 'process' is "
-                        "the hub/spoke learner group of --learners N; "
-                        "'spmd' (one learner process, the train step "
-                        "over a mesh of local devices) is not ported yet")
+                   help="how data-parallel learning scales (async "
+                        "runtime): 'process' is the hub/spoke learner "
+                        "group (--learners N spawns N processes "
+                        "exchanging gradients over TCP); 'spmd' keeps "
+                        "ONE learner process and runs the train step on "
+                        "--spmd-devices ranks of a torch.distributed "
+                        "group (step workers it spawns) - batch sharded "
+                        "on the trajectory axis, params replicated, "
+                        "gradients mean-reduced by an all-reduce inside "
+                        "the step (NCCL, one card a rank; gloo on the "
+                        "CPU). Same update math as a --learners N group "
+                        "at equal global batch")
+    p.add_argument("--spmd-devices", type=int, default=0,
+                   help="device count for --learner-mode spmd (0 = every "
+                        "card; on the CPU, 0 = 1). On the CPU each device "
+                        "is one gloo process, so any N >= 1 runs")
+    p.add_argument("--coord-addr", default="",
+                   help="multi-host stub: HOST:PORT of rank 0 of a "
+                        "torch.distributed group over --num-hosts hosts. "
+                        "Brings the group up (NCCL on the card, gloo on "
+                        "the CPU) before any device use; single-host runs "
+                        "leave it empty")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="total participating hosts for --coord-addr")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this host's rank for --coord-addr")
     p.add_argument("--grad-stale-s", type=float, default=180.0,
                    help="learner-group stale-grad deadline: the hub "
                         "reduces a round without a learner that missed "
@@ -345,12 +373,29 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _unported(flag: str, item: str, name: str) -> SystemExit:
-    return SystemExit(f"{flag} is not ported yet (ROADMAP.md, Queue 1 item "
-                      f"{item}: {name})")
+def _multi_host(args) -> None:
+    """The multi-host stub (``--coord-addr``): bring the default process
+    group up over ``tcp://{coord_addr}``, ``num_hosts`` ranks, this one
+    ``host_id``, before anything touches the card. As the reference's
+    ``jax.distributed`` stub, it goes no further: nothing else of the run
+    spans the hosts."""
+    import torch.distributed as dist
+
+    if args.num_hosts < 1 or not (0 <= args.host_id < args.num_hosts):
+        raise SystemExit(f"--coord-addr needs --num-hosts >= 1 and "
+                         f"0 <= --host-id < num_hosts, got "
+                         f"{args.num_hosts}/{args.host_id}")
+    cuda = torch.device(args.device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://{args.coord_addr}",
+                            world_size=args.num_hosts, rank=args.host_id)
+    devices = torch.cuda.device_count() if cuda else 1
+    print(f"torch.distributed up: host {args.host_id}/{args.num_hosts} "
+          f"coordinator={args.coord_addr} backend={backend} "
+          f"devices={devices * args.num_hosts} (local {devices})")
 
 
-def _refuse_unported(args) -> None:
+def _check_spmd(args) -> None:
     if args.learner_mode == "spmd":
         if args.runtime != "async":
             raise SystemExit("--learner-mode spmd requires "
@@ -359,8 +404,6 @@ def _refuse_unported(args) -> None:
             raise SystemExit("--learner-mode spmd keeps ONE learner "
                              "process; drop --learners (device "
                              "parallelism comes from --spmd-devices)")
-    if args.learner_mode == "spmd":
-        raise _unported("--learner-mode spmd", "15C", "the SPMD learner")
 
 
 def _build_obs(args):
@@ -442,7 +485,21 @@ def train(argv: Optional[List[str]] = None,
         # remote actor mode: every run parameter arrives in the
         # connection handshake, so none of the learner flags apply here
         return _run_remote_actors(args)
-    _refuse_unported(args)
+    if not args.coord_addr:
+        return _train(args, on_update)
+    import torch.distributed as dist
+
+    _multi_host(args)
+    try:
+        return _train(args, on_update)
+    finally:
+        # the group this run brought up goes down with it
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, on_update):
+    _check_spmd(args)
     if on_update is not None and (args.runtime != "async" or
                                   args.learners > 1):
         raise ValueError("on_update is a hook of --runtime async with one "
@@ -566,6 +623,10 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         return _run_group(args, env, arch, icfg, transport, device)
     listen_addr = (_parse_hostport(args.listen, default_host="0.0.0.0")
                    if args.listen else None)
+    spmd_devices = 0
+    if args.learner_mode == "spmd":
+        spmd_devices = args.spmd_devices or (
+            torch.cuda.device_count() if device.type == "cuda" else 1)
     specs = bb.backbone_specs(arch, env.num_actions)
     print(f"arch={arch.name} params={common.param_count(specs):,} "
           f"env={env.name} actions={env.num_actions} runtime=async "
@@ -573,7 +634,9 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
           f"{args.actor_mode}) transport={transport} "
           f"queue={args.queue_capacity}/{args.queue_policy} "
           f"max_batch_trajs={args.max_batch_trajs} "
-          f"donate={not args.no_donate}")
+          f"donate={not args.no_donate}"
+          + (f" learner_mode=spmd spmd_devices={spmd_devices}"
+             if spmd_devices else ""))
     print(f"device={device}" + (f" ({torch.cuda.get_device_name(device)})"
                                 if device.type == "cuda" else ""))
     initial_params, initial_opt, start_step = None, None, 0
@@ -630,7 +693,8 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
         queue_capacity=args.queue_capacity, queue_policy=args.queue_policy,
         max_batch_trajs=args.max_batch_trajs, donate=not args.no_donate,
         infer_flush_timeout_s=args.infer_flush_ms / 1e3,
-        vtrace_impl=args.vtrace_impl, seed=args.seed, arch=arch,
+        vtrace_impl=args.vtrace_impl, spmd_devices=spmd_devices,
+        seed=args.seed, arch=arch,
         initial_params=initial_params, initial_opt_state=initial_opt,
         start_step=start_step, on_update=on_update, obs=_build_obs(args),
         supervise=args.supervise,
@@ -642,6 +706,9 @@ def _run_async(args, env, arch, icfg, device, hook) -> AsyncRun:
     print(f"final return(100) = {tracker.mean_return():.3f}")
     keys = TELEMETRY_KEYS + tuple(k for k in ("inference", "replay")
                                   if k in tel)
+    if "group" in tel:
+        # spmd runs carry the group section (the collective backend)
+        keys += ("group", "exchange")
     print("telemetry:", json.dumps({k: tel[k] for k in keys},
                                    default=float))
     if args.telemetry_json:

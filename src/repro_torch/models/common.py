@@ -62,7 +62,7 @@ def _init_leaf(spec: Spec, gen: torch.Generator) -> torch.Tensor:
     raise ValueError(f"unknown init {spec.init}")
 
 
-def init_params(specs: Tree, seed: int, device="cpu") -> Tree:
+def init_params(specs: Tree, seed: int, device="cpu", keep=None) -> Tree:
     """JAX-layout float32 tensors drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``.
 
@@ -70,9 +70,21 @@ def init_params(specs: Tree, seed: int, device="cpu") -> Tree:
     gives other numbers than the JAX package, from the same distributions,
     and a CUDA generator gives other numbers than the CPU one. Drawing on
     the card keeps a 46 GB tree (mistral-nemo-12b in float32) off the
-    host."""
+    host.
+
+    ``keep(path, spec, leaf)``, if given, gets each leaf as soon as it is
+    drawn (``path`` its tuple of keys) and returns what the tree keeps: a
+    rank of an expert-parallel group keeps its slice of each expert leaf,
+    so it never holds the whole tree. The draws are the same either way:
+    one walk, in ``tree_map``'s sorted-key order, draws every leaf."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return tree_map(lambda s: _init_leaf(s, gen), specs)
+    keep = keep or (lambda path, spec, leaf: leaf)
+
+    def draw(tree, path):
+        if isinstance(tree, dict):
+            return {k: draw(tree[k], path + (k,)) for k in sorted(tree)}
+        return keep(path, tree, _init_leaf(tree, gen))
+    return draw(specs, ())
 
 
 def abstract_params(specs: Tree) -> Tree:

@@ -292,7 +292,8 @@ def test_cli_group_checkpoint_rules(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--learners", "2", "--learner-mode", "spmd"],
      "keeps ONE learner process"),
-    (["--learner-mode", "spmd"], "item 15"),
+    (["--runtime", "sync", "--learner-mode", "spmd"],
+     "requires --runtime async"),
     (["--learners", "2", "--supervise", "--transport", "socket"],
      "requires --actor-backend remote"),
 ])

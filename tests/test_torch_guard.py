@@ -7,6 +7,7 @@ kernel against its plain version.
 This file imports no jax, so it also runs where only the port is
 installed: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_guard.py`` on the card."""
+import json
 import os
 import subprocess
 import sys
@@ -47,6 +48,7 @@ def test_port_imports_no_jax_and_no_repro_module():
         "'repro_torch.distributed.socket_transport', "
         "'repro_torch.distributed.netserve', "
         "'repro_torch.distributed.group', "
+        "'repro_torch.distributed.spmd', "
         "'repro_torch.distributed.transport', 'repro_torch.obs.http', "
         "'repro_torch.obs.trace', 'repro_torch.obs.sink', "
         "'repro_torch.models.rglru', 'repro_torch.configs.gemma_7b', "
@@ -98,17 +100,73 @@ def test_server_asked_for_cuda_raises_without_a_card(monkeypatch):
 _ASYNC = ["--runtime", "async"]
 
 
+_SPMD_RUN = ["--smoke", "--num-envs", "4", "--unroll", "5"]
+
+
+@pytest.mark.timeout_s(120)
 @pytest.mark.parametrize("argv,match", [
     (["--learner-mode", "spmd"], "requires --runtime async"),
     (_ASYNC + ["--learners", "2", "--learner-mode", "spmd"],
      "keeps ONE learner process"),
     (_ASYNC + ["--actor-backend", "remote", "--transport", "socket",
-               "--learner-mode", "spmd"], "item 15"),
-    (_ASYNC + ["--learner-mode", "spmd"], "item 15"),
+               "--learner-mode", "spmd"], 1),
+    (_ASYNC + ["--learner-mode", "spmd", "--spmd-devices", "2", "--steps",
+               "3"], 2),
 ])
-def test_unported_paths_exit_with_the_roadmap_item(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        train_lib.train(["--device", "cpu", "--steps", "1"] + argv)
+def test_unported_paths_exit_with_the_roadmap_item(argv, match, capsys):
+    """The SPMD learner's CLI: its two refusals are the JAX CLI's, and,
+    ported since, ``--learner-mode spmd`` runs as the JAX CLI's does (with
+    remote actors too) and ends printing the ``group`` section; an int
+    ``match`` is the spmd device count the run must report."""
+    argv = ["--device", "cpu", "--steps", "1"] + argv
+    if isinstance(match, str):
+        with pytest.raises(SystemExit, match=match):
+            train_lib.train(argv)
+        return
+    run = train_lib.train(argv + _SPMD_RUN)
+    out = capsys.readouterr().out
+    assert f"learner_mode=spmd spmd_devices={match}" in out
+    line = [x for x in out.splitlines() if x.startswith("telemetry: ")][-1]
+    tel = json.loads(line[len("telemetry: "):])
+    steps = run.telemetry["learner_updates"]
+    assert tel["group"] == {"num_learners": 1, "publisher": 0,
+                            "exchange_backend": "collective",
+                            "spmd_devices": match, "rounds": steps}
+    assert tel["exchange"]["rounds"] == steps
+
+
+@pytest.mark.parametrize("hosts", [["--num-hosts", "0"],
+                                   ["--num-hosts", "2", "--host-id", "2"]])
+def test_coord_addr_checks_its_hosts(hosts):
+    """The multi-host stub's validation exits, with the JAX CLI's
+    message, before any group is brought up."""
+    import torch.distributed as dist
+
+    with pytest.raises(SystemExit, match=r"--coord-addr needs --num-hosts "
+                       r">= 1 and 0 <= --host-id < num_hosts, got"):
+        train_lib.train(["--device", "cpu", "--coord-addr",
+                         "127.0.0.1:1"] + hosts)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.timeout_s(120)
+def test_coord_addr_brings_a_group_up_and_goes_no_further(capsys):
+    """One host: the stub brings the group up (gloo on the CPU) and says
+    so; the SPMD learner of one rank steps over it; the group goes down
+    with the run."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.spmd import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    run = train_lib.train(["--device", "cpu", "--coord-addr", addr,
+                           "--runtime", "async", "--learner-mode", "spmd",
+                           "--steps", "2"] + _SPMD_RUN)
+    out = capsys.readouterr().out
+    assert (f"torch.distributed up: host 0/1 coordinator={addr} "
+            f"backend=gloo devices=1 (local 1)") in out
+    assert run.telemetry["group"]["spmd_devices"] == 1
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "recurrentgemma-2b",

@@ -458,17 +458,51 @@ def test_dryrun_records_and_table(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--moe-impl", "dense_einsum"], r"item 15C"),
-    (["--moe-impl", "shard_map_a2a"], r"item 15C"),
-    (["--remat-off"], r"no remat \(ROADMAP\.md, Queue 3\)")])
+    (["--moe-impl", "dense_einsum"], "dense_einsum"),
+    (["--moe-impl", "shard_map_a2a"], "shard_map_a2a"),
+    (["--remat-off"], r"no remat \(ROADMAP\.md, Queue 3\)"),
+    (["--moe-impl", "shard_map_a2a", "--shape", "train_4k"],
+     r"forward only.*Queue 1 item 15E")])
 def test_dryrun_refuses_the_variants_the_port_lacks(tmp_path, argv, match):
-    """The reference's flags for variants the port does not have end the
-    run before anything is traced or written."""
+    """``--remat-off`` names a variant the port does not have, and the
+    expert-parallel MoE on a train shape its backward's ROADMAP.md item:
+    both end the run before anything is traced or written. Both
+    ``--moe-impl`` dispatches run olmoe's decode step, the record naming
+    which; the expert-parallel one counts one expert rank's E/n experts
+    (n = 16, the model axis), so the two records' FLOPs differ by exactly
+    15/16 of the one-device dispatch's expert products."""
     from repro_torch.launch import dryrun
-    with pytest.raises(SystemExit, match=match):
-        dryrun.main(["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
-                     "--out", str(tmp_path)] + argv)
-    assert not os.listdir(tmp_path)
+    from repro_torch.models import moe as moe_lib
+
+    base_argv = ["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
+                 "--out", str(tmp_path)]
+    if "--remat-off" in argv or "--shape" in argv:
+        with pytest.raises(SystemExit, match=match):
+            dryrun.main(base_argv + argv)
+        assert not os.listdir(tmp_path)
+        return
+    assert dryrun.main(base_argv + argv) == 0
+    tag = "baseline+densemoe" if match == "dense_einsum" else "baseline"
+    with open(tmp_path / f"olmoe-1b-7b_decode_32k_pod1_{tag}.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["moe_impl"] == match
+    if match == "dense_einsum":
+        assert rec["cost_view"].endswith("on their one-device dispatch")
+        return
+    assert "one expert rank's 4 of 64 experts" in rec["cost_view"]
+    assert dryrun.main(base_argv + ["--moe-impl", "dense_einsum"]) == 0
+    with open(tmp_path / "olmoe-1b-7b_decode_32k_pod1_baseline+densemoe"
+              ".json") as f:
+        dense = json.load(f)
+    cfg = registry.get_config("olmoe-1b-7b")
+    m = cfg.moe
+    b_local = base.INPUT_SHAPES["decode_32k"].global_batch // 16
+    cap = 2 * moe_lib._capacity(b_local, cfg)
+    # up, gate and down: 2 * E * cap * d * ff FLOPs each, a layer
+    experts = cfg.num_layers * 3 * 2 * m.num_experts * cap * \
+        cfg.d_model * cfg.d_ff
+    assert dense["cost"]["flops_per_device"] - \
+        rec["cost"]["flops_per_device"] == experts * 15 // 16
 
 
 def test_chip_smoke_dryrun_figures_are_jax_models():

@@ -80,8 +80,11 @@ def test_shm_transport_round_trips_items_with_wire_counters(codec):
         assert isinstance(t, ShmTransport) and not t.rejects_at_put
         seen = []
         t.on_item = seen.append
+        # capacity 4 leaves the wire one credit: each put waits for the
+        # drain thread to read the previous buffer, so it gets the gets'
+        # deadline, not the default 0.1 s
         for i in range(3):
-            assert t.put(_item(i, actor_id=i))
+            assert t.put(_item(i, actor_id=i), timeout=10)
         got = [t.get(timeout=10) for _ in range(3)]
         assert [g.param_version for g in got] == [0, 1, 2]
         for i, g in enumerate(got):

@@ -222,7 +222,9 @@ def test_a_frame_cut_mid_write_is_a_torn_tail_never_data():
 def test_supervision_and_groups_name_their_roadmap_items():
     """Supervision is ported: the transport takes the reaper's deadline
     and elastic membership (its snapshot shows both, the reaper thread
-    ends with it). The SPMD learner still names its item."""
+    ends with it). The SPMD learner is ported too: it refuses, with the
+    reference's messages, a device count below one and a hub/spoke
+    exchange beside its own."""
     import threading
 
     t = SocketTransport(heartbeat_timeout_s=5.0, elastic=True)
@@ -236,9 +238,16 @@ def test_supervision_and_groups_name_their_roadmap_items():
         t.close()
     assert not any(th.name == "socket-reaper"
                    for th in threading.enumerate())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    from repro_torch.distributed import NullExchange
+    from repro_torch.distributed import runtime
+
+    with pytest.raises(ValueError, match="spmd_devices must be >= 1"):
         run_async_training("bandit", _icfg(), num_envs=4, steps=1,
-                           spmd_devices=2, device="cpu")
+                           spmd_devices=-1, device="cpu")
+    with pytest.raises(ValueError, match="cannot combine with a hub/spoke "
+                       "exchange"):
+        runtime._setup("bandit", _icfg(), 4, spmd_devices=2,
+                       exchange=NullExchange(), device="cpu")
 
 
 def _no_orphans(t0):
