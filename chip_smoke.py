@@ -121,9 +121,10 @@ exception and a nonzero exit:
    100 above the first 500 by more than 0.15 and above -0.3, trajectories
    over the wire.
 6q. Remote actors over loopback TCP: unroll mode with ``--wire-codec
-   bf16`` and inference mode, each at full width for ``REMOTE_STEPS``
-   updates with K2 once an update; no decode error and no torn tail, and
-   the bf16 wire carries under 1/1.5 of the raw bytes.
+   bf16`` (the params pulled bf16-encoded, the actors acting on the
+   decoded ones) and inference mode, each at full width for
+   ``REMOTE_STEPS`` updates with K2 once an update; no decode error and
+   no torn tail, and the bf16 wire carries under 1/1.5 of the raw bytes.
 6r. A learner group at full width: ``--runtime async --learners 2`` on
    catch with impala-shallow (32 envs, unroll 20, 2 actor threads, one a
    learner, batches of up to 4) for ``GROUP_STEPS`` rounds: identical
@@ -399,6 +400,28 @@ exception and a nonzero exit:
     held to 23b's one-device route at ``LOGITS_RTOL``, each MoE layer's
     update as in 23b, K4 16 at the prefill and K5 16 a decode step in
     each rank, counted over exactly the served steps.
+27d. granite-moe-1b-a400m's learner step at its published widths and all
+    24 layers, f32, its 32 experts split 16 and 16 over the same pair
+    (``build_steps(...)["train"]`` under ``Rules`` on a (1, 2) mesh, the
+    expert-parallel MoE's backward), on a ``_stub_batch`` of
+    ``TRAIN_SPLIT_B`` x ``MAIN_T``: each rank first takes the one-device
+    route (``dense_einsum``) from the same seed and keeps its share of
+    that route's gradients and updated params; then draws only its
+    experts, and its gradients (the learner's ``grad_step`` under the
+    rules) and its update by the step are held leaf by leaf to the
+    one-device route's at ``TRAIN_SPLIT_BAR`` of each leaf's largest
+    magnitude (the update beyond one float32 rounding of the param),
+    its clip's global norm to the whole tree's; K2 once, in the step,
+    counted over exactly the step.
+28. The twins of ``examples/`` (``TWIN_RUNS``): quickstart (K2),
+    vtrace_ablation, train_100m (K5 in the token actor, K2) and
+    serve_actors (K4, K5), each a process of its own, with the flags a
+    user would type at cut step counts (``TWIN_BOOT`` runs the script
+    and writes its kernel counts and shapes, zero at its start),
+    started (niced) with phase 27's pair; each must exit 0, print its last
+    line, and launch the kernels its path runs as many times as
+    ``_twin_want`` says. After phase 27, every kernel shape they
+    launched at is held to its plain version (``phase_twin_shapes``).
 
 TF32 is off for cuDNN convolutions and cuBLAS matmuls in every phase, so
 the card computes in full float32 like the reference. It exits nonzero
@@ -456,17 +479,17 @@ BANDIT_STEPS = 150
 BANDIT_BAR = 0.6
 # the full-width async runs (phases 6a, 6c, 6i, 6j, 6n, 6o: unroll mode,
 # replay, chase replay, inference mode, process actors, with the same
-# settings) take 35 updates, the remote loopback runs (6q, three of them)
-# 35 too: at 400 the whole script ran 818 s on one H100, at 200 661-736 s
+# settings) take 30 updates, the remote loopback runs (6q) 30 too: at
+# 400 the whole script ran 818 s on one H100, at 200 661-736 s
 # before the learner groups (6r-6v) came, 801-851 s at 80 with
 # supervision (6y-6z), and with the serving phases 20-24 it ran 892-1040
-# s at 50, too close to the 1200 s budget on a slow host (PERF.md,
-# section 4). An
+# s at 50, too close to the 1200 s budget on a slow host, then 35
+# (PERF.md, section 4). An
 # async run's timed window starts at update steps - 2 * ASYNC_WINDOW -
 # ASYNC_PROFILED. The JAX acceptance bars (phases 6b, 6k, 6p) keep their
 # 400
-ASYNC_STEPS, BAR_STEPS = 35, 400
-REMOTE_STEPS = 35
+ASYNC_STEPS, BAR_STEPS = 30, 400
+REMOTE_STEPS = 30
 
 
 def _async_argv(env: str, steps: int, *extra: str):
@@ -487,13 +510,13 @@ REPLAY_ARGV = ASYNC_ARGV + ["--replay-fraction", "0.5", "--replay-reuse",
                             "2"]
 # tests/test_replay.py's bar: 240 updates, last 20 > first 20 + 0.15
 REPLAY_BAR_STEPS, REPLAY_CLIMB = 240, 0.15
-SYNC_REPLAY_STEPS = 50
+SYNC_REPLAY_STEPS = 30
 CKPT_EVERY = 10
 # tests/test_process_actors.py's bar: late - early > 0.15, late > -0.3
 CATCH_CLIMB, CATCH_LATE = 0.15, -0.3
 # slice 8: the new envs, chase at full width, inference mode, multi-task
 ENV_B, ENV_STEPS = 32, 100
-CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 40, ASYNC_STEPS
+CHASE_SYNC_STEPS, CHASE_ASYNC_STEPS = 30, ASYNC_STEPS
 CHASE_REPLAY_ARGV = _async_argv("chase", CHASE_ASYNC_STEPS,
                                 "--replay-fraction", "0.5",
                                 "--replay-reuse", "2")
@@ -513,7 +536,7 @@ REMOTE_RUNS = [("remote unroll bf16", REMOTE_ARGV + ["--wire-codec",
 # the bf16 wire's raw bytes over its wire bytes must pass this
 WIRE_DIET = 1.5
 # slice 10: learner groups at full width, one actor thread a learner
-GROUP_LEARNERS, GROUP_STEPS, GROUP_PROC_STEPS = 2, 40, 30
+GROUP_LEARNERS, GROUP_STEPS, GROUP_PROC_STEPS = 2, 30, 24
 GROUP_ARGV = _async_argv("catch", GROUP_STEPS, "--learners", "2")
 # 6s-6t: one run, mostly its workers' start-up: process actors, replay at
 # the paper's half and the group's metrics port
@@ -860,6 +883,45 @@ PAIR_TIMEOUT_S = 300
 # phase 23b's first batch (tokens, sampled actions, logits) on the host:
 # 27c's one-device route
 SAVED_SERVE = {}
+# phase 27d: granite-moe-1b-a400m's learner step, its experts split over
+# the pair, on a stub batch of TRAIN_SPLIT_B x MAIN_T; each leaf's
+# gradient and update held to the one-device route at TRAIN_SPLIT_BAR of
+# the leaf's largest magnitude (PERF.md, section 6: the expert sums' f32
+# order is the only expected gap)
+TRAIN_SPLIT = "granite-moe-1b-a400m"
+TRAIN_SPLIT_B = 8
+TRAIN_SPLIT_BAR = 1e-4
+# phase 28: the twins of examples/ run on the card, the flags a user
+# would type; each a process, started with phase 27's pair
+TWIN_RUNS = [("quickstart", ["--steps", "20"]),
+             ("vtrace_ablation", ["--steps", "5"]),
+             ("train_100m", ["--steps", "10"]),
+             ("serve_actors", [])]
+TWIN_TIMEOUT_S, TWIN_NICE = 240, 5
+# runs a twin as ``python examples/<name>_torch.py <flags>`` would, then
+# writes the kernels' launch counts of its process (zero at its start)
+TWIN_BOOT = (
+    "import json, runpy, sys, torch\n"
+    "out, sys.argv = sys.argv[1], sys.argv[2:]\n"
+    "from repro_torch.kernels import decode_attention as dk, "
+    "flash_attention as fk, linear_scan as lk, vtrace as vk\n"
+    "runpy.run_path(sys.argv[0], run_name='__main__')\n"
+    "import time\n"
+    "end = time.time()\n"
+    "fns = {'vtrace': vk.vtrace, 'loss_vtrace': vk.loss_vtrace, "
+    "'linear_scan': lk.linear_scan, "
+    "'flash_attention': fk.flash_attention, "
+    "'decode_attention': dk.decode_attention}\n"
+    "with open(out, 'w') as f:\n"
+    "    json.dump({'end': end, "
+    "'launches': {k: fn.launches for k, fn in fns.items()}, "
+    "'shapes': {k: [[str(x) if isinstance(x, torch.dtype) else x "
+    "for x in shape] for shape in fn.shapes] for k, fn in fns.items()}}, "
+    "f)\n")
+TWIN_DIR = ROOT / "build" / "chip_smoke_twins"
+# the kernels' shapes in phase 28's processes, held to their plain
+# versions afterwards (phase_twin_shapes)
+TWIN_SHAPES = {}
 
 
 def _card_line() -> str:
@@ -1809,8 +1871,8 @@ def phase_process_bar(dev) -> float:
 
 
 def phase_remote(vk, dev) -> int:
-    """Remote actors over loopback TCP (6q), three runs; returns K2's
-    launches over them."""
+    """Remote actors over loopback TCP (6q), the runs of ``REMOTE_RUNS``;
+    returns K2's launches over them."""
     k2 = 0
     for what, argv in REMOTE_RUNS:
         run, launches, before, update_ms, prof = _async_run(
@@ -4305,37 +4367,45 @@ def phase_serve_path_shapes(lk, fk, dk, dev):
           f"{sorted(PATH_SHAPES['flash_attention'], key=str)}, K5 at "
           f"{sorted(PATH_SHAPES['decode_attention'], key=str)}; not in "
           f"phases 9, 10 and 15, checked now: {todo}")
-    from repro_torch.models.attention import decode_bias
-
-    errs = {"linear_scan": 0.0, "flash_attention": 0.0,
-            "decode_attention": 0.0}
+    err3 = 0.0
     for t, n, init in todo["linear_scan"]:
         a, b, h0 = _scan_inputs(t, n, t + n, dev)
         h0 = h0 if init else None
-        errs["linear_scan"] = max(errs["linear_scan"], _check(
+        err3 = max(err3, _check(
             f"K3 path (T,N)={(t, n)} h0={init}", [lk.linear_scan(a, b, h0)],
             [lk.linear_scan_plain(a, b, h0)]))
-    for n, (b, t, s, h, kh, d, causal, window, dt) in \
-            enumerate(todo["flash_attention"]):
+    err4, err5 = _hold_attention(fk, dk, dev, todo["flash_attention"],
+                                 todo["decode_attention"], "path")
+    return err3, err4, err5
+
+
+def _hold_attention(fk, dk, dev, k4_shapes, k5_shapes, what: str):
+    """K4 at each (b, t, s, h, kh, d, causal, window, dtype) and K5 at
+    each (b, h, kh, s, d, dtype), on seeded inputs, against their plain
+    versions (K5 with every slot valid, as a served cache's). Returns the
+    worst errors (K4, K5)."""
+    from repro_torch.models.attention import decode_bias
+
+    err4 = err5 = 0.0
+    for n, (b, t, s, h, kh, d, causal, window, dt) in enumerate(k4_shapes):
         q = _rand((b, t, h, d), 500 + 3 * n, dt, dev)
         k = _rand((b, s, kh, d), 501 + 3 * n, dt, dev)
         v = _rand((b, s, kh, d), 502 + 3 * n, dt, dev)
-        errs["flash_attention"] = max(errs["flash_attention"], _attn_check(
-            f"K4 path {(b, t, s, h, kh, d, causal, window, dt)}",
+        err4 = max(err4, _attn_check(
+            f"K4 {what} {(b, t, s, h, kh, d, causal, window, dt)}",
             fk.flash_attention(q, k, v, causal, window),
             fk.flash_attention_plain(q, k, v, causal, window)))
-    for n, (b, h, kh, s, d, dt) in enumerate(todo["decode_attention"]):
+    for n, (b, h, kh, s, d, dt) in enumerate(k5_shapes):
         q = _rand((b, h, d), 600 + 3 * n, dt, dev)
         k = _rand((b, s, kh, d), 601 + 3 * n, dt, dev)
         v = _rand((b, s, kh, d), 602 + 3 * n, dt, dev)
         bias = decode_bias(s, s, 0, b, dev)
-        errs["decode_attention"] = max(errs["decode_attention"], _attn_check(
-            f"K5 path {(b, h, kh, s, d, dt)}",
+        err5 = max(err5, _attn_check(
+            f"K5 {what} {(b, h, kh, s, d, dt)}",
             dk.decode_attention(q, k, v, bias),
             dk.decode_attention_plain(q, k, v, bias)))
     torch.cuda.synchronize()
-    return (errs["linear_scan"], errs["flash_attention"],
-            errs["decode_attention"])
+    return err4, err5
 
 
 # ---------------------------------------------------------------------------
@@ -5718,9 +5788,142 @@ def _pair_experts(rank: int, fk, dk, dev, job):
             "logits0": logits[0].float().cpu().numpy()}
 
 
+def _leaf_gap(got, want) -> float:
+    """max |got - want| over max |want| (max |got| where want is 0)."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    return err / scale if scale > 0 else err
+
+
+def _pair_train(rank: int, vk, dev):
+    """Phase 27d on one rank of the pair: granite-moe-1b-a400m's learner
+    step at its published widths and all its layers, f32, its experts
+    split over the pair's ``(1, 2)`` ``("data", "model")`` mesh
+    (``build_steps`` under ``Rules``, ``dispatch_impl='shard_map_a2a'``).
+    First the one-device route (``dense_einsum``, every expert) from the
+    same seed: its gradients and its params after one step, of which the
+    rank keeps its share (its experts' slices and the replicated rest);
+    then the rank draws only its experts, takes its gradients through the
+    learner's ``grad_step`` under the rules, and one step; each leaf's
+    gradient and update (params after less before) against its share of
+    the one-device route's, K2 counted over exactly the step."""
+    import dataclasses
+
+    from repro_torch import params as params_lib
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import learner as learner_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import backbone as bb
+    from repro_torch.models import common
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding.rules import Rules, use_rules
+
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_SPLIT).replace(dtype="float32")
+    ep = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                             dispatch_impl="shard_map_a2a"))
+    mesh = Mesh(("data", "model"), (1, 2))
+    coord = mesh.device_mesh("cuda").get_local_rank("model")
+    rules = Rules(mesh)
+    na = steps_lib.NUM_ACTIONS
+    specs = params_lib.flatten(bb.backbone_specs(cfg, na))
+    names = list(specs)
+    e = cfg.moe.num_experts // 2
+    expert_dim = {k: sp.logical.index("experts") for k, sp in specs.items()
+                  if moe_lib.expert_leaf(tuple(k.split("/")), sp)}
+
+    def share(k, x):
+        x = x.detach()
+        if k in expert_dim:
+            x = x.narrow(expert_dim[k], coord * e, e)
+        return x.clone()
+
+    def draw(keep=None, requires_grad=True):
+        return params_lib.from_jax(common.init_params(
+            bb.backbone_specs(cfg, na), 0, dev, keep=keep), dev,
+            requires_grad)
+
+    steps = steps_lib.build_steps(ep, rules)
+    icfg = steps["icfg"]
+    batch = _stub_batch(cfg, TRAIN_SPLIT_B, MAIN_T, na, dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grad_step, apply_step, opt = learner_lib.build_grad_apply_steps(
+        cfg, icfg, na)
+    p = draw()
+    g, _ = grad_step(p, batch)
+    want_g = {k: share(k, x) for k, x in zip(names, g)}
+    p, o, m = apply_step(p, opt.init(p), 0, list(g))
+    del g
+    want_p = {k: share(k, x) for k, x in params_lib.flatten(p).items()}
+    want_norm = float(m["opt/grad_norm"])
+    del p, o, m
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.empty_cache()
+
+    keep = moe_lib.rank_expert_keep(rules, coord)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q = draw(keep)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    n_held = sum(x.numel() for x in params_lib.tree_leaves(q))
+    ep_grad, _, _ = learner_lib.build_grad_apply_steps(ep, icfg, na)
+    t0 = time.perf_counter()
+    with use_rules(rules):
+        ge, _ = ep_grad(q, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    g_gap = {k: _leaf_gap(x, want_g[k]) for k, x in zip(names, ge)}
+    del ge, want_g
+    opt_state = steps["optimizer"].init(q)
+    torch.cuda.synchronize()
+    vk.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    q, opt_state, m = steps["train"](q, opt_state, 0, batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = (vk.vtrace.launches, vk.loss_vtrace.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    del opt_state
+    init = params_lib.flatten(draw(keep, requires_grad=False))
+    u_gap, net_gap, p_gap, rep_sum = {}, {}, {}, 0
+    for k, x in params_lib.flatten(q).items():
+        x, want, x0 = x.detach(), want_p[k], init[k]
+        u_gap[k] = _leaf_gap(x - x0, want - x0)
+        # the same beyond one rounding of the param: an update of ~1e-6
+        # added to a param of ~1e-2 keeps ~1e-2 of it in float32
+        top = torch.maximum(x0.abs(), want.abs())
+        ulp = torch.nextafter(top, torch.full_like(top, math.inf)) - top
+        scale = float((want - x0).abs().max())
+        excess = float(((x - want).abs() - ulp).clamp(min=0).max())
+        net_gap[k] = excess / scale if scale > 0 else excess
+        p_gap[k] = _leaf_gap(x, want)
+        del top, ulp
+        if k not in expert_dim:
+            # the replicated leaves' bits, summed: equal on both ranks
+            rep_sum += int(x.view(torch.int32).to(torch.int64).sum())
+    loss = float(m["loss/total"])
+    return {"coord": coord, "g_gap": g_gap, "u_gap": u_gap,
+            "net_gap": net_gap, "p_gap": p_gap, "grad_s": grad_s,
+            "norm": (float(m["opt/grad_norm"]), want_norm),
+            "experts": sorted(expert_dim), "launches": launches,
+            "loss": loss, "aux": float(m["loss/moe_aux"]),
+            "n_held": n_held, "held": held, "peak": peak,
+            "dense_peak": dense_peak, "dense_s": dense_s,
+            "step_ms": start.elapsed_time(end), "rep_sum": rep_sum}
+
+
 def _pair_rank(rank: int, addr: str, job, conn) -> None:
     """One rank of phase 27's pair (spawned): the gloo group of two on the
-    one card, 27a, then 27c; the results, or the traceback, up its pipe."""
+    one card, 27a, 27c, then 27d; the results, or the traceback, up its
+    pipe."""
     import datetime
     import traceback
 
@@ -5749,6 +5952,9 @@ def _pair_rank(rank: int, addr: str, job, conn) -> None:
         t0 = time.perf_counter()
         out["c"] = _pair_experts(rank, fk, dk, dev, job)
         out["c_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["d"] = _pair_train(rank, vk, dev)
+        out["d_s"] = time.perf_counter() - t0
         dist.destroy_process_group()
         conn.send(("ok", out))
         status = 0
@@ -5777,13 +5983,147 @@ def _rel_tree(got, want) -> float:
     return err / scale
 
 
+def _flag(flags, name: str, default: int) -> int:
+    return int(flags[flags.index(name) + 1]) if name in flags else default
+
+
+def _twin_want(name: str, flags) -> dict:
+    """The launches a twin's run makes, from its flags and defaults:
+    quickstart K2 a step; vtrace_ablation K2 a step of its two V-trace
+    runs (the other corrections run no V-trace, and the sync loop's
+    replay batch takes the fused loss as any batch); train_100m K5 a
+    layer and actor step, K2 a step; serve_actors K4 a layer at the
+    prefill, K5 a layer and decode step."""
+    from repro_torch.configs.registry import get_smoke_config
+
+    want = dict.fromkeys(("vtrace", "loss_vtrace", "linear_scan",
+                          "flash_attention", "decode_attention"), 0)
+    if name == "quickstart":
+        want["loss_vtrace"] = _flag(flags, "--steps", 500)
+    elif name == "vtrace_ablation":
+        want["loss_vtrace"] = 2 * _flag(flags, "--steps", 400)
+    elif name == "train_100m":
+        steps = _flag(flags, "--steps", 200)
+        want["loss_vtrace"] = steps
+        # the twin's LAYERS, 10
+        want["decode_attention"] = 10 * steps * _flag(flags, "--unroll",
+                                                      16)
+    elif name == "serve_actors":
+        layers = get_smoke_config("mistral-nemo-12b").num_layers
+        # the twin's DECODE_STEPS, 32
+        want["flash_attention"] = layers
+        want["decode_attention"] = layers * 32
+    return want
+
+
+def _twins_start():
+    """Phase 28's processes, one a twin, started together."""
+    shutil.rmtree(TWIN_DIR, ignore_errors=True)
+    TWIN_DIR.mkdir(parents=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    runs = []
+    for name, flags in TWIN_RUNS:
+        out = open(TWIN_DIR / f"{name}.txt", "w")
+        argv = [f"examples/{name}_torch.py", *flags]
+        # niced: phase 27's pair and 27b, on the same cores, go first
+        proc = subprocess.Popen(
+            [sys.executable, "-c", TWIN_BOOT, str(TWIN_DIR / f"{name}.json"),
+             *argv], cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(TWIN_NICE))
+        runs.append({"name": name, "flags": flags, "argv": argv,
+                     "proc": proc, "out": out, "t0": time.time()})
+    return runs
+
+
+def _twins_stop(runs) -> None:
+    """Kills phase 28's processes still running and closes their
+    output files."""
+    for r in runs:
+        if r["proc"].poll() is None:
+            r["proc"].kill()
+        r["proc"].wait()
+        r["out"].close()
+
+
+def _twins_finish(runs) -> dict:
+    """Waits for phase 28's processes (killing any left at
+    ``TWIN_TIMEOUT_S``), checks each one's exit, last line and launches
+    (``_twin_want``), prints what each printed; returns the launches."""
+    t0 = min(r["t0"] for r in runs)
+    try:
+        while any(r["proc"].poll() is None for r in runs) and \
+                time.time() - t0 < TWIN_TIMEOUT_S:
+            time.sleep(0.05)
+    finally:
+        _twins_stop(runs)
+    last = {"quickstart": "done.",
+            "vtrace_ablation": "Expected qualitative ordering",
+            "train_100m": "final return(100) = ",
+            "serve_actors": "values sample: "}
+    total = {}
+    for r in runs:
+        name = r["name"]
+        text = (TWIN_DIR / f"{name}.txt").read_text()
+        lines = text.strip().splitlines()
+        what = f"28 python {' '.join(r['argv'])}"
+        if r["proc"].returncode != 0 or not lines or \
+                not lines[-1].startswith(last[name]):
+            raise AssertionError(f"{what}: exit {r['proc'].returncode}, "
+                                 f"output:\n{text[-3000:]}")
+        with open(TWIN_DIR / f"{name}.json") as f:
+            rec = json.load(f)
+        got, r["s"] = rec["launches"], rec["end"] - r["t0"]
+        for k, shapes in rec["shapes"].items():
+            TWIN_SHAPES.setdefault(k, set()).update(
+                tuple(getattr(torch, x[6:]) if isinstance(x, str)
+                      and x.startswith("torch.") else x for x in shape)
+                for shape in shapes)
+        want = _twin_want(name, r["flags"])
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        print(f"{what}: its run ended {r['s']:.1f} s after its process "
+              f"started (with phase 27 at work), exit 0; launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+              + "; it printed:")
+        for line in lines:
+            print(f"    {line}")
+    return total
+
+
+def phase_twin_shapes(vk, fk, dk, dev):
+    """After phase 28: every shape its processes launched K1, K2, K4 or K5
+    at (``TWIN_SHAPES``) held to the plain version, K1 and K2 as phases 3
+    and 4 hold theirs, K4 and K5 as phase 24. Returns the worst errors
+    (K1, K2, K4, K5)."""
+    got = {k: sorted(TWIN_SHAPES.get(k, ()), key=str)
+           for k in ("vtrace", "loss_vtrace", "flash_attention",
+                     "decode_attention", "linear_scan")}
+    if got["linear_scan"]:
+        raise AssertionError(f"28: K3 launched at {got['linear_scan']}")
+    print(f"28 shapes: K1 {got['vtrace']}, K2 {got['loss_vtrace']}, K4 "
+          f"{got['flash_attention']}, K5 {got['decode_attention']}; held "
+          f"to their plain versions now")
+    e1 = phase_k1(vk, dev, got["vtrace"]) if got["vtrace"] else 0.0
+    e2 = phase_k2(vk, dev, got["loss_vtrace"])
+    e4, e5 = _hold_attention(fk, dk, dev, got["flash_attention"],
+                             got["decode_attention"], "twin")
+    return e1, e2, e4, e5
+
+
 def phase_spmd(vk, fk, dk, dev):
-    """Phase 27: the SPMD learner and expert parallelism. One pair of
-    ranks is spawned for 27a and 27c (``_pair_rank``); while they start,
-    this process runs 27b, the CLI's SPMD learner (one NCCL rank, the
-    JAX CLI's defaults, ``ASYNC_STEPS`` updates, K2 counted over exactly
-    the run), and 27a's one-rank routes (``_spmd_oracle``). Returns the
-    launches of K2, K4 and K5 on these paths."""
+    """Phases 27 and 28: the SPMD learner, expert parallelism and the
+    twins of ``examples/``. One pair of ranks is spawned for 27a, 27c and
+    27d (``_pair_rank``), and phase 28's processes with it
+    (``_twins_start``); while they start, this process runs 27b, the
+    CLI's SPMD learner (one NCCL rank, the JAX CLI's defaults,
+    ``ASYNC_STEPS`` updates, K2 counted over exactly the run), and 27a's
+    one-rank routes (``_spmd_oracle``). Returns the launches of every
+    kernel on these paths."""
     import multiprocessing as mp
 
     from repro_torch.distributed.spmd import free_port
@@ -5801,6 +6141,7 @@ def phase_spmd(vk, fk, dk, dev):
            "logits": [lg.numpy() for lg in SAVED_SERVE["logits"]],
            "num_actions": SAVED_SERVE["num_actions"]}
     conns, procs = [], []
+    twins = _twins_start()
     for r in range(2):
         parent, child = ctx.Pipe()
         proc = ctx.Process(target=_pair_rank, args=(r, addr, job, child),
@@ -5849,7 +6190,10 @@ def phase_spmd(vk, fk, dk, dev):
             if status != "ok":
                 raise AssertionError(f"phase 27 rank {r} failed:\n{got}")
             results[r] = got
+        pair_s = time.perf_counter() - t_all
+        twin_launches = _twins_finish(twins)
     finally:
+        _twins_stop(twins)
         for proc in procs:
             proc.join(timeout=30)
             if proc.exitcode is None:
@@ -5905,14 +6249,84 @@ def phase_spmd(vk, fk, dk, dev):
               f"routed differently; prefill {c['prefill_ms']:.3f} ms, "
               f"decode step {med:.3f} ms (median of "
               f"{len(c['decode_ms'])})")
-    laps = {r: (g["up_s"], g["a_s"], g["c_s"]) for r, g in results.items()}
+    k2 += _check_train_split(results)
+    laps = {r: (g["up_s"], g["a_s"], g["c_s"], g["d_s"])
+            for r, g in results.items()}
     print(f"phase 27 laps: 27b {b_s:.1f} s and the one-rank routes "
-          f"{o_s:.1f} s in this process; ranks (group up, 27a, 27c) s "
+          f"{o_s:.1f} s in this process; ranks (group up, 27a, 27c, 27d) s "
           + ", ".join(f"{r}: " + "/".join(f"{x:.1f}" for x in v)
                       for r, v in laps.items())
-          + f"; {time.perf_counter() - t_all:.1f} s in all; {card}")
-    return {"loss_vtrace": k2_cli + k2, "flash_attention": k4,
-            "decode_attention": k5}
+          + f"; the pair's results in {pair_s:.1f} s, phase 28's "
+          f"processes done {time.perf_counter() - t_all:.1f} s in; {card}")
+    out = {"loss_vtrace": k2_cli + k2, "flash_attention": k4,
+           "decode_attention": k5}
+    for name, count in twin_launches.items():
+        out[name] = out.get(name, 0) + count
+    return out
+
+
+def _check_train_split(results) -> int:
+    """Phase 27d's checks and lines: each rank's gradients within
+    ``TRAIN_SPLIT_BAR`` of the one-device route's, leaf by leaf, and its
+    update too beyond one float32 rounding of each param; its clip's
+    norm the whole tree's, the replicated leaves equal on both ranks, K2
+    once and K1 never. Returns K2's launches."""
+    sums = {got["d"]["rep_sum"] for got in results.values()}
+    k2, fails = 0, []
+    for r, got in sorted(results.items()):
+        d = got["d"]
+        worst = {}
+        for what in ("g_gap", "u_gap", "net_gap", "p_gap"):
+            gaps = d[what]
+            bad = {k: v for k, v in gaps.items()
+                   if not v <= TRAIN_SPLIT_BAR}
+            if bad and what in ("g_gap", "net_gap"):
+                fails.append(f"27d rank {r}: {what} over the bar "
+                             f"{TRAIN_SPLIT_BAR} at "
+                             f"{sorted(bad.items(), key=lambda kv: -kv[1])}")
+            split = [v for k, v in gaps.items() if k in d["experts"]]
+            router = [v for k, v in gaps.items() if "router" in k]
+            rest = [v for k, v in gaps.items()
+                    if k not in d["experts"] and "router" not in k]
+            worst[what] = (max(split), max(router), max(rest))
+        norm, want_norm = d["norm"]
+        rel = abs(norm - want_norm) / want_norm
+        if not rel <= TRAIN_SPLIT_BAR or d["launches"] != (0, 1) or \
+                not math.isfinite(d["loss"]):
+            fails.append(f"27d rank {r}: clip norm {norm} against "
+                         f"{want_norm} (rel {rel:.3e}), (K1, K2) "
+                         f"{d['launches']} (expected (0, 1)), loss "
+                         f"{d['loss']}")
+        k2 += d["launches"][1]
+        e = d["coord"]
+
+        def row(key):
+            return "/".join(f"{x:.3e}" for x in worst[key])
+        print(f"27d {TRAIN_SPLIT} learner step, experts {16 * e}-"
+              f"{16 * e + 15} of 32 on rank {r} (build_steps under Rules, "
+              f"{len(d['g_gap'])} leaves, batch {TRAIN_SPLIT_B} x "
+              f"{MAIN_T + 1} tokens, f32): {d['n_held']:,} parameters held "
+              f"({d['held'] / 1e9:.2f} GB), the step's own peak "
+              f"{d['peak'] / 1e9:.2f} GB (the one-device route before it "
+              f"{d['dense_peak'] / 1e9:.2f} GB, {d['dense_s']:.1f} s); "
+              f"against the one-device route, max |gap| over the leaf's "
+              f"max |value|, worst of (expert slices, router, the rest): "
+              f"gradients {row('g_gap')} (bar {TRAIN_SPLIT_BAR}); update "
+              f"{row('u_gap')}, beyond one float32 rounding of the param "
+              f"{row('net_gap')} (bar {TRAIN_SPLIT_BAR}); params "
+              f"{row('p_gap')}; clip norm {norm:.6e} against "
+              f"{want_norm:.6e} (rel {rel:.3e}); loss {d['loss']:.4f}, moe "
+              f"aux {d['aux']:.4f}; K1 {d['launches'][0]} K2 "
+              f"{d['launches'][1]}; the gradients {d['grad_s']:.2f} s, the "
+              f"step {d['step_ms']:.3f} ms (CUDA events)")
+    if len(sums) != 1:
+        fails.append("27d: the ranks' replicated leaves differ after the "
+                     "step")
+    if fails:
+        raise AssertionError("\n".join(fails))
+    print("27d: the replicated leaves are bit for bit equal on both ranks "
+          "after the step")
+    return k2
 
 
 class _Laps:
@@ -6129,7 +6543,11 @@ def main() -> int:
     lap("26")
     for name, count in phase_spmd(vk, fk, dk, dev).items():
         launches[name] += count
-    lap("27")
+    lap("27-28")
+    e1, e2, e4, e5 = phase_twin_shapes(vk, fk, dk, dev)
+    err_k1, err_k2, err_k4, err_k5 = (max(err_k1, e1), max(err_k2, e2),
+                                      max(err_k4, e4), max(err_k5, e5))
+    lap("28 shapes")
     print(f"times above: {card}")
 
     meta = {

@@ -143,7 +143,8 @@ def _leaf_slots(tree: Tree) -> list:
                          else [(tree, k)])]
 
 
-def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False):
+def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False,
+              grad_norm: Callable = None):
     """``apply_step(params, opt_state, step, grads) -> (params, opt_state,
     metrics)``: clip ``grads`` (leaves in flatten order, or a tree like
     ``params``) by their global norm and apply the optimizer, in place.
@@ -157,7 +158,9 @@ def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False):
     beside the old one. ``mixed``: ``params`` is the bf16 live tree,
     ``opt_state = {"opt": <optimizer state>, "master": <f32 tree>}``, and
     each live leaf is then set to ``bf16(master)``; otherwise the master
-    is ``params`` and the state is ``opt_state``."""
+    is ``params`` and the state is ``opt_state``. ``grad_norm(params,
+    grads)`` gives the global norm where the gradients of a rank are not
+    the whole tree's (the expert-parallel step's); by default, theirs."""
     lr_fn = opt_lib.linear_schedule(cfg.learning_rate, 0.0,
                                     cfg.lr_anneal_steps)
 
@@ -171,8 +174,9 @@ def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False):
         master = tree_leaves(opt_state["master"]) if mixed else live
         state = opt_state["opt"] if mixed else opt_state
         slots = {k: _leaf_slots(v) for k, v in state.items()}
-        grad_norm = opt_lib.global_norm(tree_unflatten_like(params, grads))
-        scale = opt_lib.clip_scale(grad_norm, cfg.grad_clip_norm)
+        norm = opt_lib.global_norm(tree_unflatten_like(params, grads)) \
+            if grad_norm is None else grad_norm(params, grads)
+        scale = opt_lib.clip_scale(norm, cfg.grad_clip_norm)
         for i, (p, m) in enumerate(zip(live, master)):
             at = {k: s[i] for k, s in slots.items()}
             g = grads[i].to(torch.float32) * scale
@@ -185,7 +189,7 @@ def _apply_fn(cfg: ImpalaConfig, optimizer, mixed: bool = False):
                 m.add_(update.to(m.dtype))
                 if mixed:
                     p.copy_(m)
-        return params, opt_state, {"opt/grad_norm": grad_norm, "opt/lr": lr}
+        return params, opt_state, {"opt/grad_norm": norm, "opt/lr": lr}
 
     return apply_step
 
@@ -208,6 +212,7 @@ def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
                      optimizer: opt_lib.Optimizer = None,
                      vtrace_impl: str = "auto", impl: str = "auto",
                      mixed_precision: bool = False,
+                     grad_norm: Callable = None,
                      ) -> Tuple[Callable[..., Tuple[Tree, Tree, Dict]],
                                 opt_lib.Optimizer]:
     """vtrace_impl: 'auto' picks the fused kernel (K2) for CUDA params and
@@ -221,12 +226,15 @@ def build_train_step(arch_cfg: ArchConfig, cfg: ImpalaConfig,
     master leaves updated in place, the state's leaves replaced in its
     dicts (``_apply_fn``). The live tree is
     ``common.cast(master, torch.bfloat16)`` of a master whose leaves
-    require grad, as ``params.from_jax`` gives them."""
+    require grad, as ``params.from_jax`` gives them.
+
+    grad_norm: the clip's global norm where a rank holds part of the
+    tree (``_apply_fn``)."""
     optimizer = _optimizer(cfg, optimizer)
     grad_step = _grad_fn(build_loss_fn(arch_cfg, cfg, num_actions,
                                        vtrace_impl, impl=impl))
-    return _step_fn(grad_step, _apply_fn(cfg, optimizer, mixed_precision)
-                    ), optimizer
+    return _step_fn(grad_step, _apply_fn(cfg, optimizer, mixed_precision,
+                                         grad_norm)), optimizer
 
 
 def build_replay_loss_fn(arch_cfg: ArchConfig, cfg: ImpalaConfig,

@@ -1,6 +1,7 @@
 """Evaluation metrics (the port's own copy of ``repro.core.metrics``):
-the mean capped human-normalised score (paper §5.3 / Appendix B) and
-episode-return accounting from trajectory streams."""
+the mean capped and the median human-normalised scores (paper §5.3 /
+Appendix B, Table 4) and episode-return accounting from trajectory
+streams."""
 from __future__ import annotations
 
 from typing import List, Sequence
@@ -17,6 +18,15 @@ def capped_normalised_score(scores: Sequence[float],
         denom = max(h - r, 1e-9)
         vals.append(min(1.0, (s - r) / denom))
     return float(np.mean(vals))
+
+
+def median_normalised_score(scores: Sequence[float],
+                            human: Sequence[float],
+                            random: Sequence[float]) -> float:
+    """Median human-normalised score (Atari-57 protocol, Table 4)."""
+    vals = [(s - r) / max(h - r, 1e-9)
+            for s, h, r in zip(scores, human, random)]
+    return float(np.median(vals))
 
 
 class EpisodeTracker:

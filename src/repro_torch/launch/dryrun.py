@@ -23,10 +23,9 @@ reference's 256/512 devices; ``cost`` is the eager count, whose view
 ``dense_einsum`` is the one-device dispatch (every config's own), and
 ``shard_map_a2a`` the expert-parallel route, which on meta counts one
 expert rank's work, its E/n experts with n the mesh's ``experts`` axis
-(meta has no process group, so the combine's sum is not counted). The
-expert-parallel route is forward only, so ``shard_map_a2a`` on a
-``train_*`` shape ends the run naming its backward's ROADMAP.md item
-(15E). Each record's ``moe_impl`` names the dispatch that ran. The port
+(meta has no process group, so the combine's sum is not counted); on a
+``train_*`` shape, that rank's forward and backward. Each record's
+``moe_impl`` names the dispatch that ran. The port
 has no remat: ``--remat-off`` ends the run with a ``SystemExit`` that
 says so.
 
@@ -71,12 +70,6 @@ def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
         import dataclasses
         arch = arch.replace(moe=dataclasses.replace(
             arch.moe, dispatch_impl=moe_impl))
-        if moe_impl == "shard_map_a2a" and shape.kind == "train":
-            raise SystemExit(
-                f"--moe-impl shard_map_a2a on {shape_name}: the "
-                f"expert-parallel MoE is forward only, its backward is not "
-                f"ported yet (ROADMAP.md, Queue 1 item 15E); train shapes "
-                f"run with --moe-impl dense_einsum")
     tag = rules_name
     if arch.moe is not None and moe_impl == "dense_einsum":
         tag = rules_name + "+densemoe"
@@ -109,6 +102,14 @@ def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
             arch, shape, mesh, rules, vtrace_impl=vtrace_impl,
             mixed_precision=mixed_precision)
         rec["lower_s"] = round(time.time() - t0, 1)
+        moe_view = "MoE layers on their one-device dispatch"
+        if expert_parallel:
+            moe_view = (f"MoE layers on one expert rank's "
+                        f"{arch.moe.num_experts // expert_shards(rules)} of "
+                        f"{arch.moe.num_experts} experts"
+                        + (", forward and backward" if shape.kind == "train"
+                           else "")
+                        + ", the combine's sum not counted")
         rec["compile_s"] = None
         mem_model = memory_model.estimate(arch, shape, rules)
         n_dev = 512 if multi_pod else 256
@@ -142,12 +143,7 @@ def run_pair(arch_name: str, shape_name: str, multi_pod: bool,
                 f"device's batch shard (batch {meta['local_batch']} of "
                 f"{shape.global_batch}), the model axis unsharded; "
                 f"operators by torch's flop counter, kernels K1-K5 by "
-                f"their meta route; "
-                + (f"MoE layers on one expert rank's "
-                   f"{arch.moe.num_experts // expert_shards(rules)} of "
-                   f"{arch.moe.num_experts} experts, the combine's sum "
-                   f"not counted" if expert_parallel else
-                   "MoE layers on their one-device dispatch")),
+                f"their meta route; " + moe_view),
             "collectives": roof.collectives,
             # hlo_* terms are the eager count (the reference's came from
             # XLA's cost analysis); analytic_* from roofline/flops_model.py

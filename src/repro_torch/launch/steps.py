@@ -183,13 +183,30 @@ def build_steps(arch: ArchConfig, rules: Rules, vtrace_impl: str = "auto",
       the policy logits it drew from;
 
     with the ``optimizer`` and the ``icfg``. Prefill and serve run under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``.
+
+    Where an MoE config's experts are split over the rules' mesh
+    (``dispatch_impl='shard_map_a2a'``), each rank holds its experts'
+    slices and the replicated rest: the train step clips to the whole
+    tree's global norm, its expert leaves' squares summed over the expert
+    axis (``expert_parallel_norm``), over the group that is up when the
+    step runs. Its batch axis must then be one rank: the data-parallel
+    mean of the gradients is the SPMD learner's
+    (``build_spmd_train_step``)."""
     icfg = make_impala_config()
+    grad_norm = expert_parallel_norm(arch, rules)
     train_step_raw, optimizer = learner_lib.build_train_step(
         arch, icfg, NUM_ACTIONS, vtrace_impl=vtrace_impl,
-        mixed_precision=mixed_precision)
+        mixed_precision=mixed_precision, grad_norm=grad_norm)
 
     def train_step(params, opt_state, step, batch):
+        if grad_norm is not None and _group_mesh(rules) is not None and \
+                memory_model.batch_shards(rules) > 1:
+            raise NotImplementedError(
+                f"the expert-parallel train step on a "
+                f"{dict(rules.mesh.shape)} mesh: its batch axis spans "
+                f"ranks, and the data-parallel mean of the gradients is "
+                f"the SPMD learner's (build_spmd_train_step)")
         with use_rules(rules):
             return train_step_raw(params, opt_state, step, batch)
 
@@ -213,6 +230,57 @@ def build_steps(arch: ArchConfig, rules: Rules, vtrace_impl: str = "auto",
 
     return {"train": train_step, "prefill": prefill_step,
             "serve": serve_step, "optimizer": optimizer, "icfg": icfg}
+
+
+def _group_mesh(rules: Rules):
+    """The rules' mesh's DeviceMesh while its process group is up, else
+    None (``Mesh.group_mesh``)."""
+    mesh = rules.mesh
+    return mesh.group_mesh() if hasattr(mesh, "group_mesh") else None
+
+
+def expert_parallel_norm(arch: ArchConfig, rules: Rules):
+    """The train step's ``grad_norm`` for ``arch`` under ``rules``: None
+    (the rank's own tree's norm) unless the experts are split over the
+    rules' mesh; then a function of ``(params, grads)`` that sums the
+    squares of the expert FFN leaves (``moe.expert_leaf``, the slices
+    ``rank_expert_keep`` cuts) over the expert axis and adds the
+    replicated leaves' once. It looks the group up on each call, as
+    ``moe._apply_moe_shard_map`` does: with none up, the gradients must be
+    ``meta`` (one expert rank's count, no collective), and their own norm
+    is the clip's."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.optim import optimizer as opt_lib
+    from repro_torch.params import flatten, tree_unflatten_like
+
+    if arch.moe is None or arch.moe.dispatch_impl != "shard_map_a2a" or \
+            moe.expert_shards(rules) == 1:
+        return None
+    experts = {k for k, spec in flatten(
+        bb.backbone_specs(arch, NUM_ACTIONS)).items()
+        if moe.expert_leaf(tuple(k.split("/")), spec)}
+
+    def norm(params, grads):
+        dm = _group_mesh(rules)
+        if dm is None:
+            if grads[0].device.type != "meta":
+                raise RuntimeError(
+                    f"the expert-parallel train step on a "
+                    f"{dict(rules.mesh.shape)} mesh clips over its process "
+                    f"group: bring it up and build the mesh's DeviceMesh "
+                    f"(Mesh.device_mesh) first")
+            return opt_lib.global_norm(tree_unflatten_like(params, grads))
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        keys = list(flatten(params))
+        split = torch.stack([q for k, q in zip(keys, sq, strict=True)
+                             if k in experts]).sum()
+        dist.all_reduce(split, group=dm.get_group(moe.expert_axis(rules)))
+        rest = [q for k, q in zip(keys, sq) if k not in experts]
+        return torch.sqrt(torch.stack(rest).sum() + split)
+
+    return norm
 
 
 # ---------------------------------------------------------------------------

@@ -23,10 +23,19 @@ tokens and its E/n experts (its coordinate on the ``experts`` axis),
 routes the tokens with the replicated router, dispatches and computes
 only its experts (``_dispatch_compute_combine``), and the partial outputs
 are summed over the expert axis's subgroup (the reference's ``psum``);
-the aux loss is averaged over the batch axis's. It is forward only: no
-executed path of the reference trains through it, and its backward needs
-the all-reduce pair around the shard, so grad-requiring inputs are
-refused (ROADMAP.md, Queue 1 item 15E).
+the aux loss is averaged over the batch axis's.
+
+Its backward gives each rank what ``jax.grad`` of the reference's
+``shard_map`` gives on that rank's shard. The expert sum's backward is
+the identity (each rank's partial gets the whole cotangent of its rows),
+and its reverse, around the tokens and gates that enter the rank's
+dispatch, sums their cotangents over the expert axis: each rank saw only
+its own experts' part. The router and the tokens also reach the aux
+loss, computed identically on every expert rank, so that part of their
+gradient is whole on each rank and is not summed. The aux loss's mean
+over the batch axis is differentiated as the reference's ``pmean`` (the
+mean of the ranks' cotangents). A replicated leaf's reduction over the
+batch axis is the train step's, as for every other leaf.
 """
 from __future__ import annotations
 
@@ -231,8 +240,6 @@ def _apply_moe_shard_map(params, x: torch.Tensor, cfg: ArchConfig, rules
     (``Mesh.device_mesh``), except on ``meta`` tensors, where the route
     counts one expert rank's work (coordinate 0, no collective), and on a
     mesh of one device, where no collective is needed."""
-    import torch.distributed as dist
-
     m = cfg.moe
     mesh = rules.mesh
     expert_ax = expert_axis(rules)
@@ -241,15 +248,6 @@ def _apply_moe_shard_map(params, x: torch.Tensor, cfg: ArchConfig, rules
     b, t, d = x.shape
     decode = t == 1
     names = ("up", "down", "gate") if "gate" in params else ("up", "down")
-    if torch.is_grad_enabled() and (x.requires_grad or any(
-            params[k]["kernel"].requires_grad
-            for k in names + ("router",))):
-        raise NotImplementedError(
-            "the expert-parallel MoE (dispatch_impl 'shard_map_a2a') is "
-            "forward only: its backward is not ported yet (ROADMAP.md, "
-            "Queue 1 item 15E: the all-reduce pair around the shard and "
-            "the router's gradient summed over the expert axis); run it "
-            "under torch.no_grad(), or train with 'dense_einsum'")
     dm = mesh.group_mesh() if hasattr(mesh, "group_mesh") else None
     if dm is None and x.device.type != "meta" and \
             n * _shards(mesh, batch_ax) > 1:
@@ -267,13 +265,17 @@ def _apply_moe_shard_map(params, x: torch.Tensor, cfg: ArchConfig, rules
     tok = xr.shape[1]
     gates, idx, aux = route(params, xr, cfg)
     cap = _capacity(tok, cfg) * (2 if decode else 1)
-    y = _dispatch_compute_combine(local_w, xr, gates, idx, cap, cfg,
+    split = dm is not None and n > 1
+    if split:
+        group = dm.get_group(expert_ax)
+        xr_in, gates_in = _SumGrads.apply(group, xr, gates)
+    else:
+        xr_in, gates_in = xr, gates
+    y = _dispatch_compute_combine(local_w, xr_in, gates_in, idx, cap, cfg,
                                   e_base, e_local)
-    if dm is not None and n > 1:
+    if split:
         # the reference's psum over the expert axis, summed in f32
-        total = y.to(torch.float32)
-        dist.all_reduce(total, group=dm.get_group(expert_ax))
-        y = total.to(y.dtype)
+        y = _Sum.apply(group, y)
     if decode:
         y = y.reshape(b, 1, d)
     aux = aux.to(torch.float32)
@@ -281,10 +283,69 @@ def _apply_moe_shard_map(params, x: torch.Tensor, cfg: ArchConfig, rules
         (batch_ax,) if isinstance(batch_ax, str) else batch_ax)
     for a in axes:
         if dm is not None and mesh.shape[a] > 1:
-            aux = aux.clone()
-            dist.all_reduce(aux, group=dm.get_group(a))
-            aux = aux / mesh.shape[a]
+            aux = _Mean.apply(dm.get_group(a), mesh.shape[a], aux)
     return y, aux
+
+
+def _all_reduce_f32(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, in f32, cast back to its dtype."""
+    import torch.distributed as dist
+
+    total = t.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(total, group=group)
+    return total.to(t.dtype)
+
+
+class _Sum(torch.autograd.Function):
+    """The expert partials' sum over the expert axis; backward the
+    identity, as ``jax.grad`` of the reference's ``psum`` with its output
+    replicated over that axis."""
+
+    @staticmethod
+    def forward(ctx, group, y):
+        return _all_reduce_f32(y, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity on the tokens and gates entering a rank's dispatch;
+    backward sums their cotangents over the expert axis."""
+
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) + tuple(
+            _all_reduce_f32(g, ctx.group) if need else None
+            for g, need in zip(gs, ctx.needs_input_grad[1:]))
+
+
+class _Mean(torch.autograd.Function):
+    """The aux loss's mean over a batch axis; backward the mean of the
+    ranks' cotangents (the reference's ``pmean`` is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, group, n, aux):
+        ctx.group, ctx.n = group, n
+        return _all_reduce_f32(aux, group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, _all_reduce_f32(g, ctx.group) / ctx.n
+
+
+def expert_leaf(path, spec) -> bool:
+    """Whether the leaf at ``path`` (its tuple of keys) with ``spec`` is
+    an expert FFN leaf (``up``, ``gate`` or ``down`` with an ``experts``
+    axis): a leaf the expert-parallel route holds a rank's slice of."""
+    return len(path) >= 2 and path[-2] in ("up", "gate", "down") and \
+        "experts" in spec.logical
 
 
 def rank_expert_keep(rules, coord: int):
@@ -297,9 +358,7 @@ def rank_expert_keep(rules, coord: int):
     ax = expert_axis(rules)
 
     def keep(path, spec, leaf):
-        if ax is None or len(path) < 2 or \
-                path[-2] not in ("up", "gate", "down") or \
-                "experts" not in spec.logical:
+        if ax is None or not expert_leaf(path, spec):
             return leaf
         place = rules.placements(spec.logical, spec.shape)[
             rules.mesh.axis_names.index(ax)]

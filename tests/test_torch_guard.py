@@ -83,6 +83,56 @@ def test_port_imports_no_jax_and_no_repro_module():
     assert int(r.stdout.strip()) >= 20     # every module was walked
 
 
+TWINS = ["quickstart", "vtrace_ablation", "train_100m", "serve_actors",
+         "multitask_pbt", "train_async", "train_multiproc", "train_remote"]
+
+
+def _twin_path(name):
+    return os.path.join(ROOT, "examples", f"{name}_torch.py")
+
+
+def test_example_twins_import_no_jax_and_no_repro_module():
+    """Import each ``examples/*_torch.py`` by its path in one fresh
+    interpreter (the ``__main__`` guard keeps its run from starting);
+    then neither jax, ``repro``/``repro.*`` nor ``ml_dtypes`` may be
+    loaded."""
+    assert sorted(f for f in os.listdir(os.path.join(ROOT, "examples"))
+                  if f.endswith("_torch.py")) == \
+        sorted(f"{n}_torch.py" for n in TWINS)
+    code = (
+        "import importlib.util, sys\n"
+        "for i, path in enumerate(sys.argv[1:]):\n"
+        "    spec = importlib.util.spec_from_file_location(f't{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code]
+                       + [_twin_path(n) for n in TWINS], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twins_asked_for_cuda_raise_without_a_card(monkeypatch,
+                                                           name):
+    """Each twin's ``--device`` defaults to cuda; without a card it
+    raises and does not carry on on the CPU."""
+    import importlib.util
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location(f"{name}_torch",
+                                                  _twin_path(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    argv = ["demo"] if name == "train_remote" else []
+    with pytest.raises(SystemExit, match="is_available"):
+        mod.main(argv)
+
+
 def test_trainer_asked_for_cuda_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="is_available"):

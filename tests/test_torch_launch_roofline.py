@@ -462,47 +462,79 @@ def test_dryrun_records_and_table(tmp_path):
     (["--moe-impl", "shard_map_a2a"], "shard_map_a2a"),
     (["--remat-off"], r"no remat \(ROADMAP\.md, Queue 3\)"),
     (["--moe-impl", "shard_map_a2a", "--shape", "train_4k"],
-     r"forward only.*Queue 1 item 15E")])
+     "shard_map_a2a")])
 def test_dryrun_refuses_the_variants_the_port_lacks(tmp_path, argv, match):
-    """``--remat-off`` names a variant the port does not have, and the
-    expert-parallel MoE on a train shape its backward's ROADMAP.md item:
-    both end the run before anything is traced or written. Both
-    ``--moe-impl`` dispatches run olmoe's decode step, the record naming
-    which; the expert-parallel one counts one expert rank's E/n experts
-    (n = 16, the model axis), so the two records' FLOPs differ by exactly
-    15/16 of the one-device dispatch's expert products."""
+    """``--remat-off`` names a variant the port does not have and ends the
+    run before anything is traced or written. Both ``--moe-impl``
+    dispatches run olmoe's decode step, the record naming which, and the
+    expert-parallel one also its ``train_4k`` step (forward and
+    backward). The expert-parallel route counts one expert rank's E/n
+    experts (n = 16, the model axis), so its record's FLOPs differ from
+    the one-device dispatch's by exactly 15/16 of the expert products:
+    their forward at decode, their forward and backward (three times the
+    forward: each product's input and weight gradients) at ``train_4k``.
+    The train record's analytic fields are the JAX package's models'."""
+    import dataclasses
+
     from repro_torch.launch import dryrun
     from repro_torch.models import moe as moe_lib
 
+    shape = argv[argv.index("--shape") + 1] if "--shape" in argv \
+        else "decode_32k"
     base_argv = ["--arch", "olmoe-1b-7b", "--shape", "decode_32k",
                  "--out", str(tmp_path)]
-    if "--remat-off" in argv or "--shape" in argv:
+    if "--remat-off" in argv:
         with pytest.raises(SystemExit, match=match):
             dryrun.main(base_argv + argv)
         assert not os.listdir(tmp_path)
         return
     assert dryrun.main(base_argv + argv) == 0
     tag = "baseline+densemoe" if match == "dense_einsum" else "baseline"
-    with open(tmp_path / f"olmoe-1b-7b_decode_32k_pod1_{tag}.json") as f:
+    with open(tmp_path / f"olmoe-1b-7b_{shape}_pod1_{tag}.json") as f:
         rec = json.load(f)
     assert rec["status"] == "ok" and rec["moe_impl"] == match
     if match == "dense_einsum":
         assert rec["cost_view"].endswith("on their one-device dispatch")
         return
     assert "one expert rank's 4 of 64 experts" in rec["cost_view"]
-    assert dryrun.main(base_argv + ["--moe-impl", "dense_einsum"]) == 0
-    with open(tmp_path / "olmoe-1b-7b_decode_32k_pod1_baseline+densemoe"
+    assert ("forward and backward" in rec["cost_view"]) == \
+        (shape == "train_4k")
+    assert dryrun.main(base_argv + ["--shape", shape, "--moe-impl",
+                                    "dense_einsum"]) == 0
+    with open(tmp_path / f"olmoe-1b-7b_{shape}_pod1_baseline+densemoe"
               ".json") as f:
         dense = json.load(f)
     cfg = registry.get_config("olmoe-1b-7b")
     m = cfg.moe
-    b_local = base.INPUT_SHAPES["decode_32k"].global_batch // 16
-    cap = 2 * moe_lib._capacity(b_local, cfg)
-    # up, gate and down: 2 * E * cap * d * ff FLOPs each, a layer
-    experts = cfg.num_layers * 3 * 2 * m.num_experts * cap * \
-        cfg.d_model * cfg.d_ff
+    in_shape = base.INPUT_SHAPES[shape]
+    b_local = in_shape.global_batch // 16
+    if shape == "train_4k":
+        # one dispatch row a sequence, each of seq_len tokens
+        rows, passes = b_local, 3
+        cap = moe_lib._capacity(in_shape.seq_len, cfg)
+    else:
+        rows, passes = 1, 1
+        cap = 2 * moe_lib._capacity(b_local, cfg)
+    # up, gate and down: 2 * E * cap * d * ff FLOPs each, a layer and row
+    experts = passes * rows * cfg.num_layers * 3 * 2 * m.num_experts * \
+        cap * cfg.d_model * cfg.d_ff
     assert dense["cost"]["flops_per_device"] - \
         rec["cost"]["flops_per_device"] == experts * 15 // 16
+    if shape != "train_4k":
+        return
+    j_cfg = j_registry.get_config("olmoe-1b-7b")
+    j_cfg = j_cfg.replace(moe=dataclasses.replace(
+        j_cfg.moe, dispatch_impl="shard_map_a2a"))
+    j_shape = j_base.INPUT_SHAPES[shape]
+    a_flops, a_bytes = j_flops.step_cost(j_cfg, j_shape, 256)
+    assert rec["analytic"]["flops_per_device"] == a_flops
+    assert rec["analytic"]["bytes_per_device"] == a_bytes
+    mm = dict(rec["memory_model"])
+    mm.pop("fits_80g")
+    want = j_memory.estimate(j_cfg, j_shape, j_rules.Rules(
+        mesh_lib.make_production_mesh()))
+    want.pop("fits_16g")
+    assert mm == want
 
 
 def test_chip_smoke_dryrun_figures_are_jax_models():
